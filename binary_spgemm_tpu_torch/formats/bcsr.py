@@ -1,0 +1,178 @@
+"""Boolean CSR (pattern-only) matrix container.
+
+Host-side, numpy only: ``indptr: int32[n+1]`` (int64 once the entry count
+passes the int32 domain), ``indices: int32[nnz]``, shape ``(n, m)``.  No value
+array; the accumulation semiring is OR.  The arrays, the random generator and
+the COO->CSR grouping are element-identical to ``binary_spgemm_tpu``'s, so both
+packages build the same matrix from the same seed.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["BCSR", "bcsr_from_arrays", "coo_to_csr_stable"]
+
+INDEX_DTYPE = np.int32
+
+# Row-pointer promotion threshold: an indptr whose total exceeds this is kept
+# int64 (int32 column indices + int64 row pointers).  The device kernels work
+# in the int32 domain (chunk-local pointers); only host row pointers widen.
+INDPTR_INT32_MAX = int(np.iinfo(np.int32).max)
+
+
+def coo_to_csr_stable(
+    rows: np.ndarray, cols: np.ndarray, n_rows: int, n_cols: int | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """Group COO entries by row with a *stable* (input-order-preserving)
+    scatter: entries that share a row keep their input order and duplicates
+    are not merged.  With ``n_cols`` the column indices are range-checked
+    too (a column >= ``n_cols`` would collide with the kernels' sentinels)."""
+    rows = np.asarray(rows, dtype=np.int64)
+    raw_cols = np.asarray(cols)
+    if len(raw_cols) and n_cols is not None:
+        cmin, cmax = raw_cols.min(), raw_cols.max()
+        if cmin < 0 or cmax >= n_cols:
+            raise ValueError(
+                f"column index out of range in COO->CSR: "
+                f"[{cmin}, {cmax}] outside [0, {n_cols})"
+            )
+    cols = raw_cols.astype(INDEX_DTYPE, copy=False)
+    if len(rows) and (rows.min() < 0 or rows.max() >= n_rows):
+        raise ValueError("row index out of range in COO->CSR")
+    ptr_dtype = np.int64 if len(rows) > INDPTR_INT32_MAX else INDEX_DTYPE
+    counts = np.bincount(rows, minlength=n_rows)
+    indptr = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    order = np.argsort(rows, kind="stable")
+    indices = cols[order]
+    return indptr.astype(ptr_dtype), indices.astype(INDEX_DTYPE)
+
+
+@dataclasses.dataclass
+class BCSR:
+    """Host-side boolean CSR pattern matrix (no values; OR semiring)."""
+
+    indptr: np.ndarray  # int32 [n_rows + 1] (int64 when nnz exceeds int32)
+    indices: np.ndarray  # int32 [nnz]
+    shape: tuple[int, int]
+
+    def __post_init__(self):
+        indptr = np.ascontiguousarray(self.indptr)
+        total = int(indptr[-1]) if len(indptr) else 0
+        ptr_dtype = np.int64 if total > INDPTR_INT32_MAX else INDEX_DTYPE
+        self.indptr = indptr.astype(ptr_dtype, copy=False)
+        self.indices = np.ascontiguousarray(self.indices, dtype=INDEX_DTYPE)
+        self.shape = (int(self.shape[0]), int(self.shape[1]))
+        n = self.shape[0]
+        if self.indptr.shape != (n + 1,):
+            raise ValueError(
+                f"indptr shape {self.indptr.shape} does not match n_rows={n}"
+            )
+        if self.indptr[0] != 0 or self.indptr[-1] != len(self.indices):
+            raise ValueError("indptr must start at 0 and end at nnz")
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indices.shape[0])
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @classmethod
+    def from_coo(
+        cls,
+        rows: np.ndarray,
+        cols: np.ndarray,
+        shape: tuple[int, int],
+        *,
+        transpose: bool = False,
+    ) -> "BCSR":
+        """Build from COO pairs, preserving input order within each row.
+        ``transpose=True`` groups by the second index (the CSR of the
+        transpose of the input pairs)."""
+        if transpose:
+            rows, cols = cols, rows
+            shape = (shape[1], shape[0])
+        indptr, indices = coo_to_csr_stable(rows, cols, shape[0], shape[1])
+        return cls(indptr, indices, shape)
+
+    @classmethod
+    def from_scipy(cls, mat) -> "BCSR":
+        mat = mat.tocsr()
+        return cls(
+            np.asarray(mat.indptr),  # __post_init__ picks int32/int64
+            mat.indices.astype(INDEX_DTYPE),
+            tuple(mat.shape),
+        )
+
+    @classmethod
+    def random(
+        cls, n_rows: int, n_cols: int, nnz_per_row: float, *, seed: int = 0
+    ) -> "BCSR":
+        """Random Bernoulli pattern matrix ~ MATLAB ``sprand(n, m, d/m) > 0``:
+        ~``nnz_per_row`` nonzeros per row, uniform positions, duplicates
+        merged."""
+        rng = np.random.default_rng(seed)
+        total_cells = n_rows * n_cols
+        density = min(nnz_per_row / n_cols, 1.0)
+        # Poisson-approximate the pre-dedup draw count so the post-dedup
+        # density matches sprand's
+        k = int(rng.poisson(total_cells * density))
+        if k == 0:
+            return cls(
+                np.zeros(n_rows + 1, INDEX_DTYPE),
+                np.zeros(0, INDEX_DTYPE),
+                (n_rows, n_cols),
+            )
+        lin = rng.integers(0, total_cells, size=k, dtype=np.uint64)
+        lin = np.unique(lin)
+        rows = (lin // np.uint64(n_cols)).astype(np.int64)
+        cols = (lin % np.uint64(n_cols)).astype(np.int64)
+        return cls.from_coo(rows, cols, (n_rows, n_cols))
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        data = np.ones(self.nnz, dtype=np.int64)
+        return sp.csr_matrix((data, self.indices, self.indptr), shape=self.shape)
+
+    def to_coo(self) -> tuple[np.ndarray, np.ndarray]:
+        rows = np.repeat(
+            np.arange(self.n_rows, dtype=np.int64), np.diff(self.indptr)
+        )
+        return rows, self.indices.astype(np.int64)
+
+    def is_canonical(self) -> bool:
+        """True when every row's columns are strictly ascending (sorted and
+        deduplicated) — the form every op here emits."""
+        if self.nnz <= 1:
+            return True
+        rows, cols = self.to_coo()
+        keys = rows * np.int64(self.n_cols) + cols
+        return bool(np.all(np.diff(keys) > 0))
+
+    def equals(self, other: "BCSR") -> bool:
+        return (
+            self.shape == tuple(other.shape)
+            and np.array_equal(self.indptr, other.indptr)
+            and np.array_equal(self.indices, other.indices)
+        )
+
+    def __repr__(self):
+        return f"BCSR(shape={self.shape}, nnz={self.nnz})"
+
+
+def bcsr_from_arrays(indptr, indices, shape) -> BCSR:
+    """A :class:`BCSR` from plain arrays (e.g. another package's matrix,
+    handed over as numpy ``indptr``/``indices`` and its shape).  The arrays
+    are copied, so the result shares no memory with the caller's."""
+    return BCSR(
+        np.array(indptr, copy=True), np.array(indices, copy=True), tuple(shape)
+    )

@@ -1,0 +1,141 @@
+"""Row-wise sorts of int32 ``[k, L]`` arrays: the batched engine's sort step.
+
+Two kernels written by hand for Hopper live in ``csrc/bitonic.cu``:
+
+* K1 :func:`bitonic_sort_rows` — each row sorted ascending (replaces
+  ``binary_spgemm_tpu/ops/bitonic.py::bitonic_sort_rows``);
+* K2 :func:`fused_sort_compress` — sort, left-neighbour dedup with
+  demote-to-``INT32_MAX`` of everything at or above ``limit``, sort again, in
+  one pass over each row (replaces ``fused_sort_compress`` there).
+
+Each wrapper launches its kernel for a CUDA tensor and counts the launch in
+its ``launches`` attribute; for a CPU tensor it computes the plain PyTorch
+version (``*_plain`` below) instead.  Any other device, a dtype other than
+int32, a tensor that is not 2-D and contiguous, or a row longer than
+:data:`MAX_L` raises — there is no fallback to ``torch.sort`` on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = [
+    "MAX_L",
+    "bitonic_sort_rows",
+    "bitonic_sort_rows_plain",
+    "fused_sort_compress",
+    "fused_sort_compress_plain",
+    "sort_rows",
+]
+
+INT32_MAX = (1 << 31) - 1
+
+# Longest row the kernels take: a row is padded to the next power of two in
+# one block's shared memory, and 2^15 int32 slots (128 KB) is the largest
+# power of two under the 227 KB a block may use.
+MAX_L = 1 << 15
+
+_SIG = {
+    "bitonic_sort_rows": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p,
+    ],
+    "fused_sort_compress": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ],
+}
+
+
+def _fn(name: str):
+    from .._build import load
+
+    fn = getattr(load("bitonic"), name)
+    if fn.argtypes is None:
+        fn.argtypes = _SIG[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x: torch.Tensor, what: str) -> None:
+    if x.dtype != torch.int32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(
+            f"{what} takes a contiguous 2-D int32 tensor, got "
+            f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
+        )
+    if x.shape[1] > MAX_L:
+        raise ValueError(
+            f"{what}: row length {x.shape[1]} exceeds the kernel's "
+            f"shared-memory limit {MAX_L}"
+        )
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def _launch(name: str, x: torch.Tensor, *extra: int) -> torch.Tensor:
+    out = torch.empty_like(x)
+    k, L = x.shape
+    if k == 0 or L == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _fn(name)(x.data_ptr(), out.data_ptr(), k, L, *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
+
+
+def bitonic_sort_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K1."""
+    return torch.sort(x, dim=1).values
+
+
+def bitonic_sort_rows(x: torch.Tensor) -> torch.Tensor:
+    """Sort each row of int32 ``[k, L]`` ``x`` ascending (K1)."""
+    _check(x, "bitonic_sort_rows")
+    if x.device.type == "cpu":
+        return bitonic_sort_rows_plain(x)
+    out = _launch("bitonic_sort_rows", x)
+    if x.numel():
+        bitonic_sort_rows.launches += 1
+    return out
+
+
+bitonic_sort_rows.launches = 0
+
+
+def fused_sort_compress_plain(x: torch.Tensor, limit: int) -> torch.Tensor:
+    """Plain PyTorch version of K2: sort, keep each entry that differs from
+    its left neighbour (position 0 always) and lies below ``limit``, demote
+    the rest to ``INT32_MAX``, sort again."""
+    s = torch.sort(x, dim=1).values
+    keep = s < limit
+    keep[:, 1:] &= s[:, 1:] != s[:, :-1]
+    return torch.sort(torch.where(keep, s, INT32_MAX), dim=1).values
+
+
+def fused_sort_compress(x: torch.Tensor, limit: int) -> torch.Tensor:
+    """K2: the packed sort-dedup-sort step as one kernel.  Returns the
+    compacted sorted keys (valid ascending prefix, ``INT32_MAX`` fill); the
+    per-row valid count is ``(out < limit).sum(1)``."""
+    _check(x, "fused_sort_compress")
+    limit = int(limit)
+    if not -(1 << 31) <= limit <= INT32_MAX:
+        raise ValueError(f"fused_sort_compress: limit {limit} is not int32")
+    if x.device.type == "cpu":
+        return fused_sort_compress_plain(x, limit)
+    out = _launch("fused_sort_compress", x, limit)
+    if x.numel():
+        fused_sort_compress.launches += 1
+    return out
+
+
+fused_sort_compress.launches = 0
+
+
+def sort_rows(x: torch.Tensor) -> torch.Tensor:
+    """Ascending value sort of each row of int32 ``[k, L]`` ``x`` — the
+    counterpart of ``jax.lax.sort(x, dimension=1, is_stable=False)``, through
+    K1 (no payload, so stability is moot)."""
+    return bitonic_sort_rows(x)

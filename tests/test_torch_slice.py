@@ -1,0 +1,157 @@
+"""The slice as a whole: ``auto_executor`` and ``spgemm`` end to end against
+the JAX package and scipy, the routes this slice does not port (each
+raises ``NotImplementedError``), the import boundary, and the default
+device."""
+import ast
+import inspect
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import binary_spgemm_tpu as jx
+from binary_spgemm_tpu.ops import ell as jx_ell
+
+import binary_spgemm_tpu_torch as tp
+from binary_spgemm_tpu_torch.ops import ell as tp_ell
+from binary_spgemm_tpu_torch.ops import spgemm as tp_sp
+from binary_spgemm_tpu_torch.utils.oracle import spgemm_oracle
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "binary_spgemm_tpu_torch"
+
+
+def to_port(m):
+    return tp.bcsr_from_arrays(m.indptr, m.indices, m.shape)
+
+
+def assert_same(j, t):
+    assert np.array_equal(j.indptr, t.indptr)
+    assert np.array_equal(j.indices, t.indices)
+
+
+def test_auto_executor_end_to_end():
+    ja = jx.BCSR.random(1 << 16, 1 << 16, 2.0, seed=31)  # >= 2^16 rows: batched
+    ta = to_port(ja)
+    assert tp_ell.prefer_batched(ta, ta) and jx_ell.prefer_batched(ja, ja)
+    jex = jx_ell.auto_executor(ja, ja)
+    tex = tp.auto_executor(ta, ta, device="cpu")
+    assert isinstance(tex, tp.EllSpGEMMExecutor) and tex.batched and jex.batched
+    assert (tex.n_chunks, tex.sort_pad, tex.pads) == (
+        jex.n_chunks, jex.sort_pad, jex.pads
+    )
+    c = tex.assemble(tex.run())
+    assert_same(jex.assemble(jex.run()), c)
+    assert c.equals(spgemm_oracle(ta, ta))
+
+
+def test_spgemm_end_to_end():
+    ja = jx.BCSR.random(1 << 16, 1 << 16, 6.5, seed=3)  # > HOST_MAX_FLOPS
+    ta = to_port(ja)
+    assert tp.spgemm_flops(ta, ta) > tp_sp.HOST_MAX_FLOPS
+    c = tp.spgemm(ta, ta, device="cpu")
+    assert_same(jx.spgemm(ja, ja), c)
+    assert c.equals(spgemm_oracle(ta, ta))
+    # the staged executor is cached on operand identity and device
+    ex = tp_ell.cached_executor(ta, ta, device="cpu")
+    assert tp_ell.cached_executor(ta, ta, device="cpu") is ex
+
+
+def test_spgemm_empty_operand():
+    a = tp.BCSR(np.zeros(5, np.int32), np.zeros(0, np.int32), (4, 6))
+    b = tp.BCSR.random(6, 3, 1.0, seed=1)
+    c = tp.spgemm(a, b, device="cpu")
+    assert c.shape == (4, 3) and c.nnz == 0
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tp.spgemm(b, b, device="cpu")
+
+
+def test_host_route_raises():
+    a = tp.BCSR.random(500, 500, 2.0, seed=1)  # far below HOST_MAX_FLOPS
+    with pytest.raises(NotImplementedError, match="host engine"):
+        tp.spgemm(a, a, device="cpu")
+
+
+def test_explicit_chunk_flops_raises():
+    a = tp.BCSR.random(500, 500, 2.0, seed=1)
+    with pytest.raises(NotImplementedError, match="ESC"):
+        tp.spgemm(a, a, chunk_flops=1 << 20, device="cpu")
+
+
+def test_giant_rows_raise(monkeypatch):
+    monkeypatch.setattr(tp_sp, "GIANT_ROW_FLOPS", 1)
+    a = tp.BCSR.random(500, 500, 2.0, seed=1)
+    with pytest.raises(NotImplementedError, match="column-windowed"):
+        tp.spgemm(a, a, device="cpu")
+
+
+def test_blocked_route_raises():
+    jb = jx.BCSR.random_blocked(4096, 128, 2.0, 0.3, seed=2)
+    from binary_spgemm_tpu.ops.bsr import maybe_bsr_executor as jx_screen
+
+    assert jx_screen(jb, jb) is not None  # the JAX package takes its MXU route
+    b = to_port(jb)
+    with pytest.raises(NotImplementedError, match="blocked"):
+        tp.auto_executor(b, b, device="cpu")
+    with pytest.raises(NotImplementedError, match="blocked"):
+        tp.spgemm(b, b, device="cpu")
+    from binary_spgemm_tpu.ops.bsr import block_clustering_ratio as jx_ratio
+    from binary_spgemm_tpu_torch.ops.bsr import block_clustering_ratio
+
+    assert block_clustering_ratio(b) == jx_ratio(jb)
+
+
+def test_unrolled_routes_raise(monkeypatch):
+    a = tp.BCSR.random(3000, 3000, 4.0, seed=1)  # few rows: unrolled plan
+    assert not tp_ell.prefer_batched(a, a)
+    with pytest.raises(NotImplementedError, match="unrolled"):
+        tp.auto_executor(a, a, device="cpu")
+    # the skew guard sends the JAX package to the unrolled plan too
+    monkeypatch.setattr(tp_ell, "prefer_batched", lambda a, b: True)
+    monkeypatch.setattr(tp_ell, "BATCHED_MAX_SLOTS", 1)
+    with pytest.raises(NotImplementedError, match="unrolled"):
+        tp.auto_executor(a, a, device="cpu")
+
+
+def test_past_the_resident_budget_raises(monkeypatch):
+    a = tp.BCSR.random(3000, 3000, 4.0, seed=1)
+    monkeypatch.setattr(tp_ell, "prefer_batched", lambda a, b: True)
+    monkeypatch.setattr(tp_ell, "AUTO_ELL_MAX_SLOTS", 0)
+    with pytest.raises(NotImplementedError, match="ESC"):
+        tp.auto_executor(a, a, device="cpu")
+
+
+def port_sources():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 10
+    return files
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    banned = ("jax", "jaxlib", "binary_spgemm_tpu")
+    for path in port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in banned, f"{path}: imports {name}"
+
+
+def test_entry_points_default_to_cuda():
+    for fn in (tp.spgemm, tp.auto_executor, tp.EllSpGEMMExecutor,
+               tp_ell.cached_executor):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    a = tp.BCSR.random(1 << 16, 1 << 16, 1.0, seed=1)
+    if torch.cuda.is_available():
+        ex = tp.EllSpGEMMExecutor(a, a, batched=True)
+        assert ex.er_all.device.type == "cuda"
+    else:  # no quiet switch to the CPU
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tp.EllSpGEMMExecutor(a, a, batched=True)
