@@ -113,6 +113,12 @@ class BCSR:
         )
 
     @classmethod
+    def from_dense(cls, dense: np.ndarray) -> "BCSR":
+        dense = np.asarray(dense) != 0
+        rows, cols = np.nonzero(dense)
+        return cls.from_coo(rows, cols, dense.shape)
+
+    @classmethod
     def random(
         cls, n_rows: int, n_cols: int, nnz_per_row: float, *, seed: int = 0
     ) -> "BCSR":
@@ -137,11 +143,113 @@ class BCSR:
         cols = (lin % np.uint64(n_cols)).astype(np.int64)
         return cls.from_coo(rows, cols, (n_rows, n_cols))
 
+    @classmethod
+    def banded(
+        cls,
+        n: int,
+        nnz_per_row: float,
+        bandwidth: int,
+        *,
+        seed: int = 0,
+        diagonal: bool = True,
+    ) -> "BCSR":
+        """Banded random pattern (a mesh-like, cage-class stand-in): the unit
+        diagonal (when ``diagonal``) plus Poisson-drawn offsets within
+        ``bandwidth`` of it, ~``nnz_per_row`` entries per row, deduplicated."""
+        rng = np.random.default_rng(seed)
+        extra = max(nnz_per_row - (1 if diagonal else 0), 0.0)
+        counts = rng.poisson(extra, n)
+        rows = np.repeat(np.arange(n, dtype=np.int64), counts)
+        off = rng.integers(-bandwidth, bandwidth + 1, len(rows))
+        cols = np.clip(rows + off, 0, n - 1)
+        if diagonal:
+            diag = np.arange(n, dtype=np.int64)
+            rows = np.concatenate([rows, diag])
+            cols = np.concatenate([cols, diag])
+        return cls.from_coo(rows, cols, (n, n)).sum_duplicates()
+
+    @classmethod
+    def random_blocked(
+        cls,
+        n: int,
+        block: int = 128,
+        blocks_per_row: float = 2.0,
+        inner_density: float = 0.3,
+        *,
+        seed: int = 0,
+    ) -> "BCSR":
+        """Block-clustered random pattern: ~``blocks_per_row`` nonzero
+        ``block x block`` tiles per block row, each filled Bernoulli
+        ``inner_density`` — the input class of the blocked route
+        (:func:`..ops.bsr.bsr_spgemm`)."""
+        rng = np.random.default_rng(seed)
+        nb = -(-n // block)
+        k = int(blocks_per_row * nb)
+        brows = rng.integers(0, nb, k)
+        bcols = rng.integers(0, nb, k)
+        keys = np.unique(brows.astype(np.int64) * nb + bcols)
+        parts_r, parts_c = [], []
+        for key in keys:
+            br, bc = divmod(int(key), nb)
+            h = min(block, n - br * block)
+            w = min(block, n - bc * block)
+            dense = rng.random((h, w)) < inner_density
+            rr, cc = np.nonzero(dense)
+            parts_r.append(rr + br * block)
+            parts_c.append(cc + bc * block)
+        if not parts_r:
+            return cls(
+                np.zeros(n + 1, INDEX_DTYPE), np.zeros(0, INDEX_DTYPE), (n, n)
+            )
+        return cls.from_coo(
+            np.concatenate(parts_r), np.concatenate(parts_c), (n, n)
+        )
+
+    @classmethod
+    def rmat(
+        cls,
+        scale: int,
+        edge_factor: float = 16.0,
+        *,
+        a: float = 0.57,
+        b: float = 0.19,
+        c: float = 0.19,
+        seed: int = 0,
+        symmetric: bool = False,
+    ) -> "BCSR":
+        """R-MAT power-law graph pattern (Chakrabarti et al., SDM'04;
+        Graph500 defaults a=0.57, b=c=0.19): ``2**scale`` vertices,
+        ~``edge_factor`` edges per vertex, duplicates merged."""
+        n = 1 << scale
+        n_edges = int(edge_factor * n)
+        rng = np.random.default_rng(seed)
+        rows = np.zeros(n_edges, np.int64)
+        cols = np.zeros(n_edges, np.int64)
+        # per bit: quadrant probabilities (a, b, c, d), vectorised over edges
+        for level in range(scale):
+            u = rng.random(n_edges)
+            right = u >= (a + b)  # row bit set (quadrants c, d)
+            # P(col bit | row bit): b/(a+b) top, d/(c+d) bottom
+            d = 1.0 - a - b - c
+            p_col = np.where(right, d / max(c + d, 1e-12), b / max(a + b, 1e-12))
+            down = rng.random(n_edges) < p_col
+            rows |= right.astype(np.int64) << level
+            cols |= down.astype(np.int64) << level
+        if symmetric:
+            rows, cols = np.concatenate([rows, cols]), np.concatenate([cols, rows])
+        return cls.from_coo(rows, cols, (n, n)).sum_duplicates()
+
     def to_scipy(self):
         import scipy.sparse as sp
 
         data = np.ones(self.nnz, dtype=np.int64)
         return sp.csr_matrix((data, self.indices, self.indptr), shape=self.shape)
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros(self.shape, dtype=bool)
+        rows = np.repeat(np.arange(self.n_rows), np.diff(self.indptr))
+        out[rows, self.indices] = True
+        return out
 
     def to_coo(self) -> tuple[np.ndarray, np.ndarray]:
         rows = np.repeat(
@@ -157,6 +265,18 @@ class BCSR:
         rows, cols = self.to_coo()
         keys = rows * np.int64(self.n_cols) + cols
         return bool(np.all(np.diff(keys) > 0))
+
+    def sum_duplicates(self) -> "BCSR":
+        """A canonical form: sorted per row and deduplicated (``self`` when
+        already canonical — BCSR arrays are treated as immutable)."""
+        if self.is_canonical():
+            return self
+        rows, cols = self.to_coo()
+        keys = rows * np.int64(self.n_cols) + cols
+        keys = np.unique(keys)
+        rows = keys // self.n_cols
+        cols = keys % self.n_cols
+        return BCSR.from_coo(rows, cols, self.shape)
 
     def equals(self, other: "BCSR") -> bool:
         return (

@@ -34,6 +34,7 @@ from .spgemm import (
     packable,
     pull_chunk_prefixes,
     require_int32_operands,
+    resolve_device,
     row_flops,
     sort_compress_seps_2d,
     sort_compress_seps_2d_keys,
@@ -52,10 +53,10 @@ __all__ = [
 # Where the routes this slice does not port are tracked.
 _UNROLLED = (
     "the unrolled/dealt sliced-ELL plan is not ported yet "
-    "(ROADMAP.md, Queue 1 item 4)"
+    "(ROADMAP.md, Queue 1 item 1)"
 )
 _ESC = (
-    "the chunked ESC executor is not ported yet (ROADMAP.md, Queue 1 item 4)"
+    "the chunked ESC executor is not ported yet (ROADMAP.md, Queue 1 item 1)"
 )
 
 
@@ -597,11 +598,7 @@ class EllSpGEMMExecutor:
         require_int32_operands(a, b)
         if not batched:
             raise NotImplementedError(_UNROLLED)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the host"
-            )
+        self.device = resolve_device(device)
         self.shape = (a.n_rows, b.n_cols)
         self.n_rows, self.n_cols = a.n_rows, b.n_cols
         self.batched = True
@@ -879,24 +876,37 @@ _EXEC_CACHE_MAX = 4
 _EXEC_CACHE_MAX_NNZ = 64 << 20
 
 
-def cached_executor(a: BCSR, b: BCSR, *, device: str | torch.device = "cuda"):
-    """The executor of :func:`auto_executor`'s routing (blocked-route screen,
-    then the batched plan), cached on operand IDENTITY (checked through
-    weakrefs) and device; FIFO eviction at ``_EXEC_CACHE_MAX`` executors,
-    oversized operands never cached.  Serves the one-shot ``spgemm``, which
-    is the JAX package's ``cached_executor(a, b, allow_bsr=True)``."""
-    from .bsr import maybe_bsr_executor
+def cached_executor(
+    a: BCSR,
+    b: BCSR,
+    *,
+    allow_bsr: bool = False,
+    device: str | torch.device = "cuda",
+):
+    """A staged executor for C = A·B, cached on operand IDENTITY (checked
+    through weakrefs), ``allow_bsr`` and device; FIFO eviction at
+    ``_EXEC_CACHE_MAX`` executors, oversized operands never cached.
 
+    ``allow_bsr=True`` lets block-clustered products route to the staged
+    blocked engine (:func:`..bsr.maybe_bsr_executor`); only callers that need
+    nothing beyond ``assemble(run())`` may pass it, as the one-shot
+    ``spgemm`` does.  Otherwise, and where the screen declines, the batched
+    sliced-ELL plan serves the product."""
     device = torch.device(device)
-    key = (id(a), id(b), str(device))
+    key = (id(a), id(b), allow_bsr, str(device))
     hit = _EXEC_CACHE.get(key)
     if hit is not None:
         wa, wb, ex = hit
         if wa() is a and wb() is b:
             return ex
         del _EXEC_CACHE[key]
-    maybe_bsr_executor(a, b)  # raises where the blocked route would run
-    ex = _auto_ell(a, b, device=device)
+    ex = None
+    if allow_bsr:
+        from .bsr import maybe_bsr_executor
+
+        ex = maybe_bsr_executor(a, b, device=device)
+    if ex is None:
+        ex = _auto_ell(a, b, device=device)
     if a.nnz + b.nnz <= _EXEC_CACHE_MAX_NNZ:
         while len(_EXEC_CACHE) >= _EXEC_CACHE_MAX:
             _EXEC_CACHE.pop(next(iter(_EXEC_CACHE)))
@@ -931,13 +941,16 @@ def _auto_ell(a: BCSR, b: BCSR, *, device: str | torch.device = "cuda"):
 
 
 def auto_executor(a: BCSR, b: BCSR, *, device: str | torch.device = "cuda"):
-    """The executor for C = A·B on this input: the blocked route's screen
-    first (raises where it would take the blocked engine), then the batched
-    sliced-ELL plan when its resident output fits ``AUTO_ELL_MAX_SLOTS``.
-    Every other route of the JAX package raises ``NotImplementedError``."""
+    """The executor for C = A·B on this input: block-clustered operands take
+    the staged blocked engine (:func:`..bsr.maybe_bsr_executor`, a
+    ``BsrStagedExecutor``); otherwise the batched sliced-ELL plan when its
+    resident output fits ``AUTO_ELL_MAX_SLOTS``.  Every other route of the
+    JAX package raises ``NotImplementedError``."""
     from .bsr import maybe_bsr_executor
 
-    maybe_bsr_executor(a, b)
+    bex = maybe_bsr_executor(a, b, device=device)
+    if bex is not None:
+        return bex
     ex = _auto_ell(a, b, device=device)
     if ex.resident_slots > AUTO_ELL_MAX_SLOTS:
         raise NotImplementedError(

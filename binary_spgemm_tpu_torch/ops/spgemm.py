@@ -1,11 +1,13 @@
 """Expand–sort–compress building blocks the batched sliced-ELL engine uses.
 
-Counterpart of ``binary_spgemm_tpu/ops/spgemm.py``, the subset the batched
-main path needs: the padding and packing rules, host flop counts, the 2-D
-sort–dedup–compact step with embedded row separators, and the pull of each
-chunk's valid prefix to the host.  Candidate ``(row, col)`` pairs pack into
-one non-negative int32 key ``(row << shift) | col`` when :func:`packable`
-holds; the packed step sorts through :func:`..bitonic.sort_rows` (K1).
+Counterpart of ``binary_spgemm_tpu/ops/spgemm.py``, the subset the ported
+routes need: the padding and packing rules, host flop counts, the 2-D
+sort–dedup–compact step with embedded row separators, the pull of each
+chunk's valid prefix to the host, the one-shot :func:`spgemm` with its
+routing, and the opt-in :func:`blocked_route`.  Candidate ``(row, col)``
+pairs pack into one non-negative int32 key ``(row << shift) | col`` when
+:func:`packable` holds; the packed step sorts through
+:func:`..bitonic.sort_rows` (K1).
 """
 from __future__ import annotations
 
@@ -17,12 +19,14 @@ from .bitonic import sort_rows as sort_rows_1key
 
 __all__ = [
     "COMPACT_PULL_BYTES",
+    "blocked_route",
     "compact_chunks",
     "compact_pull",
     "pad_bucket",
     "packable",
     "pull_chunk_prefixes",
     "require_int32_operands",
+    "resolve_device",
     "row_flops",
     "sort_compress_seps_2d",
     "sort_compress_seps_2d_keys",
@@ -130,6 +134,15 @@ def row_flops(a: BCSR, b: BCSR) -> np.ndarray:
 def spgemm_flops(a: BCSR, b: BCSR) -> int:
     """Total Gustavson flop count (sum over A-nonzeros (i,j) of nnz(B row j))."""
     return int(row_flops(a, b).sum())
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device where there is no card
+    raises instead of quietly switching to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the host")
+    return device
 
 
 def require_int32_operands(*mats: BCSR) -> None:
@@ -241,6 +254,36 @@ def pull_chunk_prefixes(idx_dev: torch.Tensor, nnz_valid: np.ndarray) -> list:
     return [host[i, : int(nnz_valid[i])] for i in range(host.shape[0])]
 
 
+def blocked_route(
+    a: BCSR, b: BCSR, *, device: str | torch.device = "cuda"
+) -> BCSR | None:
+    """Opt-in one-shot blocked route (:func:`..bsr.bsr_spgemm`) for
+    block-clustered products.  Not taken by :func:`spgemm`, which reaches
+    the blocked engine through the staged executor instead.  Returns
+    ``None`` if the input isn't block-clustered enough (per-touched-tile
+    fill < 5%), is too small to judge, or its block structure is too
+    large."""
+    from .bsr import block_clustering_ratio, bsr_spgemm
+
+    # only meaningful at scale: tiny shapes make the per-tile ratio noise
+    if a.nnz < (1 << 17) or min(*a.shape, *b.shape) < 2048:
+        return None
+    min_fill = 0.05 * 128 * 128  # >= 5% tile fill
+    if block_clustering_ratio(a) < min_fill:
+        return None
+    if b is not a and block_clustering_ratio(b) < min_fill:
+        return None
+    from ..formats.bbcsr import BlockedBCSR
+
+    blk_a = BlockedBCSR.from_bcsr(a, 128)
+    blk_b = blk_a if b is a else BlockedBCSR.from_bcsr(b, 128)
+    # bound pair count / output blocks so the dense tiles stay in memory
+    pair_flops = spgemm_flops(blk_a.structure, blk_b.structure)
+    if blk_a.n_blocks > 32768 or blk_b.n_blocks > 32768 or pair_flops > 65536:
+        return None
+    return bsr_spgemm(blk_a, blk_b, device=device).to_bcsr()
+
+
 def _stitch(chunks, rows_total, shape, run_chunk) -> BCSR:
     """Run ``run_chunk(r0, r1) -> (c_ptr, c_idx, nnz_c)`` per contiguous row
     chunk and stitch the slices with a row-pointer prefix fix.  Chunk-local
@@ -281,11 +324,12 @@ def spgemm(
     """Boolean SpGEMM structure C = A·B, one shot, on ``device``.
 
     Routes as the JAX package's ``spgemm`` does; this port serves the
-    batched sliced-ELL route (staged through :func:`..ell.cached_executor`)
-    and raises ``NotImplementedError`` on every other: giant rows, an
-    explicit ``chunk_flops`` (ESC), small products (host engine),
-    block-clustered operands (blocked engine), the unrolled ELL plan and
-    products past the resident ELL budget (ESC)."""
+    blocked route (block-clustered operands) and the batched sliced-ELL
+    route, both staged through :func:`..ell.cached_executor` with
+    ``allow_bsr=True``, and raises ``NotImplementedError`` on every other:
+    giant rows, an explicit ``chunk_flops`` (ESC), small products (host
+    engine), the unrolled ELL plan and products past the resident ELL
+    budget (ESC)."""
     if a.n_cols != b.n_rows:
         raise ValueError(f"shape mismatch: {a.shape} @ {b.shape}")
     require_int32_operands(a, b)
@@ -296,24 +340,28 @@ def spgemm(
     if len(rf_total) and int(rf_total.max()) > GIANT_ROW_FLOPS:
         raise NotImplementedError(
             "rows past GIANT_ROW_FLOPS take the column-windowed route, "
-            "which is not ported yet (ROADMAP.md, Queue 1 item 4)"
+            "which is not ported yet (ROADMAP.md, Queue 1 item 1)"
         )
     if chunk_flops is not None:
         raise NotImplementedError(
             "chunk_flops selects the chunked ESC engine, which is not "
-            "ported yet (ROADMAP.md, Queue 1 item 4)"
+            "ported yet (ROADMAP.md, Queue 1 item 1)"
         )
     if int(rf_total.sum()) <= HOST_MAX_FLOPS:
         raise NotImplementedError(
             "products of at most HOST_MAX_FLOPS flops take the host engine, "
-            "which is not ported yet (ROADMAP.md, Queue 1 item 4)"
+            "which is not ported yet (ROADMAP.md, Queue 1 item 1)"
         )
     from .ell import AUTO_ELL_MAX_SLOTS, cached_executor
 
-    ex = cached_executor(a, b, device=device)
+    # block-clustered products take the staged blocked engine; repeated
+    # calls on the same operands reuse the staged tiles through the cache
+    ex = cached_executor(a, b, allow_bsr=True, device=device)
+    if getattr(ex, "engine", None) == "bsr":
+        return ex.assemble(ex.run())
     if ex.resident_slots > AUTO_ELL_MAX_SLOTS:
         raise NotImplementedError(
             "past the resident ELL budget the JAX package takes the chunked "
-            "ESC engine, which is not ported yet (ROADMAP.md, Queue 1 item 4)"
+            "ESC engine, which is not ported yet (ROADMAP.md, Queue 1 item 1)"
         )
     return ex.assemble(ex.run())

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from ..formats.bcsr import BCSR
 
-__all__ = ["spgemm_oracle"]
+__all__ = ["masked_spgemm_oracle", "spgemm_oracle"]
 
 
 def spgemm_oracle(a: BCSR, b: BCSR) -> BCSR:
@@ -16,4 +16,13 @@ def spgemm_oracle(a: BCSR, b: BCSR) -> BCSR:
     c = a.to_scipy() @ b.to_scipy()
     c.sort_indices()
     # counts >= 1 everywhere, so the structure IS the boolean product's
+    return BCSR(c.indptr, c.indices, c.shape)
+
+
+def masked_spgemm_oracle(f: BCSR, a: BCSR, b: BCSR) -> BCSR:
+    """Structure of C = F .* (A·B)."""
+    c = (a.to_scipy() @ b.to_scipy()).multiply(f.to_scipy())
+    c = c.tocsr()
+    c.sort_indices()
+    c.eliminate_zeros()
     return BCSR(c.indptr, c.indices, c.shape)

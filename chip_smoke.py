@@ -19,7 +19,23 @@ Phases, each reported on its own lines; any failure exits non-zero:
    its plain version and ``torch.sort`` at the main path's shape; the host
    clock's split of ``assemble()`` into pull and host assembly; a
    ``torch.profiler`` breakdown of ``run()`` with the device's idle share;
-7. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
+7. the blocked path: C = A·A for ``BCSR.random_blocked(32768, 128, 2.0, 0.3,
+   seed=7)`` (the blocked canonical, blocked-32k-b128) through
+   ``auto_executor`` -> ``BsrStagedExecutor`` -> ``run()`` -> ``assemble()``,
+   with the launch counts set to 0 just before ``auto_executor`` and read
+   just after ``assemble()`` (K3 exactly once, K1 and K2 never), bit-exact
+   against scipy; then one-shot ``spgemm`` on the same operands (one more K3
+   launch), bit-exact again;
+8. K3 (grouped_block_matmul) equal to its plain PyTorch version on the real
+   blocked-32k-b128 plan (``run()``'s real pairs, and the padded plan with
+   its tail of scratch-block pairs), at tile sides 32, 64, 100 and 128, with
+   one output block of 230 pairs, with all-ones tiles and on a plan with no
+   padded tail;
+9. the blocked path's times: ``run()``, ``run()`` + ``assemble()``, the
+   host clock's split of ``assemble()``, a ``torch.profiler`` breakdown of
+   ``run()``, and at the route's shape, in turns, K3, K3 on the padded plan,
+   its plain version and the ``backend="xla"`` composition of library calls;
+10. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -38,8 +54,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 N, D, SEED = 65536, 16.0, 2026
 EXPECTED_NNZ = 16_703_465
+# blocked-32k-b128: BCSR.random_blocked(n, block, blocks_per_row, density, seed)
+BLOCKED = (32768, 128, 2.0, 0.3, 7)
+BLOCKED_PAIRS, BLOCKED_PAIRS_PAD, BLOCKED_OUT = 1114, 1152, 1106
+BLOCKED_NNZ = 18_120_588
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT32_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores (FP32 rate)
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 INT32_MAX = (1 << 31) - 1
 INT32_MIN = -(1 << 31)
 
@@ -81,8 +102,10 @@ def sort_bound_ms(numel: int, length: int, sorts: int = 1) -> tuple[float, str]:
 
 def profile_run(torch, run, reps: int = 3) -> None:
     """Device time of ``run()`` by kernel name (torch.profiler), and the
-    device's idle share of the wall time between the first launch and the
-    last completion."""
+    device's idle share on the profiler's own device timeline: the time
+    between the first recorded kernel's start and the last one's end that no
+    kernel or copy covers.  Taking both from the recorded events keeps the
+    share right when the profiler misses an event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -95,22 +118,63 @@ def profile_run(torch, run, reps: int = 3) -> None:
         end.record()
         torch.cuda.synchronize()
     wall = start.elapsed_time(end) / reps
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:  # host ops repeat their kernels' time
-            continue
-        dev_us = e.self_device_time_total
-        if dev_us > 0:
-            rows.append((dev_us / reps / 1e3, e.count / reps, e.key))
-    if not rows:
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.key)
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start
+    )
+    if not spans:
         print("profile of run(): the profiler recorded no device time "
               "(busy share not measured)")
         return
-    busy = sum(r[0] for r in rows)
-    print(f"profile of run() (torch.profiler, {reps} runs): wall {wall:.4f} ms, "
-          f"device busy {busy:.4f} ms, idle share {1 - busy / wall:.3f}")
-    for ms, count, name in sorted(rows, reverse=True)[:10]:
-        print(f"  {ms:8.4f} ms  {ms / busy:6.1%}  x{count:g}  {name[:90]}")
+    window = max(s[1] for s in spans) - spans[0][0]
+    busy, reach = 0.0, spans[0][0]
+    per_name: dict[str, list[float]] = {}
+    for t0, t1, name in spans:
+        busy += max(0.0, t1 - max(t0, reach))
+        reach = max(reach, t1)
+        per_name.setdefault(name, []).append(t1 - t0)
+    print(f"profile of run() (torch.profiler, {reps} runs, {len(spans)} device "
+          f"events recorded): CUDA-event wall {wall:.4f} ms per run; device "
+          f"timeline {window / 1e3:.4f} ms from the first kernel's start to the "
+          f"last one's end, busy {busy / 1e3:.4f} ms, idle share "
+          f"{1 - busy / window:.3f}")
+    rows = sorted(((sum(v), len(v), k) for k, v in per_name.items()), reverse=True)
+    for total, count, name in rows[:10]:
+        print(f"  {total / 1e3:8.4f} ms  {total / busy:6.1%}  x{count} recorded, "
+              f"{total / count / 1e3:.4f} ms each  {name[:80]}")
+
+
+def k3_bound_ms(n_a: int, n_b: int, n_out: int, npairs: int, b: int
+                ) -> tuple[float, str]:
+    """Least time for K3: each bf16 input tile and int32 plan entry read
+    once and each f32 output tile written once, over the memory rate,
+    against 2 b³ operations per pair over the bf16 tensor-core peak."""
+    nbytes = (n_a + n_b) * b * b * 2 + n_out * b * b * 4 + 4 * npairs * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * npairs * b**3 / BF16_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def k3_case(torch, rng, b: int, group_sizes: list[int], *, n_tiles: int = 9,
+            ones: bool = False) -> list:
+    """K3's arguments on the card: random 0/1 bf16 tiles (all ones with
+    ``ones``) and a sorted, bucket-padded pair plan with ``group_sizes[s]``
+    pairs into output block s."""
+    from binary_spgemm_tpu_torch.ops.bsr import _pad_pair_plan
+
+    shape = (n_tiles, b, b)
+    if ones:
+        ta, tb = np.ones(shape, np.uint8), np.ones(shape, np.uint8)
+    else:
+        ta = (rng.random(shape) < 0.3).astype(np.uint8)
+        tb = (rng.random(shape) < 0.3).astype(np.uint8)
+    seg = np.repeat(np.arange(len(group_sizes)), group_sizes)
+    ka = rng.integers(0, n_tiles, len(seg))
+    kb = rng.integers(0, n_tiles, len(seg))
+    plan = _pad_pair_plan(ka, kb, seg, len(group_sizes))
+    tiles = [torch.from_numpy(t).cuda().to(torch.bfloat16) for t in (ta, tb)]
+    return [torch.from_numpy(x).cuda() for x in plan] + tiles
 
 
 def run_smoke() -> dict:
@@ -128,8 +192,8 @@ def run_smoke() -> dict:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     sys.path.insert(0, ROOT)
-    from binary_spgemm_tpu_torch import BCSR, _build, auto_executor
-    from binary_spgemm_tpu_torch.ops import bitonic, ell
+    from binary_spgemm_tpu_torch import BCSR, _build, auto_executor, spgemm
+    from binary_spgemm_tpu_torch.ops import bitonic, block_matmul, bsr, ell
     from binary_spgemm_tpu_torch.ops.spgemm import pull_chunk_prefixes
     from binary_spgemm_tpu_torch.utils.oracle import spgemm_oracle
 
@@ -168,9 +232,21 @@ def run_smoke() -> dict:
             check(torch.equal(got, want), f"{name} differs at [{k}, {L}]")
             print(f"{name} [{k}, {L}]: bit-equal")
 
+    counters = {
+        "bitonic_sort_rows": bitonic.bitonic_sort_rows,
+        "fused_sort_compress": bitonic.fused_sort_compress,
+        "grouped_block_matmul": block_matmul.grouped_block_matmul,
+    }
+
+    def reset_counts() -> None:
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts() -> dict[str, int]:
+        return {name: fn.launches for name, fn in counters.items()}
+
     phase("4. main path")
-    bitonic.bitonic_sort_rows.launches = 0
-    bitonic.fused_sort_compress.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     a = BCSR.random(N, N, D, seed=SEED)
@@ -181,10 +257,7 @@ def run_smoke() -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     c = ex.assemble(out)
-    launches = {
-        "bitonic_sort_rows": bitonic.bitonic_sort_rows.launches,
-        "fused_sort_compress": bitonic.fused_sort_compress.launches,
-    }
+    launches = read_counts()
     check(isinstance(ex, ell.EllSpGEMMExecutor) and ex.batched, "not batched")
     print(f"input nnz {a.nnz}; plan + stage {plan_s:.2f} s: k={ex.n_chunks} "
           f"groups={ex.n_groups}x{ex.group_size} rows_pad={ex.rows_pad} "
@@ -195,6 +268,7 @@ def run_smoke() -> dict:
     check(launches["bitonic_sort_rows"] == 2 * ex.n_groups,
           f"K1 launched {launches['bitonic_sort_rows']} times, "
           f"expected {2 * ex.n_groups}")
+    check(launches["grouped_block_matmul"] == 0, "K3 ran on the ELL path")
     ref = spgemm_oracle(a, a)
     check(c.equals(ref), "C = A·A differs from scipy")
     check(c.nnz == EXPECTED_NNZ, f"output nnz {c.nnz} != {EXPECTED_NNZ}")
@@ -292,6 +366,175 @@ def run_smoke() -> dict:
           f"K2 {t['k2']:.4f} ms, plain {t['k2_plain']:.4f} ms, "
           f"bound {bound2:.4f} ms ({bound2_by})")
 
+    phase("7. blocked path")
+    n_blk, block, bpr, density, seed_blk = BLOCKED
+    reset_counts()
+    held = torch.cuda.memory_allocated()  # the ELL path's buffers still held
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ab = BCSR.random_blocked(n_blk, block, bpr, density, seed=seed_blk)
+    t1 = time.perf_counter()
+    bex = auto_executor(ab, ab)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = bex.run()
+    torch.cuda.synchronize()
+    peak_b = torch.cuda.max_memory_allocated()
+    cb = bex.assemble(counts)
+    launches_b = read_counts()
+    check(isinstance(bex, bsr.BsrStagedExecutor),
+          f"auto_executor took {type(bex).__name__}, not the blocked route")
+    print(f"input nnz {ab.nnz}; generator {t1 - t0:.2f} s, auto_executor "
+          f"(blocked plan + staging) {t2 - t1:.2f} s: {bex._ex.npairs} pairs "
+          f"({bex.n_pairs} padded), {bex.n_out} output blocks, "
+          f"{bex._blk_a.n_blocks} A-blocks, tile occupancy "
+          f"{bex._blk_a.block_occupancy():.3f}")
+    print(f"peak device memory through run(): {(peak_b - held) / 2**20:.1f} MiB "
+          f"above the {held / 2**20:.1f} MiB the ELL path still held")
+    print(f"launches in auto_executor -> run() -> assemble(): {launches_b}")
+    check((bex._ex.npairs, bex.n_pairs, bex.n_out)
+          == (BLOCKED_PAIRS, BLOCKED_PAIRS_PAD, BLOCKED_OUT),
+          f"blocked plan {(bex._ex.npairs, bex.n_pairs, bex.n_out)}")
+    check(launches_b == {"bitonic_sort_rows": 0, "fused_sort_compress": 0,
+                         "grouped_block_matmul": 1},
+          f"blocked path launches {launches_b}")
+    t0 = time.perf_counter()
+    ref_b = spgemm_oracle(ab, ab)
+    oracle_s = time.perf_counter() - t0
+    check(cb.equals(ref_b), "blocked C = A·A differs from scipy")
+    check(cb.nnz == BLOCKED_NNZ, f"blocked output nnz {cb.nnz} != {BLOCKED_NNZ}")
+    print(f"C = A·A bit-exact against scipy (oracle {oracle_s:.2f} s): "
+          f"output nnz {cb.nnz}")
+    t0 = time.perf_counter()
+    c1 = spgemm(ab, ab)
+    one_shot_s = time.perf_counter() - t0
+    check(c1.equals(ref_b), "one-shot spgemm differs from scipy")
+    check(block_matmul.grouped_block_matmul.launches == 2,
+          "one-shot spgemm did not launch K3 exactly once")
+    print(f"one-shot spgemm(a, a): bit-exact, one more K3 launch, "
+          f"{one_shot_s:.2f} s on the host clock (plan, staging, run, assemble)")
+
+    phase("8. K3 against its plain version")
+    k3 = block_matmul.grouped_block_matmul
+    k3_plain = block_matmul.grouped_block_matmul_plain
+    # run()'s arguments: the staged plan's real pairs; and the whole padded
+    # plan, tail included, as the TPU kernel ran it
+    npairs = bex._ex.npairs
+    plan = [bex._ex.seg, bex._ex.ka, bex._ex.kb, bex._ex.first]
+    tiles = [bex._ex.a_dev, bex._ex.b_dev]
+    real = [x[:npairs] for x in plan] + tiles
+    padded = plan + tiles
+    n_out_real = bex.n_out + 1
+    cases = [("blocked-32k-b128 plan, run()'s real pairs", real, n_out_real),
+             ("blocked-32k-b128 plan, padded tail included", padded, n_out_real)]
+    for b, groups, ones, label in (
+        (32, [1, 3, 2, 5, 1], False, "b=32"),
+        (64, [4, 1, 2], False, "b=64"),
+        (100, [3, 1, 2], False, "b=100 (ragged)"),
+        (128, [1, 2, 3, 1], False, "b=128"),
+        (128, [230, 1, 2], False, "b=128, one block of 230 pairs"),
+        (128, [3, 2, 1], True, "b=128, all-ones tiles"),
+        (128, [4] * 16, False, "b=128, 64 pairs: no padded tail"),
+    ):
+        args = k3_case(torch, rng, b, groups, ones=ones)
+        cases.append((label, args, len(groups) + 1))
+    err_k3 = 0.0
+    for label, args, n_out in cases:
+        got = k3(*args, n_out=n_out)
+        want = k3_plain(*args, n_out=n_out)
+        torch.cuda.synchronize()
+        err_k3 = max(err_k3, float((got - want).abs().max()))
+        check(torch.equal(got, want), f"K3 differs from its plain version: {label}")
+        tail = bool((args[0] == n_out - 1).any())
+        print(f"K3 {label}: {args[0].shape[0]} pairs, out {tuple(got.shape)}, "
+              f"max count {int(got.max())}, scratch block visited {tail}: "
+              "equal to the plain version")
+    check(torch.equal(k3(*real, n_out=n_out_real), counts), "K3 not deterministic")
+
+    phase("9. blocked path times (CUDA events)")
+    for _ in range(3):
+        bex.run()
+    torch.cuda.synchronize()
+    brun_ms = [event_ms(torch, bex.run, 1) for _ in range(30)]
+    be2e_ms = [event_ms(torch, lambda: bex.assemble(bex.run()), 1)
+               for _ in range(5)]
+    print(f"run(): median {statistics.median(brun_ms):.4f} ms, "
+          f"fastest {min(brun_ms):.4f} ms, slowest {max(brun_ms):.4f} ms "
+          f"({len(brun_ms)} runs)")
+    print(f"run() + assemble(): median {statistics.median(be2e_ms):.2f} ms, "
+          f"fastest {min(be2e_ms):.2f} ms, slowest {max(be2e_ms):.2f} ms "
+          f"({len(be2e_ms)} runs)")
+    # assemble() on the host clock: the pull (threshold on the card, copy of
+    # the uint8 tiles), the whole blocked assemble (pull + block structure),
+    # and the host flattening of the blocked result (to_bcsr)
+    pull_b, blk_b, flat_b = [], [], []
+    for _ in range(3):
+        counts = bex.run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bsr._threshold(counts, bex.n_out)
+        t1 = time.perf_counter()
+        blk = bex._ex.assemble(counts)
+        t2 = time.perf_counter()
+        flat = blk.to_bcsr()
+        t3 = time.perf_counter()
+        check(flat.equals(cb), "split assemble() differs")
+        pull_b.append((t1 - t0) * 1e3)
+        blk_b.append((t2 - t1) * 1e3)
+        flat_b.append((t3 - t2) * 1e3)
+    print(f"assemble() split (host clock, median of 3): pull "
+          f"{statistics.median(pull_b):.2f} ms, blocked assemble (pull + "
+          f"block structure) {statistics.median(blk_b):.2f} ms, host "
+          f"flattening to_bcsr {statistics.median(flat_b):.2f} ms")
+
+    profile_run(torch, bex.run, reps=10)
+
+    # the backend="xla" composition at the route's shape: gather + f32
+    # torch.bmm + index_add_ over PAIR_CHUNK chunks, plan staged beforehand
+    n_out_pad = bsr.pad_bucket(bex.n_out + 1, minimum=2)
+    chunks = []
+    for p0 in range(0, npairs, bsr.PAIR_CHUNK):
+        w = min(bsr.PAIR_CHUNK, npairs - p0)
+        ck = [torch.zeros(bsr.PAIR_CHUNK, dtype=torch.int32, device=dev)
+              for _ in range(2)]
+        cseg = torch.full((bsr.PAIR_CHUNK,), n_out_pad - 1, dtype=torch.int32,
+                          device=dev)
+        ck[0][:w], ck[1][:w] = real[1][p0 : p0 + w], real[2][p0 : p0 + w]
+        cseg[:w] = real[0][p0 : p0 + w]
+        chunks.append((ck[0], ck[1], cseg))
+
+    def xla_composition():
+        acc = torch.zeros((n_out_pad, block, block), dtype=torch.float32,
+                          device=dev)
+        for cka, ckb, cseg in chunks:
+            bsr._pair_matmul_accumulate(real[4], real[5], cka, ckb, cseg, acc)
+        return acc
+
+    check(torch.equal(xla_composition()[: bex.n_out], counts[: bex.n_out]),
+          "the xla composition differs from K3")
+    k3_fn = lambda: k3(*real, n_out=n_out_real)
+    k3_padded_fn = lambda: k3(*padded, n_out=n_out_real)
+    k3_plain_fn = lambda: k3_plain(*real, n_out=n_out_real)
+    korder = [("k3", k3_fn), ("k3_padded", k3_padded_fn),
+              ("k3_plain", k3_plain_fn), ("xla", xla_composition)]
+    for _, fn in korder:
+        fn()
+    ktimes: dict[str, list[float]] = {}
+    for name, fn in korder + korder[::-1]:  # in turns: forward, then back
+        ktimes.setdefault(name, []).append(event_ms(torch, fn, 20))
+    kt = {name: min(v) for name, v in ktimes.items()}
+    bound3, bound3_by = k3_bound_ms(
+        real[4].shape[0], real[5].shape[0], n_out_real, npairs, block
+    )
+    shape3 = {"pairs": npairs, "a_tiles": int(real[4].shape[0]),
+              "b_tiles": int(real[5].shape[0]), "out": [n_out_real, block, block]}
+    print(f"at {shape3}: K3 {kt['k3']:.4f} ms, plain {kt['k3_plain']:.4f} ms, "
+          f"xla composition (gather + torch.bmm + index_add_, library calls, "
+          f"not one call) {kt['xla']:.4f} ms, bound {bound3:.4f} ms ({bound3_by}); "
+          f"K3 on the padded plan ({padded[0].shape[0]} pairs, "
+          f"{padded[0].shape[0] - npairs} of them into the scratch block) "
+          f"{kt['k3_padded']:.4f} ms")
+
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
     kernels = [
         {
@@ -310,8 +553,18 @@ def run_smoke() -> dict:
             "plain_ms": t["k2_plain"], "bound_ms": bound2, "bound_by": bound2_by,
             "library_ms": None, "shape": shape, "on_main_path": False,
         },
+        {
+            "name": "grouped_block_matmul", "route": "cuda",
+            "source": "binary_spgemm_tpu_torch/csrc/block_matmul.cu",
+            "replaces": "binary_spgemm_tpu/ops/pallas_bsr.py:48",
+            "launches": launches_b["grouped_block_matmul"],
+            "max_abs_err": err_k3, "ms": kt["k3"], "plain_ms": kt["k3_plain"],
+            "bound_ms": bound3, "bound_by": bound3_by, "library_ms": None,
+            "composition_ms": kt["xla"], "padded_plan_ms": kt["k3_padded"],
+            "shape": shape3, "on_main_path": True,
+        },
     ]
-    phase("7. kernels")
+    phase("10. kernels")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

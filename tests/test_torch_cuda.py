@@ -61,3 +61,55 @@ def test_batched_executor_on_the_card(cuda_device):
     torch.cuda.synchronize()
     assert bitonic.bitonic_sort_rows.launches == n1 + 2 * ex.n_groups
     assert ex.assemble(out).equals(spgemm_oracle(a, a))
+
+
+def k3_plan(b, n_a, n_b, group_sizes, seed, ones=False):
+    """Random 0/1 bf16 tiles and a sorted, bucket-padded pair plan on the card."""
+    from binary_spgemm_tpu_torch.ops.bsr import _pad_pair_plan
+
+    rng = np.random.default_rng(seed)
+    if ones:
+        ta, tb = np.ones((n_a, b, b), np.uint8), np.ones((n_b, b, b), np.uint8)
+    else:
+        ta = (rng.random((n_a, b, b)) < 0.3).astype(np.uint8)
+        tb = (rng.random((n_b, b, b)) < 0.3).astype(np.uint8)
+    seg = np.repeat(np.arange(len(group_sizes)), group_sizes)
+    ka, kb = rng.integers(0, n_a, len(seg)), rng.integers(0, n_b, len(seg))
+    plan = _pad_pair_plan(ka, kb, seg, len(group_sizes))
+    dev = torch.device("cuda")
+    tiles = [torch.from_numpy(t).to(dev).to(torch.bfloat16) for t in (ta, tb)]
+    return [torch.from_numpy(x).to(dev) for x in plan] + tiles
+
+
+@pytest.mark.parametrize(
+    "b,group_sizes,ones",
+    [(128, [1, 2, 3, 1], False), (64, [4, 1], False), (32, [2, 5], False),
+     (100, [3, 1], False), (7, [2, 2], False), (128, [230, 1], False),
+     (128, [3, 2], True), (16, [4, 4, 4, 4], False)],  # the last has no padded tail
+)
+def test_k3_equals_its_plain_version(cuda_device, b, group_sizes, ones):
+    from binary_spgemm_tpu_torch.ops import block_matmul as k3
+
+    args = k3_plan(b, 9, 7, group_sizes, seed=b + len(group_sizes), ones=ones)
+    n_out = len(group_sizes) + 1
+    before = k3.grouped_block_matmul.launches
+    got = k3.grouped_block_matmul(*args, n_out=n_out)
+    torch.cuda.synchronize()
+    assert k3.grouped_block_matmul.launches == before + 1
+    assert torch.equal(got, k3.grouped_block_matmul_plain(*args, n_out=n_out))
+
+
+def test_blocked_executor_on_the_card(cuda_device):
+    from binary_spgemm_tpu_torch.ops import block_matmul as k3
+    from binary_spgemm_tpu_torch.ops.bsr import BsrStagedExecutor
+
+    a = tp.BCSR.random_blocked(4096, 128, 2.0, 0.3, seed=3)
+    ex = tp.auto_executor(a, a)
+    assert isinstance(ex, BsrStagedExecutor) and ex._ex.a_dev.device.type == "cuda"
+    ref = spgemm_oracle(a, a)
+    for _ in range(2):
+        n = k3.grouped_block_matmul.launches
+        c = ex.assemble(ex.run())
+        assert k3.grouped_block_matmul.launches == n + 1
+        assert c.equals(ref)
+    assert tp.spgemm(a, a).equals(ref)

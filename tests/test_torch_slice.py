@@ -87,15 +87,31 @@ def test_giant_rows_raise(monkeypatch):
 
 
 def test_blocked_route_raises():
+    """The blocked route now serves block-clustered products where the JAX
+    package takes its blocked engine; what still raises is what the JAX
+    package rejects too (mismatched shapes)."""
     jb = jx.BCSR.random_blocked(4096, 128, 2.0, 0.3, seed=2)
+    from binary_spgemm_tpu.ops.bsr import BsrStagedExecutor as JxStaged
     from binary_spgemm_tpu.ops.bsr import maybe_bsr_executor as jx_screen
+    from binary_spgemm_tpu_torch.ops.bsr import BsrStagedExecutor
 
-    assert jx_screen(jb, jb) is not None  # the JAX package takes its MXU route
+    assert isinstance(jx_screen(jb, jb), JxStaged)  # the JAX blocked route
     b = to_port(jb)
-    with pytest.raises(NotImplementedError, match="blocked"):
-        tp.auto_executor(b, b, device="cpu")
-    with pytest.raises(NotImplementedError, match="blocked"):
-        tp.spgemm(b, b, device="cpu")
+    ex = tp.auto_executor(b, b, device="cpu")
+    assert isinstance(ex, BsrStagedExecutor)
+    ref = jx_ell.auto_executor(jb, jb)
+    c = ex.assemble(ex.run())
+    assert_same(ref.assemble(ref.run()), c)
+    assert c.equals(spgemm_oracle(b, b))
+    c1 = tp.spgemm(b, b, device="cpu")
+    assert_same(jx.spgemm(jb, jb), c1)
+    assert c1.equals(c)
+    rect = tp.BCSR.random(2048, 4096, 2.0, seed=1)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tp.spgemm(b, rect, device="cpu")
+    blk, blk_rect = tp.BlockedBCSR.from_bcsr(b), tp.BlockedBCSR.from_bcsr(rect)
+    with pytest.raises(ValueError, match="block shape mismatch"):
+        tp.bsr_spgemm(blk, blk_rect, device="cpu")
     from binary_spgemm_tpu.ops.bsr import block_clustering_ratio as jx_ratio
     from binary_spgemm_tpu_torch.ops.bsr import block_clustering_ratio
 
@@ -145,13 +161,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_entry_points_default_to_cuda():
+    from binary_spgemm_tpu_torch.ops import bsr as tp_bsr
+
     for fn in (tp.spgemm, tp.auto_executor, tp.EllSpGEMMExecutor,
-               tp_ell.cached_executor):
+               tp_ell.cached_executor, tp.bsr_spgemm, tp_bsr.BsrExecutor,
+               tp_bsr.BsrStagedExecutor, tp_bsr.maybe_bsr_executor,
+               tp_sp.blocked_route):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     a = tp.BCSR.random(1 << 16, 1 << 16, 1.0, seed=1)
+    blk = tp.BlockedBCSR.from_bcsr(tp.BCSR.random_blocked(512, 128, 1.5, 0.2, seed=8))
     if torch.cuda.is_available():
         ex = tp.EllSpGEMMExecutor(a, a, batched=True)
         assert ex.er_all.device.type == "cuda"
+        assert tp_bsr.BsrExecutor(blk, blk).a_dev.device.type == "cuda"
     else:  # no quiet switch to the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tp.EllSpGEMMExecutor(a, a, batched=True)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tp_bsr.BsrExecutor(blk, blk)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tp.bsr_spgemm(blk, blk)
+        b = tp.BCSR.random_blocked(4096, 128, 2.0, 0.3, seed=2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tp.auto_executor(b, b)
