@@ -3,7 +3,10 @@
 Two kernels written by hand for Hopper live in ``csrc/bitonic.cu``:
 
 * K1 :func:`bitonic_sort_rows` — each row sorted ascending (replaces
-  ``binary_spgemm_tpu/ops/bitonic.py::bitonic_sort_rows``);
+  ``binary_spgemm_tpu/ops/bitonic.py::bitonic_sort_rows``), by one of two
+  kernels that :func:`k1_variant` picks from the row length alone: ``"reg"``
+  (registers and warp shuffles, 129 <= L <= 4096) or ``"smem"`` (the whole
+  network in shared memory, every other L);
 * K2 :func:`fused_sort_compress` — sort, left-neighbour dedup with
   demote-to-``INT32_MAX`` of everything at or above ``limit``, sort again, in
   one pass over each row (replaces ``fused_sort_compress`` there).
@@ -26,6 +29,7 @@ __all__ = [
     "bitonic_sort_rows_plain",
     "fused_sort_compress",
     "fused_sort_compress_plain",
+    "k1_variant",
     "sort_rows",
 ]
 
@@ -36,11 +40,20 @@ INT32_MAX = (1 << 31) - 1
 # power of two under the 227 KB a block may use.
 MAX_L = 1 << 15
 
+# Row lengths K1's register kernel takes: rows padded to P = 2^8 ... 2^12, one
+# block of 512 threads holding 8 slots each.
+REG_MIN_L, REG_MAX_L = (1 << 7) + 1, 1 << 12
+
+# K1's C entry point for each variant
+_K1_ENTRY = {"reg": "bitonic_sort_rows_reg", "smem": "bitonic_sort_rows"}
+
+_SORT_SIG = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_void_p,
+]
 _SIG = {
-    "bitonic_sort_rows": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p,
-    ],
+    "bitonic_sort_rows": _SORT_SIG,
+    "bitonic_sort_rows_reg": _SORT_SIG,
     "fused_sort_compress": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p,
@@ -91,18 +104,40 @@ def bitonic_sort_rows_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, dim=1).values
 
 
+def k1_variant(L: int) -> str:
+    """The K1 kernel that sorts rows of length ``L``: ``"reg"`` for
+    ``REG_MIN_L <= L <= REG_MAX_L``, else ``"smem"``."""
+    return "reg" if REG_MIN_L <= L <= REG_MAX_L else "smem"
+
+
 def bitonic_sort_rows(x: torch.Tensor) -> torch.Tensor:
     """Sort each row of int32 ``[k, L]`` ``x`` ascending (K1)."""
     _check(x, "bitonic_sort_rows")
+    return _sort_rows_variant(x, k1_variant(x.shape[1]))
+
+
+def _sort_rows_variant(x: torch.Tensor, variant: str) -> torch.Tensor:
+    """K1 through the named kernel: what :func:`bitonic_sort_rows` runs, and
+    a way to time one variant at a length the other one takes."""
+    _check(x, "bitonic_sort_rows")
+    if variant not in _K1_ENTRY:
+        raise ValueError(f"unknown K1 variant {variant!r}")
+    L = x.shape[1]
+    if variant == "reg" and not REG_MIN_L <= L <= REG_MAX_L:
+        raise ValueError(
+            f"K1 variant 'reg' takes rows of {REG_MIN_L} to {REG_MAX_L}, got {L}"
+        )
     if x.device.type == "cpu":
         return bitonic_sort_rows_plain(x)
-    out = _launch("bitonic_sort_rows", x)
+    out = _launch(_K1_ENTRY[variant], x)
     if x.numel():
         bitonic_sort_rows.launches += 1
+        bitonic_sort_rows.launches_by_variant[variant] += 1
     return out
 
 
 bitonic_sort_rows.launches = 0
+bitonic_sort_rows.launches_by_variant = {"reg": 0, "smem": 0}
 
 
 def fused_sort_compress_plain(x: torch.Tensor, limit: int) -> torch.Tensor:

@@ -7,18 +7,23 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. the build of every kernel source (``csrc/*.cu``): seconds and ptxas report;
+   K1's register kernel must show no stack frame and no spills;
 3. K1 (bitonic_sort_rows) and K2 (fused_sort_compress) bit-equal to their
    plain PyTorch versions at the main path's shape, a power-of-two length,
-   a short odd length and the longest length the kernels take;
+   a short odd length, the longest length the kernels take, and the lengths
+   on both sides of each bound of K1's register variant (129 ... 4096);
 4. the main path: C = A·A for ``BCSR.random(65536, 65536, 16.0, seed=2026)``
    through ``auto_executor`` -> ``run()`` -> ``assemble()``, bit-exact against
    scipy, with the launch counts set to 0 just before ``auto_executor`` and
-   read just after ``assemble()`` (K1 must have run twice per dispatch group);
+   read just after ``assemble()`` (K1 must have run twice per dispatch group,
+   every time as its register variant);
 5. K2 on the main path's real key streams, equal to K1 twice plus the dedup;
 6. times from CUDA events: ``run()``, ``run()`` + ``assemble()``, each kernel,
-   its plain version and ``torch.sort`` at the main path's shape; the host
-   clock's split of ``assemble()`` into pull and host assembly; a
-   ``torch.profiler`` breakdown of ``run()`` with the device's idle share;
+   its plain version and ``torch.sort`` at the main path's shape, with K1's
+   shared-memory variant beside its register variant; K1 against
+   ``torch.sort`` at three more shapes; the host clock's split of
+   ``assemble()`` into pull and host assembly; a ``torch.profiler`` breakdown
+   of ``run()`` with the device's idle share;
 7. the blocked path: C = A·A for ``BCSR.random_blocked(32768, 128, 2.0, 0.3,
    seed=7)`` (the blocked canonical, blocked-32k-b128) through
    ``auto_executor`` -> ``BsrStagedExecutor`` -> ``run()`` -> ``assemble()``,
@@ -145,6 +150,18 @@ def profile_run(torch, run, reps: int = 3) -> None:
               f"{total / count / 1e3:.4f} ms each  {name[:80]}")
 
 
+def ptxas_frames(report: str) -> dict[str, str]:
+    """``{function: "N bytes stack frame, N bytes spill stores, ..."}`` from
+    an ``nvcc -Xptxas -v`` report."""
+    frames, name = {}, None
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif "bytes stack frame" in line and name is not None:
+            frames[name] = line.strip()
+    return frames
+
+
 def k3_bound_ms(n_a: int, n_b: int, n_out: int, npairs: int, b: int
                 ) -> tuple[float, str]:
     """Least time for K3: each bf16 input tile and int32 plan entry read
@@ -208,13 +225,26 @@ def run_smoke() -> dict:
                 print("  " + line.strip())
     if not _build.build_log:
         print("libraries were already built from the same sources")
+    if "bitonic" in _build.build_log:
+        reg_frames = {name: line for name, line in
+                      ptxas_frames(_build.build_log["bitonic"]["ptxas"]).items()
+                      if "sort_rows_reg_kernel" in name}
+        check(len(reg_frames) == 5,
+              f"ptxas reported {len(reg_frames)} register K1 instantiations, not 5")
+        for name, line in sorted(reg_frames.items()):
+            print(f"  {name}: {line}")
+            check(line.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                  "0 bytes spill loads"),
+                  f"K1 register kernel {name} uses local memory: {line}")
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     errs = {"bitonic_sort_rows": 0, "fused_sort_compress": 0}
 
     phase("3. kernels against their plain versions")
-    for k, L in [(1024, 3968), (512, 4096), (333, 37), (16, bitonic.MAX_L), (7, 1)]:
+    for k, L in [(1024, 3968), (512, 4096), (333, 37), (16, bitonic.MAX_L), (7, 1),
+                 (64, 128), (64, 129), (64, 255), (64, 256), (64, 257), (32, 2048),
+                 (16, 4095), (16, 4097)]:
         x = rng.integers(0, max(L // 2, 2), (k, L)).astype(np.int32)  # duplicates
         x[0, : min(3, L)] = INT32_MAX
         x[min(1, k - 1), : min(2, L)] = INT32_MIN
@@ -230,7 +260,9 @@ def run_smoke() -> dict:
             err = int((got.long() - want.long()).abs().max())
             errs[name] = max(errs[name], err)
             check(torch.equal(got, want), f"{name} differs at [{k}, {L}]")
-            print(f"{name} [{k}, {L}]: bit-equal")
+            variant = (f" ({bitonic.k1_variant(L)})"
+                       if name == "bitonic_sort_rows" else "")
+            print(f"{name}{variant} [{k}, {L}]: bit-equal")
 
     counters = {
         "bitonic_sort_rows": bitonic.bitonic_sort_rows,
@@ -238,9 +270,13 @@ def run_smoke() -> dict:
         "grouped_block_matmul": block_matmul.grouped_block_matmul,
     }
 
+    k1_by_variant = bitonic.bitonic_sort_rows.launches_by_variant
+
     def reset_counts() -> None:
         for fn in counters.values():
             fn.launches = 0
+        for variant in k1_by_variant:
+            k1_by_variant[variant] = 0
 
     def read_counts() -> dict[str, int]:
         return {name: fn.launches for name, fn in counters.items()}
@@ -258,16 +294,20 @@ def run_smoke() -> dict:
     peak = torch.cuda.max_memory_allocated()
     c = ex.assemble(out)
     launches = read_counts()
+    k1_variants = dict(k1_by_variant)
     check(isinstance(ex, ell.EllSpGEMMExecutor) and ex.batched, "not batched")
     print(f"input nnz {a.nnz}; plan + stage {plan_s:.2f} s: k={ex.n_chunks} "
           f"groups={ex.n_groups}x{ex.group_size} rows_pad={ex.rows_pad} "
           f"widths={ex.widths} pads={ex.pads} sort_pad={ex.sort_pad} "
           f"out_pad={ex.out_pad}")
     print(f"peak device memory through run(): {peak / 2**20:.1f} MiB")
-    print(f"launches in auto_executor -> run() -> assemble(): {launches}")
+    print(f"launches in auto_executor -> run() -> assemble(): {launches}; "
+          f"K1 by variant {k1_variants}")
     check(launches["bitonic_sort_rows"] == 2 * ex.n_groups,
           f"K1 launched {launches['bitonic_sort_rows']} times, "
           f"expected {2 * ex.n_groups}")
+    check(k1_variants == {"reg": 2 * ex.n_groups, "smem": 0},
+          f"K1 variants {k1_variants}: expected the register kernel every time")
     check(launches["grouped_block_matmul"] == 0, "K3 ran on the ELL path")
     ref = spgemm_oracle(a, a)
     check(c.equals(ref), "C = A·A differs from scipy")
@@ -345,26 +385,54 @@ def run_smoke() -> dict:
     profile_run(torch, ex.run)
 
     x = keys[0]
+    k1_variant = bitonic.k1_variant(x.shape[1])
     k1 = lambda: bitonic.bitonic_sort_rows(x)
+    # K1's shared-memory kernel at the same shape: the kernel it replaced here
+    k1_smem = lambda: bitonic._sort_rows_variant(x, "smem")
     k1_plain = lambda: bitonic.bitonic_sort_rows_plain(x)
     k1_lib = lambda: torch.sort(x, dim=1)
     k2 = lambda: bitonic.fused_sort_compress(x, limit)
     k2_plain = lambda: bitonic.fused_sort_compress_plain(x, limit)
-    for fn in (k1, k1_plain, k1_lib, k2, k2_plain):
+    check(torch.equal(k1_smem(), k1_plain()),
+          "K1's shared-memory variant differs at the main path's shape")
+    for fn in (k1, k1_smem, k1_plain, k1_lib, k2, k2_plain):
         fn()
     times: dict[str, list[float]] = {}
-    order = [("k1", k1), ("k1_plain", k1_plain), ("k1_lib", k1_lib),
-             ("k2", k2), ("k2_plain", k2_plain)]
+    order = [("k1", k1), ("k1_smem", k1_smem), ("k1_plain", k1_plain),
+             ("k1_lib", k1_lib), ("k2", k2), ("k2_plain", k2_plain)]
     for name, fn in order + order[::-1]:  # in turns: forward, then back
         times.setdefault(name, []).append(event_ms(torch, fn, 50))
     t = {name: min(v) for name, v in times.items()}
     bound, bound_by = sort_bound_ms(x.numel(), x.shape[1])
     bound2, bound2_by = sort_bound_ms(x.numel(), x.shape[1], sorts=2)
     shape = list(x.shape)
-    print(f"at {shape}: K1 {t['k1']:.4f} ms, plain {t['k1_plain']:.4f} ms, "
+    print(f"at {shape}: K1 ({k1_variant}) {t['k1']:.4f} ms, K1 (smem) "
+          f"{t['k1_smem']:.4f} ms, plain {t['k1_plain']:.4f} ms, "
           f"torch.sort {t['k1_lib']:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
           f"K2 {t['k2']:.4f} ms, plain {t['k2_plain']:.4f} ms, "
           f"bound {bound2:.4f} ms ({bound2_by})")
+    # K1 against torch.sort on random int32 rows at other lengths it takes
+    k1_shapes = []
+    for k, L in [(4096, 256), (2048, 1024), (1024, 2048)]:
+        xs = torch.from_numpy(
+            rng.integers(INT32_MIN, INT32_MAX, (k, L), dtype=np.int64,
+                         endpoint=True).astype(np.int32)).to(dev)
+        check(torch.equal(bitonic.bitonic_sort_rows(xs),
+                          bitonic.bitonic_sort_rows_plain(xs)),
+              f"K1 differs at [{k}, {L}]")
+        pair = [("k1", lambda: bitonic.bitonic_sort_rows(xs)),
+                ("lib", lambda: torch.sort(xs, dim=1))]
+        st: dict[str, list[float]] = {}
+        for name, fn in pair + pair[::-1]:
+            st.setdefault(name, []).append(event_ms(torch, fn, 50))
+        b_ms, b_by = sort_bound_ms(xs.numel(), L)
+        row = {"shape": [k, L], "variant": bitonic.k1_variant(L),
+               "ms": min(st["k1"]), "library_ms": min(st["lib"]),
+               "bound_ms": b_ms, "bound_by": b_by}
+        k1_shapes.append(row)
+        print(f"at [{k}, {L}] (random int32): K1 ({row['variant']}) "
+              f"{row['ms']:.4f} ms, torch.sort {row['library_ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
 
     phase("7. blocked path")
     n_blk, block, bpr, density, seed_blk = BLOCKED
@@ -382,6 +450,8 @@ def run_smoke() -> dict:
     peak_b = torch.cuda.max_memory_allocated()
     cb = bex.assemble(counts)
     launches_b = read_counts()
+    check(k1_by_variant == {"reg": 0, "smem": 0},
+          f"K1 ran on the blocked path: {k1_by_variant}")
     check(isinstance(bex, bsr.BsrStagedExecutor),
           f"auto_executor took {type(bex).__name__}, not the blocked route")
     print(f"input nnz {ab.nnz}; generator {t1 - t0:.2f} s, auto_executor "
@@ -544,6 +614,8 @@ def run_smoke() -> dict:
             "max_abs_err": errs["bitonic_sort_rows"], "ms": t["k1"],
             "plain_ms": t["k1_plain"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": t["k1_lib"], "shape": shape, "on_main_path": True,
+            "variant": k1_variant, "previous_ms": t["k1_smem"],
+            "launches_by_variant": k1_variants, "other_shapes": k1_shapes,
         },
         {
             "name": "fused_sort_compress", "route": "cuda", "source": src,

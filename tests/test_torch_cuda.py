@@ -46,6 +46,33 @@ def test_kernels_equal_their_plain_versions(cuda_device, k, L):
     assert bitonic.fused_sort_compress.launches == n2 + 1
 
 
+@pytest.mark.parametrize(
+    "k,L",
+    [(64, 128), (64, 129), (64, 255), (64, 256), (64, 257), (40, 512),
+     (24, 1000), (16, 1024), (32, 2048), (16, 3968), (16, 4095), (8, 4096),
+     (16, 4097)],
+)
+def test_k1_variants_equal_the_plain_version(cuda_device, k, L):
+    rng = np.random.default_rng(L)
+    x = rng.integers(I32_MIN, I32_MAX, (k, L), dtype=np.int64, endpoint=True)
+    x = x.astype(np.int32)
+    x[0, :3] = I32_MAX
+    x[-1, :2] = I32_MIN
+    x[1] = x[1, 0]  # one row of a single value
+    xt = torch.from_numpy(x).to(cuda_device)
+    variant = bitonic.k1_variant(L)
+    assert variant == ("reg" if 129 <= L <= 4096 else "smem")
+    before = dict(bitonic.bitonic_sort_rows.launches_by_variant)
+    got = bitonic.bitonic_sort_rows(xt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bitonic.bitonic_sort_rows_plain(xt))
+    after = bitonic.bitonic_sort_rows.launches_by_variant
+    assert after[variant] == before[variant] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    if variant == "reg":  # the shared-memory kernel still takes these rows
+        assert torch.equal(bitonic._sort_rows_variant(xt, "smem"), got)
+
+
 def test_kernels_raise_past_shared_memory(cuda_device):
     x = torch.zeros((1, bitonic.MAX_L + 1), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="shared-memory"):
@@ -57,9 +84,13 @@ def test_batched_executor_on_the_card(cuda_device):
     ex = tp.auto_executor(a, a)
     assert ex.er_all.device.type == "cuda"
     n1 = bitonic.bitonic_sort_rows.launches
+    by_variant = dict(bitonic.bitonic_sort_rows.launches_by_variant)
     out = ex.run()
     torch.cuda.synchronize()
     assert bitonic.bitonic_sort_rows.launches == n1 + 2 * ex.n_groups
+    variant = bitonic.k1_variant(ex.sort_pad)
+    by_variant[variant] += 2 * ex.n_groups
+    assert bitonic.bitonic_sort_rows.launches_by_variant == by_variant
     assert ex.assemble(out).equals(spgemm_oracle(a, a))
 
 
