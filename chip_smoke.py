@@ -7,7 +7,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. the build of every kernel source (``csrc/*.cu``): seconds and ptxas report;
-   K1's register kernel must show no stack frame and no spills;
+   K1's register kernel and K3's pipe kernel must show no stack frame and no
+   spills in any instantiation;
 3. K1 (bitonic_sort_rows) and K2 (fused_sort_compress) bit-equal to their
    plain PyTorch versions at the main path's shape, a power-of-two length,
    a short odd length, the longest length the kernels take, and the lengths
@@ -28,18 +29,25 @@ Phases, each reported on its own lines; any failure exits non-zero:
    seed=7)`` (the blocked canonical, blocked-32k-b128) through
    ``auto_executor`` -> ``BsrStagedExecutor`` -> ``run()`` -> ``assemble()``,
    with the launch counts set to 0 just before ``auto_executor`` and read
-   just after ``assemble()`` (K3 exactly once, K1 and K2 never), bit-exact
-   against scipy; then one-shot ``spgemm`` on the same operands (one more K3
-   launch), bit-exact again;
-8. K3 (grouped_block_matmul) equal to its plain PyTorch version on the real
+   just after ``assemble()`` (K3 exactly once, as its pipe kernel, K1 and K2
+   never), bit-exact against scipy; then one-shot ``spgemm`` on the same
+   operands (one more pipe K3 launch), bit-exact again;
+8. K3 (grouped_block_matmul) equal to its plain PyTorch version through both
+   of its kernels (the pipe kernel where it takes the tile side) on the real
    blocked-32k-b128 plan (``run()``'s real pairs, and the padded plan with
    its tail of scratch-block pairs), at tile sides 32, 64, 100 and 128, with
-   one output block of 230 pairs, with all-ones tiles and on a plan with no
-   padded tail;
+   one output block of 230 pairs, with all-ones tiles, on a plan with no
+   padded tail, on 4,000 output blocks of 1-3 pairs at b = 64, on a plan
+   with no pairs and on one whose pairs skip output blocks (the first and
+   the last among them);
 9. the blocked path's times: ``run()``, ``run()`` + ``assemble()``, the
    host clock's split of ``assemble()``, a ``torch.profiler`` breakdown of
-   ``run()``, and at the route's shape, in turns, K3, K3 on the padded plan,
-   its plain version and the ``backend="xla"`` composition of library calls;
+   ``run()``, and at the route's shape, in turns, K3, its simple kernel, K3
+   on the padded plan, its plain version and the ``backend="xla"``
+   composition of library calls (all but the plain version from CUDA-graph
+   replays), and ``zero_`` of K3's f32 output alone;
+   then both K3 kernels on a plan of long pair groups (8 output blocks of
+   128 pairs each at b = 128);
 10. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -63,6 +71,7 @@ EXPECTED_NNZ = 16_703_465
 BLOCKED = (32768, 128, 2.0, 0.3, 7)
 BLOCKED_PAIRS, BLOCKED_PAIRS_PAD, BLOCKED_OUT = 1114, 1152, 1106
 BLOCKED_NNZ = 18_120_588
+LONG_GROUPS = (8, 128)  # output blocks x pairs each: K3's long-group plan
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT32_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores (FP32 rate)
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -93,6 +102,20 @@ def event_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_timer(torch, fn, reps: int):
+    """A timer of ``fn``'s device time: ``reps`` calls captured once in a
+    CUDA graph; each call of the timer replays the graph and returns the
+    mean ms per call, without the host's launch cost."""
+    fn()  # warm-up: builds, caches and the allocator
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return lambda: event_ms(torch, graph.replay, 1) / reps
 
 
 def sort_bound_ms(numel: int, length: int, sorts: int = 1) -> tuple[float, str]:
@@ -174,10 +197,10 @@ def k3_bound_ms(n_a: int, n_b: int, n_out: int, npairs: int, b: int
 
 
 def k3_case(torch, rng, b: int, group_sizes: list[int], *, n_tiles: int = 9,
-            ones: bool = False) -> list:
+            ones: bool = False, tail: bool = True) -> list:
     """K3's arguments on the card: random 0/1 bf16 tiles (all ones with
     ``ones``) and a sorted, bucket-padded pair plan with ``group_sizes[s]``
-    pairs into output block s."""
+    pairs into output block s (its real pairs only, without ``tail``)."""
     from binary_spgemm_tpu_torch.ops.bsr import _pad_pair_plan
 
     shape = (n_tiles, b, b)
@@ -190,6 +213,8 @@ def k3_case(torch, rng, b: int, group_sizes: list[int], *, n_tiles: int = 9,
     ka = rng.integers(0, n_tiles, len(seg))
     kb = rng.integers(0, n_tiles, len(seg))
     plan = _pad_pair_plan(ka, kb, seg, len(group_sizes))
+    if not tail:
+        plan = [x[: len(seg)] for x in plan]
     tiles = [torch.from_numpy(t).cuda().to(torch.bfloat16) for t in (ta, tb)]
     return [torch.from_numpy(x).cuda() for x in plan] + tiles
 
@@ -225,17 +250,21 @@ def run_smoke() -> dict:
                 print("  " + line.strip())
     if not _build.build_log:
         print("libraries were already built from the same sources")
-    if "bitonic" in _build.build_log:
-        reg_frames = {name: line for name, line in
-                      ptxas_frames(_build.build_log["bitonic"]["ptxas"]).items()
-                      if "sort_rows_reg_kernel" in name}
-        check(len(reg_frames) == 5,
-              f"ptxas reported {len(reg_frames)} register K1 instantiations, not 5")
-        for name, line in sorted(reg_frames.items()):
+    # kernels that must keep everything in registers: (source, name, count)
+    for stem, kernel, count in (("bitonic", "sort_rows_reg_kernel", 5),
+                                ("block_matmul", "grouped_block_matmul_pipe_kernel", 8)):
+        if stem not in _build.build_log:
+            continue
+        frames = {name: line for name, line in
+                  ptxas_frames(_build.build_log[stem]["ptxas"]).items()
+                  if kernel in name}
+        check(len(frames) == count,
+              f"ptxas reported {len(frames)} {kernel} instantiations, not {count}")
+        for name, line in sorted(frames.items()):
             print(f"  {name}: {line}")
             check(line.startswith("0 bytes stack frame, 0 bytes spill stores, "
                                   "0 bytes spill loads"),
-                  f"K1 register kernel {name} uses local memory: {line}")
+                  f"{kernel} {name} uses local memory: {line}")
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -271,12 +300,14 @@ def run_smoke() -> dict:
     }
 
     k1_by_variant = bitonic.bitonic_sort_rows.launches_by_variant
+    k3_by_variant = block_matmul.grouped_block_matmul.launches_by_variant
 
     def reset_counts() -> None:
         for fn in counters.values():
             fn.launches = 0
-        for variant in k1_by_variant:
-            k1_by_variant[variant] = 0
+        for by_variant in (k1_by_variant, k3_by_variant):
+            for variant in by_variant:
+                by_variant[variant] = 0
 
     def read_counts() -> dict[str, int]:
         return {name: fn.launches for name, fn in counters.items()}
@@ -450,6 +481,7 @@ def run_smoke() -> dict:
     peak_b = torch.cuda.max_memory_allocated()
     cb = bex.assemble(counts)
     launches_b = read_counts()
+    k3_variants = dict(k3_by_variant)
     check(k1_by_variant == {"reg": 0, "smem": 0},
           f"K1 ran on the blocked path: {k1_by_variant}")
     check(isinstance(bex, bsr.BsrStagedExecutor),
@@ -461,7 +493,10 @@ def run_smoke() -> dict:
           f"{bex._blk_a.block_occupancy():.3f}")
     print(f"peak device memory through run(): {(peak_b - held) / 2**20:.1f} MiB "
           f"above the {held / 2**20:.1f} MiB the ELL path still held")
-    print(f"launches in auto_executor -> run() -> assemble(): {launches_b}")
+    print(f"launches in auto_executor -> run() -> assemble(): {launches_b}; "
+          f"K3 by variant {k3_variants}")
+    check(k3_variants == {"pipe": 1, "simple": 0},
+          f"K3 variants {k3_variants}: expected the pipe kernel once")
     check((bex._ex.npairs, bex.n_pairs, bex.n_out)
           == (BLOCKED_PAIRS, BLOCKED_PAIRS_PAD, BLOCKED_OUT),
           f"blocked plan {(bex._ex.npairs, bex.n_pairs, bex.n_out)}")
@@ -479,14 +514,17 @@ def run_smoke() -> dict:
     c1 = spgemm(ab, ab)
     one_shot_s = time.perf_counter() - t0
     check(c1.equals(ref_b), "one-shot spgemm differs from scipy")
-    check(block_matmul.grouped_block_matmul.launches == 2,
-          "one-shot spgemm did not launch K3 exactly once")
-    print(f"one-shot spgemm(a, a): bit-exact, one more K3 launch, "
+    check(block_matmul.grouped_block_matmul.launches == 2
+          and k3_by_variant == {"pipe": 2, "simple": 0},
+          f"one-shot spgemm did not launch K3's pipe kernel exactly once: "
+          f"{dict(k3_by_variant)}")
+    print(f"one-shot spgemm(a, a): bit-exact, one more K3 launch (pipe), "
           f"{one_shot_s:.2f} s on the host clock (plan, staging, run, assemble)")
 
     phase("8. K3 against its plain version")
     k3 = block_matmul.grouped_block_matmul
     k3_plain = block_matmul.grouped_block_matmul_plain
+    k3_named = block_matmul._grouped_block_matmul_variant
     # run()'s arguments: the staged plan's real pairs; and the whole padded
     # plan, tail included, as the TPU kernel ran it
     npairs = bex._ex.npairs
@@ -505,20 +543,37 @@ def run_smoke() -> dict:
         (128, [230, 1, 2], False, "b=128, one block of 230 pairs"),
         (128, [3, 2, 1], True, "b=128, all-ones tiles"),
         (128, [4] * 16, False, "b=128, 64 pairs: no padded tail"),
+        (64, rng.integers(1, 4, 4000).tolist(), False,
+         "b=64, 4,000 output blocks of 1-3 pairs"),
     ):
         args = k3_case(torch, rng, b, groups, ones=ones)
         cases.append((label, args, len(groups) + 1))
+    skips = [0, 2, 0, 3, 1, 0]  # output blocks 0, 2, 5 and the scratch block 6 unvisited
+    cases.append(("b=128, pairs skip the first, a middle and the last output blocks",
+                  k3_case(torch, rng, 128, skips, tail=False), len(skips) + 1))
+    no_pairs = torch.zeros(0, dtype=torch.int32, device=dev)
+    cases.append(("b=128, no pairs at all", [no_pairs] * 4 + cases[-1][1][4:], 6))
     err_k3 = 0.0
     for label, args, n_out in cases:
-        got = k3(*args, n_out=n_out)
         want = k3_plain(*args, n_out=n_out)
-        torch.cuda.synchronize()
-        err_k3 = max(err_k3, float((got - want).abs().max()))
-        check(torch.equal(got, want), f"K3 differs from its plain version: {label}")
+        b = args[4].shape[-1]
+        aligned = args[4].data_ptr() % 16 == 0 and args[5].data_ptr() % 16 == 0
+        variants = (["pipe"] if block_matmul.k3_variant(b, aligned) == "pipe" else []) + [
+            "simple"]
+        for variant in variants:
+            got = k3_named(*args, n_out=n_out, variant=variant)
+            torch.cuda.synchronize()
+            if want.numel():
+                err_k3 = max(err_k3, float((got - want).abs().max()))
+            check(torch.equal(got, want),
+                  f"K3 ({variant}) differs from its plain version: {label}")
+        check(torch.equal(k3(*args, n_out=n_out), want), f"K3 differs: {label}")
+        if label.endswith("no pairs at all"):
+            check(not want.any(), "K3's plain version is not zeros without pairs")
         tail = bool((args[0] == n_out - 1).any())
-        print(f"K3 {label}: {args[0].shape[0]} pairs, out {tuple(got.shape)}, "
-              f"max count {int(got.max())}, scratch block visited {tail}: "
-              "equal to the plain version")
+        print(f"K3 {label}: {args[0].shape[0]} pairs, out {tuple(want.shape)}, "
+              f"max count {int(want.max())}, scratch block visited {tail}: "
+              f"{' and '.join(variants)} equal to the plain version")
     check(torch.equal(k3(*real, n_out=n_out_real), counts), "K3 not deterministic")
 
     phase("9. blocked path times (CUDA events)")
@@ -583,27 +638,64 @@ def run_smoke() -> dict:
     check(torch.equal(xla_composition()[: bex.n_out], counts[: bex.n_out]),
           "the xla composition differs from K3")
     k3_fn = lambda: k3(*real, n_out=n_out_real)
+    # K3's simple kernel on the same plan: the kernel the pipe kernel replaced here
+    k3_simple_fn = lambda: k3_named(*real, n_out=n_out_real, variant="simple")
     k3_padded_fn = lambda: k3(*padded, n_out=n_out_real)
     k3_plain_fn = lambda: k3_plain(*real, n_out=n_out_real)
-    korder = [("k3", k3_fn), ("k3_padded", k3_padded_fn),
-              ("k3_plain", k3_plain_fn), ("xla", xla_composition)]
-    for _, fn in korder:
-        fn()
+    k3_variant = block_matmul.k3_variant(
+        block, real[4].data_ptr() % 16 == 0 and real[5].data_ptr() % 16 == 0)
+    # device time per call, from CUDA-graph replays of 20 calls: the pipe
+    # kernel is shorter than its wrapper's host time on a slow host.  The plain
+    # version's mask synchronises with the host, so it cannot be captured and
+    # is timed over 20 calls back to back.
+    ktimers = {name: graph_timer(torch, fn, 20) for name, fn in (
+        ("k3", k3_fn), ("k3_simple", k3_simple_fn), ("k3_padded", k3_padded_fn),
+        ("xla", xla_composition))}
+    k3_plain_fn()
+    ktimers["k3_plain"] = lambda: event_ms(torch, k3_plain_fn, 20)
+    korder = ["k3", "k3_simple", "k3_padded", "k3_plain", "xla"]
     ktimes: dict[str, list[float]] = {}
-    for name, fn in korder + korder[::-1]:  # in turns: forward, then back
-        ktimes.setdefault(name, []).append(event_ms(torch, fn, 20))
+    for name in korder + korder[::-1]:  # in turns: forward, then back
+        ktimes.setdefault(name, []).append(ktimers[name]())
     kt = {name: min(v) for name, v in ktimes.items()}
+    del ktimers  # the graphs' memory
+    # writing K3's f32 output alone, as one library call: what the card's memory
+    # takes for the biggest part of K3's bytes
+    out_ref = torch.empty_like(counts)
+    write_ms = min(event_ms(torch, out_ref.zero_, 20) for _ in range(2))
     bound3, bound3_by = k3_bound_ms(
         real[4].shape[0], real[5].shape[0], n_out_real, npairs, block
     )
     shape3 = {"pairs": npairs, "a_tiles": int(real[4].shape[0]),
               "b_tiles": int(real[5].shape[0]), "out": [n_out_real, block, block]}
-    print(f"at {shape3}: K3 {kt['k3']:.4f} ms, plain {kt['k3_plain']:.4f} ms, "
+    print(f"at {shape3}: K3 ({k3_variant}) {kt['k3']:.4f} ms, K3 (simple) "
+          f"{kt['k3_simple']:.4f} ms, plain {kt['k3_plain']:.4f} ms, "
           f"xla composition (gather + torch.bmm + index_add_, library calls, "
           f"not one call) {kt['xla']:.4f} ms, bound {bound3:.4f} ms ({bound3_by}); "
           f"K3 on the padded plan ({padded[0].shape[0]} pairs, "
           f"{padded[0].shape[0] - npairs} of them into the scratch block) "
-          f"{kt['k3_padded']:.4f} ms")
+          f"{kt['k3_padded']:.4f} ms; torch zero_ of the f32 output alone "
+          f"{write_ms:.4f} ms")
+    # long pair groups: one output block's pairs run on one thread block in
+    # both kernels, one after another
+    n_long, per_long = LONG_GROUPS
+    long_args = k3_case(torch, rng, block, [per_long] * n_long, n_tiles=64, tail=False)
+    long_pipe = lambda: k3(*long_args, n_out=n_long)
+    long_simple = lambda: k3_named(*long_args, n_out=n_long, variant="simple")
+    check(torch.equal(long_pipe(), k3_plain(*long_args, n_out=n_long))
+          and torch.equal(long_simple(), long_pipe()),
+          "K3 differs on the long-group plan")
+    ltimers = {"pipe": graph_timer(torch, long_pipe, 20),
+               "simple": graph_timer(torch, long_simple, 20)}
+    ltimes: dict[str, list[float]] = {}
+    for name in ["pipe", "simple", "simple", "pipe"]:
+        ltimes.setdefault(name, []).append(ltimers[name]())
+    del ltimers
+    long_groups = {"ms": min(ltimes["pipe"]), "previous_ms": min(ltimes["simple"]),
+                   "pairs": n_long * per_long, "out_blocks": n_long}
+    print(f"long groups ({n_long} output blocks x {per_long} pairs, b = {block}, 64 + 64 "
+          f"tiles): K3 ({k3_variant}) {long_groups['ms']:.4f} ms, K3 (simple) "
+          f"{long_groups['previous_ms']:.4f} ms")
 
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
     kernels = [
@@ -634,6 +726,9 @@ def run_smoke() -> dict:
             "bound_ms": bound3, "bound_by": bound3_by, "library_ms": None,
             "composition_ms": kt["xla"], "padded_plan_ms": kt["k3_padded"],
             "shape": shape3, "on_main_path": True,
+            "variant": k3_variant, "previous_ms": kt["k3_simple"],
+            "launches_by_variant": k3_variants, "long_groups": long_groups,
+            "output_write_ms": write_ms,
         },
     ]
     phase("10. kernels")

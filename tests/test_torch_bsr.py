@@ -262,7 +262,8 @@ def run_both_k3(ta, tb, plan, n_out):
 @pytest.mark.parametrize(
     "b,group_sizes,ones",
     [(32, [1, 3, 2, 5, 1], False), (64, [2, 1, 4], False), (128, [1, 2, 3], False),
-     (32, [7, 2], True), (100, [2, 3], False)],
+     (32, [7, 2], True), (100, [2, 3], False), (16, [3, 1, 2], False),
+     (128, [40, 1], False)],
 )
 def test_k3_plain_matches_the_pallas_kernel(b, group_sizes, ones):
     ta, tb, plan = k3_case(b, 6, 5, group_sizes, seed=b + len(group_sizes), ones=ones)

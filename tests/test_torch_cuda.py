@@ -124,10 +124,58 @@ def test_k3_equals_its_plain_version(cuda_device, b, group_sizes, ones):
     args = k3_plan(b, 9, 7, group_sizes, seed=b + len(group_sizes), ones=ones)
     n_out = len(group_sizes) + 1
     before = k3.grouped_block_matmul.launches
+    by_variant = dict(k3.grouped_block_matmul.launches_by_variant)
     got = k3.grouped_block_matmul(*args, n_out=n_out)
     torch.cuda.synchronize()
     assert k3.grouped_block_matmul.launches == before + 1
+    by_variant[k3.k3_variant(b, True)] += 1
+    assert k3.grouped_block_matmul.launches_by_variant == by_variant
     assert torch.equal(got, k3.grouped_block_matmul_plain(*args, n_out=n_out))
+
+
+def k3_cases():
+    cases = []
+    for b in (8, 16, 32, 64, 128):
+        for variant in ("pipe", "simple"):
+            cases.append((b, "1-3 pairs", variant))
+    cases += [(100, "1-3 pairs", "simple"), (7, "1-3 pairs", "simple")]
+    for variant in ("pipe", "simple"):
+        cases += [(128, "230 pairs", variant), (64, "no pairs", variant),
+                  (64, "4000 blocks", variant), (32, "skips blocks", variant)]
+    return cases
+
+
+@pytest.mark.parametrize("b,plan,variant", k3_cases())
+def test_k3_variants_equal_the_plain_version(cuda_device, b, plan, variant):
+    from binary_spgemm_tpu_torch.ops import block_matmul as k3
+
+    rng = np.random.default_rng(b)
+    if plan == "1-3 pairs":
+        args, n_out = k3_plan(b, 9, 7, [1, 3, 2, 1, 2], seed=b), 6
+    elif plan == "230 pairs":
+        args, n_out = k3_plan(b, 9, 7, [230, 1, 2], seed=b), 4
+    elif plan == "4000 blocks":  # each persistent block walks many output blocks
+        groups = rng.integers(1, 4, 4000).tolist()
+        args, n_out = k3_plan(b, 9, 7, groups, seed=b), 4001
+    elif plan == "skips blocks":  # the first, a middle and the last block unvisited
+        groups = [0, 2, 0, 3, 1, 0]
+        args, n_out = k3_plan(b, 9, 7, groups, seed=b), 7
+        npairs = sum(groups)
+        args = [x[:npairs] for x in args[:4]] + args[4:]  # no padded tail
+    else:  # no pairs at all: every block zeros
+        empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+        tiles = k3_plan(b, 3, 3, [1], seed=b)[4:]
+        args, n_out = [empty] * 4 + tiles, 5
+    before = dict(k3.grouped_block_matmul.launches_by_variant)
+    got = k3._grouped_block_matmul_variant(*args, n_out=n_out, variant=variant)
+    torch.cuda.synchronize()
+    assert k3.grouped_block_matmul.launches_by_variant[variant] == before[variant] + 1
+    want = k3.grouped_block_matmul_plain(*args, n_out=n_out)
+    assert torch.equal(got, want)
+    if plan == "no pairs":
+        assert not want.any()
+    if plan == "skips blocks":
+        assert not got[0].any() and not got[2].any() and not got[-1].any()
 
 
 def test_blocked_executor_on_the_card(cuda_device):
@@ -140,7 +188,10 @@ def test_blocked_executor_on_the_card(cuda_device):
     ref = spgemm_oracle(a, a)
     for _ in range(2):
         n = k3.grouped_block_matmul.launches
+        by_variant = dict(k3.grouped_block_matmul.launches_by_variant)
         c = ex.assemble(ex.run())
         assert k3.grouped_block_matmul.launches == n + 1
+        by_variant["pipe"] += 1  # b = 128 in aligned tile arrays
+        assert k3.grouped_block_matmul.launches_by_variant == by_variant
         assert c.equals(ref)
     assert tp.spgemm(a, a).equals(ref)
