@@ -5,9 +5,14 @@ NVIDIA H100: the sparsity structure of C = A·B over boolean CSR matrices,
 bit-exact against scipy.  This package imports neither JAX nor the JAX
 package.  Ported so far:
 
-* the batched sliced-ELL engine end to end (``auto_executor`` /
-  ``EllSpGEMMExecutor(batched=True)`` / ``spgemm``), with its row sorts as a
-  hand-written CUDA bitonic kernel (``ops/bitonic.py``, ``csrc/bitonic.cu``);
+* the sliced-ELL engine end to end in both plans (``auto_executor`` /
+  ``EllSpGEMMExecutor`` / ``ell_spgemm`` / ``spgemm``): batched bins for many
+  rows, unrolled contiguous or dealt chunks below 2^16 rows and for skewed
+  products.  Its row sorts are a hand-written CUDA bitonic kernel
+  (``ops/bitonic.py``, ``csrc/bitonic.cu``) up to 32,768 slots a row and
+  ``torch.sort`` past that; its class-table row gathers are hand-written
+  CUDA kernels (``ops/gather.py``, ``csrc/gather.cu``);
+* the host engine for small products (``host_spgemm``, behind ``spgemm``);
 * the blocked tensor-core route for block-clustered operands
   (``BlockedBCSR``, ``bsr_spgemm``, and ``BsrStagedExecutor`` behind
   ``auto_executor`` / ``spgemm``), with its grouped tile products as a
@@ -21,7 +26,8 @@ item that will port them.
 from .formats.bbcsr import BlockedBCSR, blocked_from_arrays
 from .formats.bcsr import BCSR, bcsr_from_arrays, coo_to_csr_stable
 from .ops.bsr import bsr_spgemm
-from .ops.ell import EllSpGEMMExecutor, auto_executor
+from .ops.ell import EllSpGEMMExecutor, auto_executor, ell_spgemm
+from .ops.host import host_spgemm
 from .ops.spgemm import spgemm, spgemm_flops
 
 __all__ = [
@@ -33,6 +39,8 @@ __all__ = [
     "blocked_from_arrays",
     "bsr_spgemm",
     "coo_to_csr_stable",
+    "ell_spgemm",
+    "host_spgemm",
     "spgemm",
     "spgemm_flops",
 ]

@@ -16,6 +16,8 @@ its ``launches`` attribute; for a CPU tensor it computes the plain PyTorch
 version (``*_plain`` below) instead.  Any other device, a dtype other than
 int32, a tensor that is not 2-D and contiguous, or a row longer than
 :data:`MAX_L` raises — there is no fallback to ``torch.sort`` on the card.
+:func:`sort_rows`, the engines' sort step, picks K1 or ``torch.sort`` by the
+row length alone, as the JAX package picks its kernel or ``lax.sort``.
 """
 from __future__ import annotations
 
@@ -171,6 +173,17 @@ fused_sort_compress.launches = 0
 
 def sort_rows(x: torch.Tensor) -> torch.Tensor:
     """Ascending value sort of each row of int32 ``[k, L]`` ``x`` — the
-    counterpart of ``jax.lax.sort(x, dimension=1, is_stable=False)``, through
-    K1 (no payload, so stability is moot)."""
+    counterpart of ``jax.lax.sort(x, dimension=1, is_stable=False)`` (no
+    payload, so stability is moot).  The route is a function of ``L`` alone,
+    as the JAX package's is: rows up to :data:`MAX_L` through K1, longer rows
+    through ``torch.sort``, the op for the XLA sort the JAX package runs
+    outside its kernel's window.  ``sort_rows.routes`` counts the calls by
+    route, on every device."""
+    if x.dim() == 2 and x.shape[1] > MAX_L:
+        sort_rows.routes["torch_sort"] += 1
+        return torch.sort(x, dim=1).values
+    sort_rows.routes["k1"] += 1
     return bitonic_sort_rows(x)
+
+
+sort_rows.routes = {"k1": 0, "torch_sort": 0}

@@ -1,22 +1,29 @@
-"""Sliced-ELLPACK SpGEMM, batched 2-D form: row-gather expansion + row sorts.
+"""Sliced-ELLPACK SpGEMM: row-gather expansion + row sorts.
 
-Counterpart of ``binary_spgemm_tpu/ops/ell.py``, the batched slice.  B is laid
-out host-side as sliced ELLPACK (rows grouped into width classes, each class
-a dense ``[n_rows_c, w_c]`` int32 table padded with the sentinel ``n_cols``);
-A's rows are snake-dealt into ``k`` bins; every bin's candidates become one
-row of a ``[k, sort_pad]`` packed-key stream
+Counterpart of ``binary_spgemm_tpu/ops/ell.py``, its plain product in both of
+its forms.  B is laid out host-side as sliced ELLPACK (rows grouped into
+width classes, each class a dense ``[n_rows_c, w_c]`` int32 table padded
+with the sentinel ``n_cols``).  A's rows go into chunks, and every chunk's
+candidates ``(local_row, table_c[pos[e]])`` (one row-gather per A-entry,
+:mod:`.gather`'s P3/P4), plus one separator per chunk row and sentinel fill,
+become one row of a stream that :func:`..spgemm.sort_compress_seps_2d`
+sorts, deduplicates and compacts.  The host splits the separators off and
+scatters each chunk's rows back to their global positions.
 
-    key = (local_row << shift) | table_c[pos[e]]      # one row-gather per A-entry
+* **Batched** (``batched=True``): ``k`` snake-dealt bins, the stream packed
+  as int32 keys ``(row << shift) | col`` by P4 where they fit (pairs by P3
+  where not), two K1 launches per dispatch group.
+* **Unrolled** (``batched=False``): contiguous flop-balanced chunks or
+  snake-dealt ones (``row_chunks``), each chunk's ``(row, col)`` pair stream
+  built by P3; one dispatch group's chunks sort as one ``[g, sort_pad]``
+  array, each row being the JAX package's 1-D step of that chunk.  Its rows
+  run to millions of slots, which :func:`..bitonic.sort_rows` hands to
+  ``torch.sort``.
 
-plus one separator key per bin row and sentinel fill, and
-:func:`..spgemm.sort_compress_seps_2d_keys` sorts, deduplicates and compacts
-every row (two K1 launches per dispatch group).  The host splits the
-separators off and scatters each bin's rows back to their global positions.
-
-The planner (:func:`_batched_deal_plan`) keeps the JAX package's rate
-constants verbatim and takes its off-TPU form (no Pallas-bitonic discount,
-no power-of-two ``sort_pad`` rounding), so for the same input both packages
-make the same plan, stage the same arrays and sort the same streams.
+The planners keep the JAX package's rate constants verbatim and take its
+off-TPU form (no Pallas-bitonic discount, no power-of-two ``sort_pad``
+rounding), so for the same input both packages make the same plan, stage the
+same arrays and sort the same streams.
 """
 from __future__ import annotations
 
@@ -28,8 +35,11 @@ import numpy as np
 import torch
 
 from ..formats.bcsr import BCSR
+from .gather import class_gather, class_gather_keys
 from .spgemm import (
     INT,
+    _chunk_rows,
+    _stitch,
     pad_bucket,
     packable,
     pull_chunk_prefixes,
@@ -46,15 +56,12 @@ __all__ = [
     "EllSpGEMMExecutor",
     "auto_executor",
     "cached_executor",
+    "ell_spgemm",
     "prefer_batched",
     "width_bucket",
 ]
 
-# Where the routes this slice does not port are tracked.
-_UNROLLED = (
-    "the unrolled/dealt sliced-ELL plan is not ported yet "
-    "(ROADMAP.md, Queue 1 item 1)"
-)
+# Where the routes this port does not serve yet are tracked.
 _ESC = (
     "the chunked ESC executor is not ported yet (ROADMAP.md, Queue 1 item 1)"
 )
@@ -202,27 +209,54 @@ def _expand_class_2d(
     n_cols: int,
     w: int = 1,
     shift: int | None = None,
+    out=None,
+    col0: int = 0,
 ):
-    """One class's candidates for all k bins: the batched row-gather.
+    """One class's candidates for all k chunks or bins: the row-gather.
 
-    With ``shift`` returns the packed key stream ``(row << shift) | col``
+    With ``shift`` the packed key stream ``(row << shift) | col``
     (``[k, ec_pad*w]``), invalid slots at the sentinel key
-    ``(rows_pad << shift) | n_cols``; else the ``(row, col)`` pair streams
-    with invalid slots at ``(rows_pad, n_cols)``."""
-    k = entry_rows.shape[0]
-    if table is None:  # inlined class: entry_pos IS B's row values
-        cols = entry_pos.reshape(k, -1, w)
-    else:
-        cols = table[entry_pos]  # [k, ec_pad, w] — THE row-gather
+    ``(rows_pad << shift) | n_cols`` (P4); else the ``(row, col)`` pair
+    streams with invalid slots at ``(rows_pad, n_cols)`` (P3).  Given
+    ``out`` (the key array, or the ``(row, col)`` pair), the class is written
+    into its columns ``col0 : col0 + ec_pad*w`` and ``out`` returned.  An
+    inlined class (``table`` None) has no gather: ``entry_pos`` holds B's row
+    values themselves, masked and packed by torch ops."""
+    if table is not None:
+        if shift is not None:
+            return class_gather_keys(
+                table, entry_pos, entry_rows, rows_pad, n_cols, shift,
+                out=out, col0=col0,
+            )
+        return class_gather(
+            table, entry_pos, entry_rows, rows_pad, n_cols, out=out, col0=col0
+        )
+    k, pad = entry_rows.shape
+    cols = entry_pos.reshape(k, pad, w)
     rows = entry_rows[..., None].expand(cols.shape)
     valid = (cols < n_cols) & (rows < rows_pad)
     if shift is not None:
         sentinel = (rows_pad << shift) | n_cols
-        key = torch.where(valid, (rows << shift) | cols, sentinel)
-        return key.reshape(k, -1)
-    rows = torch.where(valid, rows, rows_pad)
-    cols = torch.where(valid, cols, n_cols)
-    return rows.reshape(k, -1), cols.reshape(k, -1)
+        res = (torch.where(valid, (rows << shift) | cols, sentinel),)
+    else:
+        res = (torch.where(valid, rows, rows_pad), torch.where(valid, cols, n_cols))
+    res = tuple(x.reshape(k, pad * w) for x in res)
+    if out is None:
+        return res[0] if shift is not None else res
+    span = res[0].shape[1]
+    for dst, src in zip((out,) if shift is not None else out, res):
+        dst[:, col0 : col0 + span] = src
+    return out
+
+
+def _expand_classes(tables, entry_rows, entry_pos, widths, pads, out, **kw) -> int:
+    """Write every class's expansion into its column span of ``out``, in
+    class order from column 0; return the first column past them."""
+    off = 0
+    for t, er, ep, w, p in zip(tables, entry_rows, entry_pos, widths, pads):
+        _expand_class_2d(t, er, ep, w=w, out=out, col0=off, **kw)
+        off += p * w
+    return off
 
 
 def _assemble_stream_2d(
@@ -236,37 +270,65 @@ def _assemble_stream_2d(
     pads: tuple[int, ...],
     sort_pad: int,
     shift: int | None = None,
+    device: torch.device | None = None,
 ):
     """The batched engine's ``[k, sort_pad]`` candidate stream: per-class
     expansions, one ``(r, n_cols)`` separator per bin row, and sentinel fill
     up to ``sort_pad``.  With ``shift``, one packed int32 key array; else the
-    ``(row, col)`` pair arrays."""
-    device = entry_rows[0].device if entry_rows else None
-    fill = sort_pad - (sum(p * w for p, w in zip(pads, widths)) + rows_pad)
+    ``(row, col)`` pair arrays.  Each class is written in place into its
+    column span, so the stream is never concatenated."""
+    if device is None:
+        device = entry_rows[0].device if entry_rows else None
     seps = torch.arange(rows_pad, dtype=INT, device=device)
+    kw = dict(rows_pad=rows_pad, n_cols=n_cols, shift=shift)
     if shift is not None:
-        sentinel = (rows_pad << shift) | n_cols
-        parts = [
-            _expand_class_2d(t, er, ep, rows_pad, n_cols, w, shift=shift)
-            for t, er, ep, w in zip(tables, entry_rows, entry_pos, widths)
-        ]
-        parts.append(((seps << shift) | n_cols).expand(k, rows_pad))
-        if fill:
-            parts.append(
-                torch.full((k, fill), sentinel, dtype=INT, device=device)
-            )
-        return torch.cat(parts, dim=1)
-    parts_r, parts_c = [], []
-    for t, er, ep, w in zip(tables, entry_rows, entry_pos, widths):
-        r, c = _expand_class_2d(t, er, ep, rows_pad, n_cols, w)
-        parts_r.append(r)
-        parts_c.append(c)
-    parts_r.append(seps.expand(k, rows_pad))
-    parts_c.append(torch.full((k, rows_pad), n_cols, dtype=INT, device=device))
-    if fill:
-        parts_r.append(torch.full((k, fill), rows_pad, dtype=INT, device=device))
-        parts_c.append(torch.full((k, fill), n_cols, dtype=INT, device=device))
-    return torch.cat(parts_r, dim=1), torch.cat(parts_c, dim=1)
+        key = torch.empty((k, sort_pad), dtype=INT, device=device)
+        off = _expand_classes(tables, entry_rows, entry_pos, widths, pads, key, **kw)
+        key[:, off : off + rows_pad] = (seps << shift) | n_cols
+        key[:, off + rows_pad :] = (rows_pad << shift) | n_cols
+        return key
+    row = torch.empty((k, sort_pad), dtype=INT, device=device)
+    col = torch.empty((k, sort_pad), dtype=INT, device=device)
+    off = _expand_classes(
+        tables, entry_rows, entry_pos, widths, pads, (row, col), **kw
+    )
+    row[:, off : off + rows_pad] = seps
+    row[:, off + rows_pad :] = rows_pad
+    col[:, off:] = n_cols
+    return row, col
+
+
+def _chunk_pair_streams(
+    tables,
+    entry_rows,  # per-class stacked [n_chunks, pad_c]
+    entry_pos,
+    *,
+    n_chunks: int,
+    rows_pad: int,
+    n_cols: int,
+    widths,
+    pads,
+    sort_pad: int,
+    device: torch.device | None = None,
+):
+    """The unrolled engine's per-chunk padded candidate ``(row, col)``
+    streams with their separators, stacked: row i of each ``[n_chunks,
+    sort_pad]`` array is chunk i's stream as the JAX package's separator
+    kernel sorts it, its ``_chunk_pair_streams`` (class expansions in class
+    order, then ``(rows_pad, n_cols)`` fill) followed by the chunk's
+    ``rows_pad`` separators ``(r, n_cols)`` in the last columns."""
+    if device is None:
+        device = entry_rows[0].device if entry_rows else None
+    row = torch.empty((n_chunks, sort_pad), dtype=INT, device=device)
+    col = torch.empty((n_chunks, sort_pad), dtype=INT, device=device)
+    off = _expand_classes(
+        tables, entry_rows, entry_pos, widths, pads, (row, col),
+        rows_pad=rows_pad, n_cols=n_cols,
+    )
+    row[:, off : sort_pad - rows_pad] = rows_pad
+    row[:, sort_pad - rows_pad :] = torch.arange(rows_pad, dtype=INT, device=device)
+    col[:, off:] = n_cols
+    return row, col
 
 
 def _unpack_tables(tables_flat: torch.Tensor, table_shapes) -> tuple:
@@ -284,7 +346,7 @@ def _unpack_tables(tables_flat: torch.Tensor, table_shapes) -> tuple:
 
 
 def _unpack_entries(er_all, ep_all, row0: int, g: int, pads, ep_spans) -> tuple:
-    """One dispatch group's bins (rows ``row0 : row0+g``) of the stacked
+    """One dispatch group's chunks (rows ``row0 : row0+g``) of the stacked
     entry arrays, split into the class column spans.  ``ep_spans`` differ
     from ``pads`` for inlined classes, whose staged values occupy ``pad*w``
     columns.  Staging keeps ``row0 + g <= k_tot``, so no slice is clamped."""
@@ -299,47 +361,76 @@ def _unpack_entries(er_all, ep_all, row0: int, g: int, pads, ep_spans) -> tuple:
     return tuple(ers), tuple(eps)
 
 
+def _ell_spgemm_sep(
+    tables, entry_rows, entry_pos, *, n_chunks: int, rows_pad: int,
+    n_cols: int, widths, pads, sort_pad: int, out_pad: int | None = None,
+    device: torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The unrolled engine on one dispatch group: every chunk's pair stream
+    with its separators (``[n_chunks, sort_pad]``), sorted, deduplicated and
+    compacted row by row.  Returns the compacted column streams (truncated to
+    ``out_pad``) and the per-chunk valid counts."""
+    row, col = _chunk_pair_streams(
+        tables, entry_rows, entry_pos, n_chunks=n_chunks, rows_pad=rows_pad,
+        n_cols=n_cols, widths=widths, pads=pads, sort_pad=sort_pad,
+        device=device,
+    )
+    idx, nnz = sort_compress_seps_2d(row, col, rows_pad, n_cols)
+    if out_pad is not None and out_pad < sort_pad:
+        idx = idx[:, :out_pad]
+    return idx, nnz
+
+
 def _ell_spgemm_sep2d(
     tables, entry_rows, entry_pos, *, n_chunks: int, rows_pad: int,
     n_cols: int, widths, pads, sort_pad: int, out_pad: int | None = None,
+    device: torch.device | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """All bins of one group as ONE ``[n_chunks, sort_pad]`` stream, sorted,
     deduplicated and compacted along axis -1.  Returns the compacted column
     stream (truncated to ``out_pad``) and the per-bin valid counts."""
+    args = (tables, entry_rows, entry_pos, n_chunks, rows_pad, n_cols, widths,
+            pads, sort_pad)
     if packable(rows_pad, n_cols):
         key = _assemble_stream_2d(
-            tables, entry_rows, entry_pos, n_chunks, rows_pad, n_cols,
-            widths, pads, sort_pad, shift=int(n_cols).bit_length(),
+            *args, shift=int(n_cols).bit_length(), device=device
         )
         idx, nnz = sort_compress_seps_2d_keys(key, rows_pad, n_cols)
     else:
-        row, col = _assemble_stream_2d(
-            tables, entry_rows, entry_pos, n_chunks, rows_pad, n_cols,
-            widths, pads, sort_pad,
-        )
+        row, col = _assemble_stream_2d(*args, device=device)
         idx, nnz = sort_compress_seps_2d(row, col, rows_pad, n_cols)
     if out_pad is not None and out_pad < sort_pad:
         idx = idx[:, :out_pad]
     return idx, nnz
 
 
-def _flat_spgemm_sep2d(
-    tables_flat, er_all, ep_all, row0: int, *, table_shapes, n_chunks: int,
-    rows_pad: int, n_cols: int, widths, pads, sort_pad: int,
-    out_pad: int | None = None,
-):
-    """The flat group runner: unpack the tables and one group's entries from
-    the three staged arrays, then run :func:`_ell_spgemm_sep2d`."""
-    tables = _unpack_tables(tables_flat, table_shapes)
-    ep_spans = tuple(
-        p * w if shape is None else p  # inlined: pad*w staged values
-        for shape, w, p in zip(table_shapes, widths, pads)
-    )
-    er, ep = _unpack_entries(er_all, ep_all, row0, n_chunks, pads, ep_spans)
-    return _ell_spgemm_sep2d(
-        tables, er, ep, n_chunks=n_chunks, rows_pad=rows_pad, n_cols=n_cols,
-        widths=widths, pads=pads, sort_pad=sort_pad, out_pad=out_pad,
-    )
+def _make_flat_kernel(inner):
+    """A flat group runner around ``inner``: unpack the tables and one
+    group's entries from the three staged arrays, then run ``inner`` on the
+    staged arrays' device."""
+
+    def runner(
+        tables_flat, er_all, ep_all, row0: int, *, table_shapes,
+        n_chunks: int, rows_pad: int, n_cols: int, widths, pads,
+        sort_pad: int, out_pad: int | None = None,
+    ):
+        tables = _unpack_tables(tables_flat, table_shapes)
+        ep_spans = tuple(
+            p * w if shape is None else p  # inlined: pad*w staged values
+            for shape, w, p in zip(table_shapes, widths, pads)
+        )
+        er, ep = _unpack_entries(er_all, ep_all, row0, n_chunks, pads, ep_spans)
+        return inner(
+            tables, er, ep, n_chunks=n_chunks, rows_pad=rows_pad,
+            n_cols=n_cols, widths=widths, pads=pads, sort_pad=sort_pad,
+            out_pad=out_pad, device=er_all.device,
+        )
+
+    return runner
+
+
+_flat_spgemm_sep = _make_flat_kernel(_ell_spgemm_sep)
+_flat_spgemm_sep2d = _make_flat_kernel(_ell_spgemm_sep2d)
 
 
 def _sort_rate_ns(L: int, packed: bool) -> float:
@@ -381,10 +472,12 @@ def _batched_deal_plan(
     cap: int,
     deal_k: int | None,
     key_cols: int,
+    merge_widths: tuple[int, ...] | None = None,
 ):
     """Plan the batched 2-D engine: pick the bin count k by the sort-rate
     model, snake-deal rows in dominant-class order, and DP-merge width
-    classes so per-bin class pads stop inflating at high k.
+    classes so per-bin class pads stop inflating at high k (or group them at
+    the caller's ``merge_widths`` levels).
 
     Returns ``None`` when the input is degenerate (no flops), else
     ``(ell, rows_pc, pos_pc, assign, k, pads, slots, rows_pad,
@@ -473,6 +566,21 @@ def _batched_deal_plan(
         groups.reverse()
         return groups
 
+    def forced_groups(gw):
+        """Contiguous class grouping at caller-forced width levels."""
+        gw = sorted(int(x) for x in gw)
+        if gw[-1] < int(classes[-1]):
+            raise ValueError(
+                f"merge_widths {gw} do not cover max class {classes[-1]}"
+            )
+        groups, j = [], 0
+        for lvl in gw:
+            i = int(np.searchsorted(classes, lvl, side="right"))
+            if i > j:
+                groups.append((j, i))
+                j = i
+        return groups
+
     def groups_stats(cnt_pref, groups):
         """(padded slots, gather ns/chunk) for a grouping."""
         slots, gather = 0, 0.0
@@ -512,7 +620,11 @@ def _batched_deal_plan(
         cnt = np.bincount(e * k + asg[r], minlength=C * k).reshape(C, k)
         pref = np.zeros((C + 1, k), np.int64)
         np.cumsum(cnt, axis=0, out=pref[1:])
-        groups = dp_merge(pref, k)
+        groups = (
+            forced_groups(merge_widths)
+            if merge_widths is not None
+            else dp_merge(pref, k)
+        )
         slots, gather = groups_stats(pref, groups)
         rows_pad = pad_bucket(
             int(np.bincount(asg, minlength=k).max()) or 1, minimum=1, div=32
@@ -571,16 +683,20 @@ def _batched_deal_plan(
 
 
 class EllSpGEMMExecutor:
-    """Pre-staged repeated C = A·B via the batched sliced-ELL engine.
+    """Pre-staged repeated C = A·B via the sliced-ELL engine.
 
     Plans and stages once (host numpy, then three uploads to ``device``);
-    each :meth:`run` queues one dispatch per group of bins on the current
-    stream and returns the stacked per-bin ``(c_indices, nnz)`` device
+    each :meth:`run` queues one dispatch per group of chunks on the current
+    stream and returns the stacked per-chunk ``(c_indices, nnz)`` device
     tensors; :meth:`assemble` pulls them and builds the host CSR.
 
-    Only ``batched=True`` is ported: the unrolled plan (``batched=False``,
-    and the JAX package's drop to it for degenerate inputs) raises
-    ``NotImplementedError``.
+    ``batched=True`` takes the batched 2-D plan (:func:`_batched_deal_plan`;
+    a degenerate input with no flops drops to the unrolled plan, as in the
+    JAX package).  Otherwise the unrolled plan: ``row_chunks`` is ``"auto"``
+    (about 32 padded-slot-balanced contiguous chunks, capped for the packed
+    key when that does not inflate the padding, or the snake deal when its
+    sort cost is below 0.9 of theirs), ``"contig"``, ``"deal"``, ``1`` or a
+    chunk count; ``deal_k`` forces a deal into that many bins.
     """
 
     def __init__(
@@ -588,85 +704,221 @@ class EllSpGEMMExecutor:
         a: BCSR,
         b: BCSR,
         *,
+        row_chunks: int | str = "auto",
         deal_k: int | None = None,
         batched: bool = False,
+        merge_widths: tuple[int, ...] | None = None,
         batched_slots_cap: int | None = None,
         device: str | torch.device = "cuda",
     ):
         if a.n_cols != b.n_rows:
             raise ValueError(f"shape mismatch: {a.shape} @ {b.shape}")
         require_int32_operands(a, b)
-        if not batched:
-            raise NotImplementedError(_UNROLLED)
         self.device = resolve_device(device)
         self.shape = (a.n_rows, b.n_cols)
         self.n_rows, self.n_cols = a.n_rows, b.n_cols
-        self.batched = True
         rf = row_flops(a, b)
-        # bins stay small enough for the packed sort key to fit one int32
+        # chunks stay small enough for the packed sort key to fit one int32
         shift = int(self.n_cols).bit_length()
         cap = 1 << max(0, 30 - shift)
         n = self.n_rows
-        planned = _batched_deal_plan(a, b, rf, cap, deal_k, self.n_cols)
-        if planned is None:
-            raise NotImplementedError(
-                "degenerate input (no flops in any bin): " + _UNROLLED
+        key_cols = self.n_cols
+        self.batched = bool(batched)
+        dealt = None
+        if batched:
+            planned = _batched_deal_plan(
+                a, b, rf, cap, deal_k, key_cols, merge_widths=merge_widths
             )
-        (ell, rows_pc, pos_pc, assign, k, self.pads, slots, self.rows_pad,
-         model_ranking) = planned
+            if planned is None:
+                self.batched = False  # degenerate input: unrolled is fine
+            else:
+                (ell, rows_pc, pos_pc, assign, k_d, pads_d, slots_d,
+                 rows_pad_d, model_ranking) = planned
+                if slots_d > np.iinfo(np.int32).max:
+                    raise OverflowError(
+                        f"batched ELL expansion {slots_d} slots/bin "
+                        "exceeds int32"
+                    )
+                dealt = (assign, k_d, pads_d, slots_d, rows_pad_d)
+                self.widths = tuple(ell.widths)
+                self.k_ranking = list(model_ranking)
+        if dealt is None:
+            ell = EllB.build(b)
+            rows_pc, pos_pc = _build_class_entries(a, ell)
+            self.widths = tuple(ell.widths)
+        # balance chunks on padded expansion slots: per-row weight = sum over
+        # its entries of the B-row's class width
+        padded_w = np.zeros(len(ell.widths) + 1, np.int64)
+        for ci, wc in enumerate(ell.widths):
+            padded_w[ci] = wc
+        rfp = np.zeros(a.n_rows, np.int64)
+        if a.nnz:
+            entry_w = padded_w[ell.class_of_row[a.indices]]
+            cum = np.zeros(a.nnz + 1, np.int64)
+            np.cumsum(entry_w, out=cum[1:])
+            rfp = cum[a.indptr[1:]] - cum[a.indptr[:-1]]
+        total_flops = int(rfp.sum())
+
+        def plan(bounds):
+            """A contiguous chunk plan's per-class cuts and pads, padded
+            slots per chunk and in all."""
+            k = len(bounds) - 1
+            cuts_pc, pads = [], []
+            for rcls in rows_pc:
+                cuts = np.searchsorted(rcls, np.asarray(bounds))
+                cuts_pc.append(cuts)
+                pads.append(
+                    pad_bucket(max(int(np.diff(cuts).max()), 1), minimum=8)
+                )
+            slots = sum(p * w for p, w in zip(pads, self.widths))
+            return cuts_pc, tuple(pads), slots, slots * k
+
+        force = row_chunks if isinstance(row_chunks, str) else None
+        if force in ("auto", "contig", "deal"):
+            # ~32 slot-balanced chunks; the packed-key row cap is kept only
+            # when its padded total stays within 2x the uncapped plan's
+            budget = max(total_flops // 32, 1 << 19)
+            bounds = _chunk_bounds(rfp, budget, max(n, 1))
+            if cap >= 512 and -(-n // cap) <= 160:
+                capped = _chunk_bounds(rfp, budget, cap)
+                if len(capped) > len(bounds):
+                    _, _, _, tot_c = plan(capped)
+                    _, _, _, tot_u = plan(bounds)
+                    if tot_c <= 2 * tot_u:
+                        bounds = capped
+        elif row_chunks == 1:
+            bounds = [0, n]
+        else:
+            budget = max(total_flops // int(row_chunks), 1)
+            bounds = _chunk_bounds(rfp, budget, -(-n // int(row_chunks)))
+        chunks_c = list(zip(bounds, bounds[1:]))
+        rows_pad_c = pad_bucket(
+            max(r1 - r0 for r0, r1 in chunks_c) if n else 1, minimum=1
+        )
+        cuts_pc, pads_c, slots_c, _ = plan(bounds)
+
+        # dealt plan: rows snake-dealt into k_d bins by descending padded
+        # weight, which evens every class's per-bin counts at once
+        if dealt is None and (
+            force in ("auto", "deal") or deal_k
+        ) and n > 0 and self.widths and total_flops:
+            if deal_k:
+                k_d = int(deal_k)
+            else:
+                m_pack = -(-n // cap) if cap >= 512 else 257
+                k_d = max(32, min(2 * m_pack, 256)) if m_pack <= 256 else 48
+            order = np.argsort(-rfp, kind="stable")
+            pos = np.arange(n)
+            lane = (pos % k_d).astype(np.int32)
+            assign = np.empty(n, np.int32)
+            assign[order] = np.where((pos // k_d) % 2 == 0, lane, k_d - 1 - lane)
+
+            def eval_assign(asg):
+                pads = tuple(
+                    pad_bucket(
+                        int(np.bincount(asg[rcls], minlength=k_d).max())
+                        if len(rcls)
+                        else 1,
+                        minimum=8,
+                    )
+                    for rcls in rows_pc
+                )
+                slots = sum(p * w for p, w in zip(pads, self.widths))
+                rp = pad_bucket(
+                    int(np.bincount(asg, minlength=k_d).max()) or 1, minimum=1
+                )
+                return pads, slots, rp
+
+            pads_d, slots_d, rows_pad_d = eval_assign(assign)
+            if slots_d <= np.iinfo(np.int32).max:
+                dealt = (assign, k_d, pads_d, slots_d, rows_pad_d)
+
+        def sort_cost(slots, k, rows_pad):
+            # the JAX package's relative weight of an unpacked 2-key sort
+            rate = 1.0 if packable(rows_pad, key_cols) else 1.36
+            return pad_bucket(max(slots, 8)) * k * rate
+
+        use_dealt = (
+            self.batched or force == "deal" or deal_k is not None
+        ) and dealt is not None
+        if (
+            force == "auto" and deal_k is None and not self.batched
+        ) and dealt is not None:
+            assign, k_d, pads_d, slots_d, rows_pad_d = dealt
+            use_dealt = sort_cost(slots_d, k_d, rows_pad_d) < 0.9 * sort_cost(
+                slots_c, len(chunks_c), rows_pad_c
+            )
+
+        if use_dealt:
+            assign, k, self.pads, slots, self.rows_pad = dealt
+            self.chunks = None
+            self.bounds = None
+            # bins grouped by bin, ascending row within a bin, and each row's
+            # bin-local id
+            order2 = np.argsort(assign, kind="stable")
+            binsz = np.bincount(assign, minlength=k)
+            starts = np.concatenate([[0], np.cumsum(binsz)])
+            self.row_sets = [
+                order2[starts[i] : starts[i + 1]] for i in range(k)
+            ]
+            local_id = np.empty(n, np.int32)
+            local_id[order2] = (
+                np.arange(n) - np.repeat(starts[:-1], binsz)
+            ).astype(np.int32)
+            max_chunk_flops = (
+                int(np.bincount(assign, weights=rf, minlength=k).max())
+                if a.nnz
+                else 0
+            )
+        else:
+            self.bounds = np.asarray(bounds, np.int64)
+            self.chunks = chunks_c
+            self.row_sets = None
+            self.rows_pad = rows_pad_c
+            self.pads = pads_c
+            slots = slots_c
+            k = len(chunks_c)
+            max_chunk_flops = max(
+                (int(rf[r0:r1].sum()) for r0, r1 in chunks_c), default=0
+            )
+        self.n_chunks = k
         if slots > np.iinfo(np.int32).max:
             raise OverflowError(
-                f"batched ELL expansion {slots} slots/bin exceeds int32"
+                f"ELL chunk expansion {slots} slots exceeds int32; "
+                "use the chunked ESC engine for this product"
             )
-        self.widths = tuple(ell.widths)
-        self.k_ranking = list(model_ranking)
-
-        # bins of the snake deal: row sets grouped by bin, ascending row
-        # within a bin, and each row's bin-local id
-        order2 = np.argsort(assign, kind="stable")
-        binsz = np.bincount(assign, minlength=k)
-        starts = np.concatenate([[0], np.cumsum(binsz)])
-        self.row_sets = [order2[starts[i] : starts[i + 1]] for i in range(k)]
-        local_id = np.empty(n, np.int32)
-        local_id[order2] = (
-            np.arange(n) - np.repeat(starts[:-1], binsz)
-        ).astype(np.int32)
-        max_chunk_flops = (
-            int(np.bincount(assign, weights=rf, minlength=k).max())
-            if a.nnz
-            else 0
-        )
-        self.n_chunks = k
-        # + rows_pad separator slots per bin; 32nd-octave bucket.  No
+        # + rows_pad separator slots per chunk; 32nd-octave bucket.  No
         # power-of-two rounding: that rule serves only the TPU's bitonic
         # window, and the plan here is the JAX package's off-TPU plan.
         self.sort_pad = pad_bucket(max(slots + self.rows_pad, 8), div=32)
         self.total_slots = self.sort_pad * k
         if (
-            batched_slots_cap is not None
+            self.batched
+            and batched_slots_cap is not None
             and self.total_slots > batched_slots_cap
         ):
             raise OverflowError(
                 f"batched stream {self.total_slots} slots exceeds the "
                 f"auto-route cap {batched_slots_cap}"
             )
-        # valid outputs per bin never exceed its true flops + separators
+        # valid outputs per chunk never exceed its true flops + separators
         self.out_pad = min(
             pad_bucket(max_chunk_flops + self.rows_pad), self.sort_pad
         )
         self.resident_slots = self.out_pad * k
         # uniform dispatch groups; the last is padded with all-sentinel
-        # dummy bins (assemble() walks only the real ones)
+        # dummy chunks (assemble() walks only the real ones)
         self.group_size = max(min(k, DISPATCH_SLOT_BUDGET // self.sort_pad), 1)
         if (
-            self.total_slots <= SMALL_PLAN_SLOTS
+            self.batched
+            and self.total_slots <= SMALL_PLAN_SLOTS
             and self.group_size >= SMALL_PLAN_GROUPS
         ):
             self.group_size = min(self.group_size, -(-k // SMALL_PLAN_GROUPS))
         self.n_groups = -(-k // self.group_size)
 
         # Flat staging: the tables concatenate into one flat array and the
-        # per-(class, bin) entry arrays into one [k_tot, sum(pads)] array
+        # per-(class, chunk) entry arrays into one [k_tot, sum(pads)] array
         # each.  Narrow classes (and classes with big tables) are INLINED:
         # the staged entry "position" is B's row values themselves.
         self.inline = tuple(
@@ -704,24 +956,46 @@ class EllSpGEMMExecutor:
         offs_ep = np.concatenate([[0], np.cumsum(ep_spans)]).astype(np.int64)
         er_all = np.full((k_tot, P), self.rows_pad, np.int32)
         ep_all = np.zeros((k_tot, P_ep), np.int32)  # 0: in range of every table
-        er_flat, ep_flat = er_all.reshape(-1), ep_all.reshape(-1)
-        for ci, (rcls, pcls) in enumerate(zip(rows_pc, pos_pc)):
-            ch = assign[rcls]
-            ordc = np.argsort(ch, kind="stable")
-            cnt = np.bincount(ch, minlength=k)
-            cst = np.concatenate([[0], np.cumsum(cnt)])
-            rs, ps = rcls[ordc], pcls[ordc]
-            rank = np.arange(len(rs), dtype=np.int64) - np.repeat(cst[:-1], cnt)
-            er_flat[ch[ordc].astype(np.int64) * P + offs[ci] + rank] = (
-                local_id[rs]
-            )
-            base_ep = ch[ordc].astype(np.int64) * P_ep + offs_ep[ci]
-            if self.inline[ci]:
-                w = self.widths[ci]
-                dst = (base_ep + rank * w)[:, None] + np.arange(w)
-                ep_flat[dst.reshape(-1)] = ell.tables[ci][ps].reshape(-1)
-            else:
-                ep_flat[base_ep + rank] = ps
+        if self.row_sets is not None:
+            # per-class partition of A's entries by dealt chunk; within a
+            # chunk entries keep ascending global-row order (local_id)
+            er_flat, ep_flat = er_all.reshape(-1), ep_all.reshape(-1)
+            for ci, (rcls, pcls) in enumerate(zip(rows_pc, pos_pc)):
+                ch = assign[rcls]
+                ordc = np.argsort(ch, kind="stable")
+                cnt = np.bincount(ch, minlength=k)
+                cst = np.concatenate([[0], np.cumsum(cnt)])
+                rs, ps = rcls[ordc], pcls[ordc]
+                rank = np.arange(len(rs), dtype=np.int64) - np.repeat(
+                    cst[:-1], cnt
+                )
+                er_flat[ch[ordc].astype(np.int64) * P + offs[ci] + rank] = (
+                    local_id[rs]
+                )
+                base_ep = ch[ordc].astype(np.int64) * P_ep + offs_ep[ci]
+                if self.inline[ci]:
+                    w = self.widths[ci]
+                    dst = (base_ep + rank * w)[:, None] + np.arange(w)
+                    ep_flat[dst.reshape(-1)] = ell.tables[ci][ps].reshape(-1)
+                else:
+                    ep_flat[base_ep + rank] = ps
+        else:
+            for ci, (rcls, pcls) in enumerate(zip(rows_pc, pos_pc)):
+                cuts = cuts_pc[ci]
+                o, o_ep = offs[ci], offs_ep[ci]
+                w = self.widths[ci] if self.inline[ci] else 1
+                ps_all = (
+                    ell.tables[ci][pcls].reshape(-1)
+                    if self.inline[ci]
+                    else pcls
+                )
+                for kk, (r0, r1) in enumerate(self.chunks):
+                    lo, hi = cuts[kk], cuts[kk + 1]
+                    # chunk-local row ids
+                    er_all[kk, o : o + hi - lo] = rcls[lo:hi] - r0
+                    ep_all[kk, o_ep : o_ep + (hi - lo) * w] = ps_all[
+                        lo * w : hi * w
+                    ]
         self.tables_flat = torch.from_numpy(tables_flat).to(self.device)
         self.er_all = torch.from_numpy(er_all).to(self.device)
         self.ep_all = torch.from_numpy(ep_all).to(self.device)
@@ -737,19 +1011,20 @@ class EllSpGEMMExecutor:
         for gi in range(self.n_groups):
             yield gi * self.group_size
 
+    def _run_group(self, row0: int):
+        kernel = _flat_spgemm_sep2d if self.batched else _flat_spgemm_sep
+        return kernel(
+            self.tables_flat, self.er_all, self.ep_all, row0,
+            **self._flat_kw(), out_pad=self.out_pad,
+        )
+
     def run(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """Stacked per-bin ``(c_indices [k_tot, out_pad], nnz [k_tot])``
+        """Stacked per-chunk ``(c_indices [k_tot, out_pad], nnz [k_tot])``
         device tensors, row pointers embedded as ``n_cols`` separators.  One
-        dispatch per bin group, all queued on the current stream without a
+        dispatch per chunk group, all queued on the current stream without a
         host sync; the group outputs concatenate on the device.  Trailing
-        dummy bins (sentinel-only) may follow the real ones."""
-        outs = [
-            _flat_spgemm_sep2d(
-                self.tables_flat, self.er_all, self.ep_all, row0,
-                **self._flat_kw(), out_pad=self.out_pad,
-            )
-            for row0 in self._row0s()
-        ]
+        dummy chunks (sentinel-only) may follow the real ones."""
+        outs = [self._run_group(row0) for row0 in self._row0s()]
         if len(outs) == 1:
             return outs[0]
         return tuple(torch.cat([o[i] for o in outs]) for i in range(2))
@@ -759,11 +1034,11 @@ class EllSpGEMMExecutor:
         idx_dev, nnz_dev = outputs
         nnz_c = nnz_dev.cpu().numpy()
         valid = nnz_c.astype(np.int64)
-        valid[self.n_chunks :] = 0  # trailing dummy group-fill bins
+        valid[self.n_chunks :] = 0  # trailing dummy group-fill chunks
         chunk_idx = pull_chunk_prefixes(idx_dev, valid)
         if self.n_chunks >= 256:
-            # per-bin python splitting costs seconds at thousands of bins:
-            # one vectorised pass instead
+            # per-chunk python splitting costs seconds at thousands of
+            # chunks: one vectorised pass instead
             return self._assemble_seps_batch(chunk_idx, valid)
         parts = [
             split_seps(chunk_idx[i], int(nnz_c[i]), self.rows_pad, self.n_cols)
@@ -772,8 +1047,8 @@ class EllSpGEMMExecutor:
         return self._assemble_parts(parts)
 
     def _assemble_seps_batch(self, chunk_idx, valid: np.ndarray) -> BCSR:
-        """Vectorised host assembly of separator-embedded bin streams: ONE
-        pass over the concatenation instead of per-bin ``split_seps``."""
+        """Vectorised host assembly of separator-embedded chunk streams: ONE
+        pass over the concatenation instead of per-chunk ``split_seps``."""
         k = self.n_chunks
         n_rows = self.shape[0]
         big = (
@@ -790,16 +1065,22 @@ class EllSpGEMMExecutor:
                 f"separator-count invariant violated: {len(bpos)} separators "
                 f"for {k} chunks x rows_pad {self.rows_pad}"
             )
-        # per-bin exclusive row pointers off the separator positions
+        # per-chunk exclusive row pointers off the separator positions
         bpos_k = bpos.reshape(k, self.rows_pad) - starts[:, None]
         ptr_tail = bpos_k - np.arange(self.rows_pad, dtype=np.int64)[None, :]
         lens_kl = np.diff(
             np.concatenate([np.zeros((k, 1), np.int64), ptr_tail], axis=1),
             axis=1,
-        )  # [k, rows_pad] per-(bin, local-row) entry counts
-        indices_all = big[~sep_mask]  # (bin, ascending local row) order
-        rows_concat = np.concatenate(self.row_sets)
-        binsz = np.array([len(r) for r in self.row_sets], np.int64)
+        )  # [k, rows_pad] per-(chunk, local-row) entry counts
+        indices_all = big[~sep_mask]  # (chunk, ascending local row) order
+        if self.row_sets is not None:
+            rows_concat = np.concatenate(self.row_sets)
+            binsz = np.array([len(r) for r in self.row_sets], np.int64)
+        else:
+            rows_concat = np.concatenate(
+                [np.arange(r0, r1, dtype=np.int64) for r0, r1 in self.chunks]
+            )
+            binsz = np.array([r1 - r0 for r0, r1 in self.chunks], np.int64)
         real = np.arange(self.rows_pad, dtype=np.int64)[None, :] < binsz[:, None]
         lens_real = lens_kl[real]  # aligned with rows_concat
         lengths = np.zeros(n_rows, np.int64)
@@ -816,7 +1097,29 @@ class EllSpGEMMExecutor:
         return BCSR(indptr, indices, self.shape)
 
     def _assemble_parts(self, parts) -> BCSR:
-        return _stitch_sets(self.row_sets, self.shape[0], self.shape, parts)
+        if self.row_sets is not None:
+            return _stitch_sets(self.row_sets, self.shape[0], self.shape, parts)
+        it = iter(parts)
+        return _stitch(
+            self.chunks, self.shape[0], self.shape, lambda r0, r1: next(it)
+        )
+
+    def run_assemble_streaming(self) -> BCSR:
+        """Compute and assemble with a host pull after every dispatch group:
+        device memory holds one group's outputs at a time instead of the
+        whole product's."""
+        host_parts = []
+        for row0 in self._row0s():
+            idx_dev, nnz_dev = self._run_group(row0)
+            nnz = nnz_dev.cpu().numpy()
+            group_idx = pull_chunk_prefixes(idx_dev, nnz.astype(np.int64))
+            for j in range(nnz.shape[0]):
+                host_parts.append(
+                    split_seps(
+                        group_idx[j], int(nnz[j]), self.rows_pad, self.n_cols
+                    )
+                )
+        return self._assemble_parts(host_parts[: self.n_chunks])
 
 
 def _stitch_sets(row_sets, n_rows: int, shape, parts) -> BCSR:
@@ -890,8 +1193,8 @@ def cached_executor(
     ``allow_bsr=True`` lets block-clustered products route to the staged
     blocked engine (:func:`..bsr.maybe_bsr_executor`); only callers that need
     nothing beyond ``assemble(run())`` may pass it, as the one-shot
-    ``spgemm`` does.  Otherwise, and where the screen declines, the batched
-    sliced-ELL plan serves the product."""
+    ``spgemm`` does.  Otherwise, and where the screen declines, the
+    sliced-ELL plan of :func:`_auto_ell` serves the product."""
     device = torch.device(device)
     key = (id(a), id(b), allow_bsr, str(device))
     hit = _EXEC_CACHE.get(key)
@@ -917,7 +1220,7 @@ def cached_executor(
 def prefer_batched(a: BCSR, b: BCSR) -> bool:
     """Should the plain product use the batched 2-D engine on this input?
     Many rows (>= 2^16, or more than 160 packed chunks' worth) take it;
-    fewer take the unrolled plan (not ported)."""
+    fewer take the unrolled plan."""
     shift = int(b.n_cols).bit_length()
     cap = 1 << max(0, 30 - shift)
     return a.n_rows > 160 * cap or a.n_rows >= (1 << 16)
@@ -925,36 +1228,53 @@ def prefer_batched(a: BCSR, b: BCSR) -> bool:
 
 def _auto_ell(a: BCSR, b: BCSR, *, device: str | torch.device = "cuda"):
     """The ELL executor the auto path wants: batched 2-D when the many-rows
-    rule says so AND the planned stream passes the skew guard.  Where the
-    JAX package takes the unrolled plan instead, this raises."""
-    if not prefer_batched(a, b):
-        raise NotImplementedError(
-            "fewer rows than the batched rule takes: " + _UNROLLED
-        )
-    try:
-        return EllSpGEMMExecutor(
-            a, b, batched=True, batched_slots_cap=BATCHED_MAX_SLOTS,
-            device=device,
-        )
-    except OverflowError as err:
-        raise NotImplementedError(f"{err}: {_UNROLLED}") from err
+    rule says so AND the planned stream passes the skew guard, else the
+    unrolled (contiguous or dealt) plan.  Raises ``OverflowError`` only when
+    the unrolled plan overflows too."""
+    if prefer_batched(a, b):
+        try:
+            return EllSpGEMMExecutor(
+                a, b, batched=True, batched_slots_cap=BATCHED_MAX_SLOTS,
+                device=device,
+            )
+        except OverflowError:
+            pass
+    return EllSpGEMMExecutor(a, b, device=device)
 
 
 def auto_executor(a: BCSR, b: BCSR, *, device: str | torch.device = "cuda"):
     """The executor for C = A·B on this input: block-clustered operands take
     the staged blocked engine (:func:`..bsr.maybe_bsr_executor`, a
-    ``BsrStagedExecutor``); otherwise the batched sliced-ELL plan when its
-    resident output fits ``AUTO_ELL_MAX_SLOTS``.  Every other route of the
-    JAX package raises ``NotImplementedError``."""
+    ``BsrStagedExecutor``); otherwise the sliced-ELL plan of
+    :func:`_auto_ell` when its resident output fits ``AUTO_ELL_MAX_SLOTS``.
+    Past that, or where every ELL plan overflows int32, the JAX package takes
+    the chunked ESC executor, and this raises ``NotImplementedError``."""
     from .bsr import maybe_bsr_executor
 
     bex = maybe_bsr_executor(a, b, device=device)
     if bex is not None:
         return bex
-    ex = _auto_ell(a, b, device=device)
+    try:
+        ex = _auto_ell(a, b, device=device)
+    except OverflowError as err:
+        raise NotImplementedError(f"{err}: {_ESC}") from err
     if ex.resident_slots > AUTO_ELL_MAX_SLOTS:
         raise NotImplementedError(
             f"resident output {ex.resident_slots} slots > "
             f"AUTO_ELL_MAX_SLOTS: {_ESC}"
         )
     return ex
+
+
+def _chunk_bounds(rf: np.ndarray, budget: int, max_rows: int) -> list[int]:
+    """Contiguous flop-balanced row boundaries with a hard per-chunk row cap."""
+    chunks = _chunk_rows(rf, budget, max_rows)
+    return [c[0] for c in chunks] + [chunks[-1][1]]
+
+
+def ell_spgemm(
+    a: BCSR, b: BCSR, *, device: str | torch.device = "cuda"
+) -> BCSR:
+    """One-shot C = A·B through the unrolled sliced-ELL plan."""
+    ex = EllSpGEMMExecutor(a, b, device=device)
+    return ex.assemble(ex.run())

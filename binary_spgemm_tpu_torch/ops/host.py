@@ -1,0 +1,61 @@
+"""Host (CPU) engine for the small-flop regime.
+
+Counterpart of ``binary_spgemm_tpu/ops/host.py``, its plain product.  A
+product whose Gustavson flop count is tiny (the reference's own validity
+fixture, n = 50000 with 25,000 nnz, is the canonical one) costs less on the
+host than one round trip to the card, so :func:`..spgemm.spgemm` diverts
+products of at most :data:`HOST_MAX_FLOPS` flops here, as the JAX package's
+router does.
+
+The engine is the JAX package's numpy tier: a vectorised expand–sort–compress
+(grouped-arange expansion, then ``np.unique`` over int64 ``row * m + col``
+keys), which its docstring pins order-identical to its native C tier.  The
+output contract is the device engines': exclusive row pointers, ascending
+deduplicated columns in each row, bit-exact with scipy.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..formats.bcsr import BCSR
+
+__all__ = ["HOST_MAX_FLOPS", "host_spgemm"]
+
+# Router threshold (verbatim): products of at most this many flops run here.
+HOST_MAX_FLOPS = 2_000_000
+
+
+def _expand_numpy(a: BCSR, b: BCSR) -> tuple[np.ndarray, np.ndarray]:
+    """All (row, col) products of the Gustavson expansion, duplicates kept."""
+    alen = np.diff(a.indptr).astype(np.int64)
+    a_rows = np.repeat(np.arange(a.n_rows, dtype=np.int64), alen)
+    blen = np.diff(b.indptr).astype(np.int64)[a.indices]
+    starts = b.indptr[a.indices].astype(np.int64)
+    total = int(blen.sum())
+    rows = np.repeat(a_rows, blen)
+    # grouped arange: flat[k] walks each B row segment start..start+len
+    seg_start = np.cumsum(blen) - blen
+    offset = np.arange(total, dtype=np.int64) - np.repeat(seg_start, blen)
+    flat = np.repeat(starts, blen) + offset
+    cols = b.indices[flat].astype(np.int64)
+    return rows, cols
+
+
+def _keys_to_csr(keys: np.ndarray, n: int, m: int) -> BCSR:
+    """CSR of sorted unique ``row * m + col`` keys."""
+    rows = keys // m
+    cols = (keys % m).astype(np.int32)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+    return BCSR(indptr, cols, (n, m))
+
+
+def host_spgemm(a: BCSR, b: BCSR) -> BCSR:
+    """C = A·B on the host.  Callers keep the flop count inside the int64
+    key domain (the router bounds it far below)."""
+    if a.n_cols != b.n_rows:
+        raise ValueError(f"shape mismatch: {a.shape} @ {b.shape}")
+    n, m = a.n_rows, b.n_cols
+    rows, cols = _expand_numpy(a, b)
+    keys = np.unique(rows * np.int64(m) + cols)
+    return _keys_to_csr(keys, n, m)

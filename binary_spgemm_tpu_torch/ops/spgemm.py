@@ -1,13 +1,15 @@
-"""Expand–sort–compress building blocks the batched sliced-ELL engine uses.
+"""Expand–sort–compress building blocks the sliced-ELL engines use.
 
 Counterpart of ``binary_spgemm_tpu/ops/spgemm.py``, the subset the ported
-routes need: the padding and packing rules, host flop counts, the 2-D
-sort–dedup–compact step with embedded row separators, the pull of each
-chunk's valid prefix to the host, the one-shot :func:`spgemm` with its
-routing, and the opt-in :func:`blocked_route`.  Candidate ``(row, col)``
-pairs pack into one non-negative int32 key ``(row << shift) | col`` when
-:func:`packable` holds; the packed step sorts through
-:func:`..bitonic.sort_rows` (K1).
+routes need: the padding and packing rules, host flop counts, the
+contiguous row chunking, the 2-D sort–dedup–compact step with embedded row
+separators (each row of it is the JAX package's 1-D step of one chunk), the
+pull of each chunk's valid prefix to the host,
+the one-shot :func:`spgemm` with its routing, and the opt-in
+:func:`blocked_route`.  Candidate ``(row, col)`` pairs pack into one
+non-negative int32 key ``(row << shift) | col`` when :func:`packable` holds;
+the packed step sorts through :func:`..bitonic.sort_rows` (K1 up to its
+longest row, ``torch.sort`` past it).
 """
 from __future__ import annotations
 
@@ -129,6 +131,36 @@ def row_flops(a: BCSR, b: BCSR) -> np.ndarray:
     cum = np.zeros(a.nnz + 1, dtype=np.int64)
     np.cumsum(per_entry, out=cum[1:])
     return cum[a.indptr[1:]] - cum[a.indptr[:-1]]
+
+
+def _chunk_rows(
+    rf: np.ndarray, chunk_flops: int, max_rows: int | None = None
+) -> list[tuple[int, int]]:
+    """Greedy contiguous row partition with <= ``chunk_flops`` per chunk (a
+    single row past the budget gets its own chunk) and at most ``max_rows``
+    rows per chunk."""
+    n = len(rf)
+    if n == 0:
+        return [(0, 0)]
+    cum = np.zeros(n + 1, np.int64)
+    np.cumsum(rf, out=cum[1:])
+    chunks = []
+    start = 0
+    while start < n:
+        end = (
+            int(np.searchsorted(cum, cum[start] + chunk_flops, side="right"))
+            - 1
+        )
+        if cum[end] == cum[start] and end < n:
+            # zero-flop prefix: the first flop-carrying row rides along even
+            # when it alone exceeds the budget (a chunk is never all-padding)
+            end += 1
+        if max_rows is not None:
+            end = min(end, start + max_rows)
+        end = min(max(end, start + 1), n)
+        chunks.append((start, end))
+        start = end
+    return chunks
 
 
 def spgemm_flops(a: BCSR, b: BCSR) -> int:
@@ -309,9 +341,6 @@ def _stitch(chunks, rows_total, shape, run_chunk) -> BCSR:
 # A single output row past this many flops takes the JAX package's
 # column-windowed route (``_spgemm_giant``), not ported yet.
 GIANT_ROW_FLOPS = 1 << 30
-# Products with at most this many flops take the JAX package's host engine
-# (``ops/host.py``), not ported yet.
-HOST_MAX_FLOPS = 2_000_000
 
 
 def spgemm(
@@ -323,13 +352,15 @@ def spgemm(
 ) -> BCSR:
     """Boolean SpGEMM structure C = A·B, one shot, on ``device``.
 
-    Routes as the JAX package's ``spgemm`` does; this port serves the
-    blocked route (block-clustered operands) and the batched sliced-ELL
-    route, both staged through :func:`..ell.cached_executor` with
-    ``allow_bsr=True``, and raises ``NotImplementedError`` on every other:
-    giant rows, an explicit ``chunk_flops`` (ESC), small products (host
-    engine), the unrolled ELL plan and products past the resident ELL
-    budget (ESC)."""
+    Routes as the JAX package's ``spgemm`` does: products of at most
+    ``HOST_MAX_FLOPS`` flops take the host engine (:func:`..host.host_spgemm`,
+    on the host whatever ``device`` says); the rest go through
+    :func:`..ell.cached_executor` with ``allow_bsr=True``, which serves the
+    blocked route (block-clustered operands) and the sliced-ELL plans
+    (batched, or unrolled below 2^16 rows and past the skew guard).  The
+    routes not ported raise ``NotImplementedError``: giant rows, an explicit
+    ``chunk_flops``, and products past the resident ELL budget or the int32
+    slot domain (the last three are the JAX package's ESC engine)."""
     if a.n_cols != b.n_rows:
         raise ValueError(f"shape mismatch: {a.shape} @ {b.shape}")
     require_int32_operands(a, b)
@@ -347,21 +378,23 @@ def spgemm(
             "chunk_flops selects the chunked ESC engine, which is not "
             "ported yet (ROADMAP.md, Queue 1 item 1)"
         )
+    # small-flop products cost less on the host than one device round trip
+    from .host import HOST_MAX_FLOPS, host_spgemm
+
     if int(rf_total.sum()) <= HOST_MAX_FLOPS:
-        raise NotImplementedError(
-            "products of at most HOST_MAX_FLOPS flops take the host engine, "
-            "which is not ported yet (ROADMAP.md, Queue 1 item 1)"
-        )
+        return host_spgemm(a, b)
     from .ell import AUTO_ELL_MAX_SLOTS, cached_executor
 
+    esc = ("the JAX package takes the chunked ESC engine, which is not "
+           "ported yet (ROADMAP.md, Queue 1 item 1)")
     # block-clustered products take the staged blocked engine; repeated
     # calls on the same operands reuse the staged tiles through the cache
-    ex = cached_executor(a, b, allow_bsr=True, device=device)
+    try:
+        ex = cached_executor(a, b, allow_bsr=True, device=device)
+    except OverflowError as err:
+        raise NotImplementedError(f"{err}: {esc}") from err
     if getattr(ex, "engine", None) == "bsr":
         return ex.assemble(ex.run())
     if ex.resident_slots > AUTO_ELL_MAX_SLOTS:
-        raise NotImplementedError(
-            "past the resident ELL budget the JAX package takes the chunked "
-            "ESC engine, which is not ported yet (ROADMAP.md, Queue 1 item 1)"
-        )
+        raise NotImplementedError(f"past the resident ELL budget {esc}")
     return ex.assemble(ex.run())

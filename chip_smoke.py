@@ -13,26 +13,33 @@ Phases, each reported on its own lines; any failure exits non-zero:
    plain PyTorch versions at the main path's shape, a power-of-two length,
    a short odd length, the longest length the kernels take, and the lengths
    on both sides of each bound of K1's register variant (129 ... 4096);
-4. the main path: C = A·A for ``BCSR.random(65536, 65536, 16.0, seed=2026)``
+4. P3 (class_gather) and P4 (class_gather_keys) ``torch.equal`` to their
+   plain PyTorch versions at widths 1, 2, 3, 16, 40 and 10240, with
+   out-of-range and negative positions, sentinel and out-of-range row ids,
+   empty groups, column slices as inputs and a column offset into a wider
+   stream;
+5. the main path: C = A·A for ``BCSR.random(65536, 65536, 16.0, seed=2026)``
    through ``auto_executor`` -> ``run()`` -> ``assemble()``, bit-exact against
    scipy, with the launch counts set to 0 just before ``auto_executor`` and
-   read just after ``assemble()`` (K1 must have run twice per dispatch group,
-   every time as its register variant);
-5. K2 on the main path's real key streams, equal to K1 twice plus the dedup;
-6. times from CUDA events: ``run()``, ``run()`` + ``assemble()``, each kernel,
+   read just after ``assemble()`` (K1 twice per dispatch group, every time as
+   its register variant; P4 once per gathered class and group; P3 never);
+6. K2 on the main path's real key streams, equal to K1 twice plus the dedup;
+7. times from CUDA events: ``run()``, ``run()`` + ``assemble()``, each kernel,
    its plain version and ``torch.sort`` at the main path's shape, with K1's
    shared-memory variant beside its register variant; K1 against
    ``torch.sort`` at three more shapes; the host clock's split of
    ``assemble()`` into pull and host assembly; a ``torch.profiler`` breakdown
-   of ``run()`` with the device's idle share;
-7. the blocked path: C = A·A for ``BCSR.random_blocked(32768, 128, 2.0, 0.3,
+   of ``run()`` with the device's idle share; P3 and P4 over one dispatch
+   group's gathered classes beside their plain versions and
+   ``torch.index_select``;
+8. the blocked path: C = A·A for ``BCSR.random_blocked(32768, 128, 2.0, 0.3,
    seed=7)`` (the blocked canonical, blocked-32k-b128) through
    ``auto_executor`` -> ``BsrStagedExecutor`` -> ``run()`` -> ``assemble()``,
    with the launch counts set to 0 just before ``auto_executor`` and read
-   just after ``assemble()`` (K3 exactly once, as its pipe kernel, K1 and K2
-   never), bit-exact against scipy; then one-shot ``spgemm`` on the same
+   just after ``assemble()`` (K3 exactly once, as its pipe kernel, no other
+   kernel), bit-exact against scipy; then one-shot ``spgemm`` on the same
    operands (one more pipe K3 launch), bit-exact again;
-8. K3 (grouped_block_matmul) equal to its plain PyTorch version through both
+9. K3 (grouped_block_matmul) equal to its plain PyTorch version through both
    of its kernels (the pipe kernel where it takes the tile side) on the real
    blocked-32k-b128 plan (``run()``'s real pairs, and the padded plan with
    its tail of scratch-block pairs), at tile sides 32, 64, 100 and 128, with
@@ -40,15 +47,30 @@ Phases, each reported on its own lines; any failure exits non-zero:
    padded tail, on 4,000 output blocks of 1-3 pairs at b = 64, on a plan
    with no pairs and on one whose pairs skip output blocks (the first and
    the last among them);
-9. the blocked path's times: ``run()``, ``run()`` + ``assemble()``, the
-   host clock's split of ``assemble()``, a ``torch.profiler`` breakdown of
-   ``run()``, and at the route's shape, in turns, K3, its simple kernel, K3
-   on the padded plan, its plain version and the ``backend="xla"``
-   composition of library calls (all but the plain version from CUDA-graph
-   replays), and ``zero_`` of K3's f32 output alone;
-   then both K3 kernels on a plan of long pair groups (8 output blocks of
-   128 pairs each at b = 128);
-10. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
+10. the blocked path's times: ``run()``, ``run()`` + ``assemble()``, the
+    host clock's split of ``assemble()``, a ``torch.profiler`` breakdown of
+    ``run()``, and at the route's shape, in turns, K3, its simple kernel, K3
+    on the padded plan, its plain version and the ``backend="xla"``
+    composition of library calls (all but the plain version from CUDA-graph
+    replays), and ``zero_`` of K3's f32 output alone;
+    then both K3 kernels on a plan of long pair groups (8 output blocks of
+    128 pairs each at b = 128);
+11. rows past K1's window: C = A·A for ``BCSR.rmat(16, 8.0, seed=7)``
+    (batched, ``sort_pad`` 1,703,936) through ``auto_executor`` -> ``run()``
+    -> ``assemble()``, bit-exact against scipy, every sort through
+    ``torch.sort`` (``sort_rows.routes``), with its times;
+12. the unrolled route at full size: C = A·A for rmat-s18-e8,
+    ``BCSR.rmat(18, 8.0, seed=7)`` (a dealt plan: 256 chunks of
+    4,980,736 slots in 10 dispatch groups), through ``auto_executor`` ->
+    ``run()`` -> ``assemble()``, bit-exact against scipy, P3 once per gathered
+    class and group; its times, profile and peak memory; P3 and P4 over one
+    of its dispatch groups beside their plain versions and
+    ``torch.index_select``;
+13. the unrolled contiguous plan: C = A·A for ``BCSR.random(32768, 32768,
+    16.0, seed=7)`` the same way, then through one-shot ``spgemm``;
+14. the host engine: ``spgemm`` on validity-class, ``BCSR.random(50000,
+    50000, 0.5, seed=7)``, served by ``host_spgemm``, bit-exact;
+15. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -72,6 +94,15 @@ BLOCKED = (32768, 128, 2.0, 0.3, 7)
 BLOCKED_PAIRS, BLOCKED_PAIRS_PAD, BLOCKED_OUT = 1114, 1152, 1106
 BLOCKED_NNZ = 18_120_588
 LONG_GROUPS = (8, 128)  # output blocks x pairs each: K3's long-group plan
+# BCSR.rmat(scale, edge_factor, seed): batched, rows past K1's window
+RMAT16, RMAT16_NNZ = (16, 8.0, 7), 67_129_035
+# rmat-s18-e8 (the JAX package's skew canonical): the unrolled dealt plan
+RMAT18, RMAT18_NNZ = (18, 8.0, 7), 495_803_109
+# BCSR.random(n, n, d, seed) below 2^16 rows: the unrolled contiguous plan
+RAND32K, RAND32K_NNZ = (32768, 16.0, 7), 8_360_900
+# validity-class, BCSR.random(n, n, d, seed): the host engine
+VALIDITY, VALIDITY_NNZ = (50000, 0.5, 7), 12_596
+GATHER_WIDTHS = (1, 2, 3, 16, 40, 10240)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT32_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores (FP32 rate)
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -219,6 +250,187 @@ def k3_case(torch, rng, b: int, group_sizes: list[int], *, n_tiles: int = 9,
     return [torch.from_numpy(x).cuda() for x in plan] + tiles
 
 
+def gather_case(torch, rng, w: int, g: int, pad: int, nc: int = 37,
+                rows_pad: int = 8, n_cols: int = 1000) -> tuple:
+    """P3/P4 arguments on the card: a class table with sentinel tails, row
+    ids with staged padding rows and one past the sentinel row, positions
+    with out-of-range and negative ones."""
+    table = rng.integers(0, n_cols, (nc, w)).astype(np.int32)
+    lens = rng.integers(1, w + 1, nc)
+    table[np.arange(w)[None, :] >= lens[:, None]] = n_cols
+    rows = rng.integers(0, rows_pad, (g, pad)).astype(np.int32)
+    pos = rng.integers(0, nc, (g, pad)).astype(np.int32)
+    if g and pad >= 4:
+        rows[:, -2:] = rows_pad
+        rows[0, 0] = rows_pad + 5
+        pos[:, -2:] = 0
+        pos[-1, :4] = [nc, nc + 9, -1, -nc - 3]
+    return tuple(torch.from_numpy(x).cuda() for x in (table, pos, rows)) + (
+        rows_pad, n_cols)
+
+
+def gather_bound_ms(classes, g: int, out_bytes: int) -> tuple[float, str]:
+    """Least time for the gathers of one dispatch group: each class's
+    positions and row ids read once, its table read once (L2-resident),
+    each output slot written once (``out_bytes`` per slot), over the memory
+    rate; against 3 operations per slot over the peak rate."""
+    nbytes = sum(8 * g * pad + 4 * t.numel() + out_bytes * g * pad * w
+                 for t, _, _, w, pad, _ in classes)
+    slots = sum(g * pad * w for _, _, _, w, pad, _ in classes)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * slots / INT32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def group_gathers(ell, ex, row0: int) -> list:
+    """The gathered classes of one dispatch group of ``ex``: ``(table,
+    rows, pos, w, pad, col0)`` each, ``col0`` its first column in the
+    group's stream, as ``run()`` hands them to P3/P4."""
+    tables = ell._unpack_tables(ex.tables_flat, ex.table_shapes)
+    spans = tuple(p * w if s is None else p
+                  for s, w, p in zip(ex.table_shapes, ex.widths, ex.pads))
+    er, ep = ell._unpack_entries(ex.er_all, ex.ep_all, row0, ex.group_size,
+                                 ex.pads, spans)
+    out, off = [], 0
+    for t, r, p, w, pad in zip(tables, er, ep, ex.widths, ex.pads):
+        if t is not None:
+            out.append((t, r, p, w, pad, off))
+        off += pad * w
+    return out
+
+
+def time_gathers(torch, gather, ell, ex, label: str, reps: int) -> dict:
+    """P3 and P4 over the gathered classes of ``ex``'s first dispatch group,
+    written into the group's stream as ``run()`` writes them, each held
+    ``torch.equal`` to its plain version; then, in turns, both kernels,
+    their plain versions and ``torch.index_select(table, 0, pos)`` per class
+    (the library call for the gather alone).  The kernels and the library
+    call are timed from CUDA-graph replays of ``reps`` group calls (a
+    group's launches are shorter than their host time); the plain versions,
+    whose indexing may synchronise, over ``reps`` calls back to back."""
+    classes = group_gathers(ell, ex, 0)
+    g, rp, nc_, sp = ex.group_size, ex.rows_pad, ex.n_cols, ex.sort_pad
+    shift = int(nc_).bit_length()
+    check((rp + 1) << shift <= 1 << 31, f"{label}: keys do not pack")
+    dev = ex.er_all.device
+    key = torch.empty((g, sp), dtype=torch.int32, device=dev)
+    row = torch.empty_like(key)
+    col = torch.empty_like(key)
+    flat = [p.reshape(-1).contiguous() for _, _, p, _, _, _ in classes]
+
+    def p3():
+        for t, r, p, w, pad, off in classes:
+            gather.class_gather(t, p, r, rp, nc_, out=(row, col), col0=off)
+
+    def p4():
+        for t, r, p, w, pad, off in classes:
+            gather.class_gather_keys(t, p, r, rp, nc_, shift, out=key, col0=off)
+
+    def p3_plain():
+        for t, r, p, _, _, _ in classes:
+            gather.class_gather_plain(t, p, r, rp, nc_)
+
+    def p4_plain():
+        for t, r, p, _, _, _ in classes:
+            gather.class_gather_keys_plain(t, p, r, rp, nc_, shift)
+
+    def lib():
+        for (t, _, _, _, _, _), fp in zip(classes, flat):
+            torch.index_select(t, 0, fp)
+
+    p3()
+    p4()
+    torch.cuda.synchronize()
+    for t, r, p, w, pad, off in classes:
+        want_r, want_c = gather.class_gather_plain(t, p, r, rp, nc_)
+        want_k = gather.class_gather_keys_plain(t, p, r, rp, nc_, shift)
+        span = slice(off, off + pad * w)
+        check(torch.equal(row[:, span], want_r) and torch.equal(col[:, span], want_c),
+              f"{label}: P3 differs from its plain version, class w={w}")
+        check(torch.equal(key[:, span], want_k),
+              f"{label}: P4 differs from its plain version, class w={w}")
+    fns = {"p3": p3, "p4": p4, "p3_plain": p3_plain, "p4_plain": p4_plain,
+           "lib": lib}
+    timers = {}
+    for name, fn in fns.items():
+        fn()
+        if name.endswith("plain"):
+            timers[name] = lambda fn=fn: event_ms(torch, fn, reps)
+        else:
+            timers[name] = graph_timer(torch, fn, reps)
+    order = list(fns)
+    times: dict[str, list[float]] = {}
+    for name in order + order[::-1]:  # in turns: forward, then back
+        times.setdefault(name, []).append(timers[name]())
+    del timers
+    t = {name: min(v) for name, v in times.items()}
+    b3, b3_by = gather_bound_ms(classes, g, 8)
+    b4, b4_by = gather_bound_ms(classes, g, 4)
+    slots = sum(g * pad * w for _, _, _, w, pad, _ in classes)
+    shape = {"group": g, "classes": len(classes),
+             "widths": [w for _, _, _, w, _, _ in classes], "slots": slots}
+    print(f"{label}, one dispatch group ({g} rows, {len(classes)} gathered classes, "
+          f"{slots} slots, launches one per class): P3 {t['p3']:.4f} ms, plain "
+          f"{t['p3_plain']:.4f} ms, bound {b3:.4f} ms ({b3_by}); P4 {t['p4']:.4f} ms, "
+          f"plain {t['p4_plain']:.4f} ms, bound {b4:.4f} ms ({b4_by}); "
+          f"torch.index_select per class {t['lib']:.4f} ms")
+    return {"t": t, "bound3": (b3, b3_by), "bound4": (b4, b4_by), "shape": shape}
+
+
+def drive_ell_path(torch, label: str, a, expected_nnz: int, *, reset_counts,
+                   read_counts, routes, auto_executor, spgemm_oracle,
+                   runs: int, e2e_runs: int, profile_reps: int):
+    """C = A·A through ``auto_executor`` -> ``run()`` -> ``assemble()``,
+    the launch counts and sort routes set to 0 just before and read just
+    after; bit-exact against scipy; then ``run()`` and ``run()`` +
+    ``assemble()`` timed with CUDA events and ``run()`` profiled."""
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex = auto_executor(a, a)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    out = ex.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    c = ex.assemble(out)
+    launches, rts = read_counts(), dict(routes)
+    del out
+    form = "batched" if ex.batched else (
+        "unrolled, dealt" if ex.row_sets is not None else "unrolled, contiguous")
+    gathered = sum(s is not None for s in ex.table_shapes)
+    print(f"{label}: input nnz {a.nnz}; plan + stage {plan_s:.2f} s: {form}, "
+          f"k={ex.n_chunks} sort_pad={ex.sort_pad} groups={ex.n_groups}x"
+          f"{ex.group_size} rows_pad={ex.rows_pad} classes={len(ex.widths)} "
+          f"({gathered} gathered) out_pad={ex.out_pad}")
+    print(f"peak device memory through run(): {peak / 2**20:.1f} MiB")
+    print(f"launches in auto_executor -> run() -> assemble(): {launches}; "
+          f"sort_rows routes {rts}")
+    t0 = time.perf_counter()
+    ref = spgemm_oracle(a, a)
+    oracle_s = time.perf_counter() - t0
+    check(c.equals(ref), f"{label}: C = A·A differs from scipy")
+    check(c.nnz == expected_nnz, f"{label}: output nnz {c.nnz} != {expected_nnz}")
+    print(f"C = A·A bit-exact against scipy (oracle {oracle_s:.2f} s): output "
+          f"nnz {c.nnz}")
+    del c, ref
+    ex.run()
+    torch.cuda.synchronize()
+    run_ms = [event_ms(torch, ex.run, 1) for _ in range(runs)]
+    e2e_ms = [event_ms(torch, lambda: ex.assemble(ex.run()), 1)
+              for _ in range(e2e_runs)]
+    print(f"run(): median {statistics.median(run_ms):.4f} ms, fastest "
+          f"{min(run_ms):.4f} ms, slowest {max(run_ms):.4f} ms ({runs} runs)")
+    print(f"run() + assemble(): median {statistics.median(e2e_ms):.2f} ms, "
+          f"fastest {min(e2e_ms):.2f} ms, slowest {max(e2e_ms):.2f} ms "
+          f"({e2e_runs} runs)")
+    profile_run(torch, ex.run, reps=profile_reps)
+    return ex, launches, rts, {"run_ms": statistics.median(run_ms),
+                               "e2e_ms": statistics.median(e2e_ms),
+                               "peak_mib": peak / 2**20}
+
+
 def run_smoke() -> dict:
     import torch
 
@@ -235,7 +447,8 @@ def run_smoke() -> dict:
 
     sys.path.insert(0, ROOT)
     from binary_spgemm_tpu_torch import BCSR, _build, auto_executor, spgemm
-    from binary_spgemm_tpu_torch.ops import bitonic, block_matmul, bsr, ell
+    from binary_spgemm_tpu_torch.ops import (
+        bitonic, block_matmul, bsr, ell, gather, host)
     from binary_spgemm_tpu_torch.ops.spgemm import pull_chunk_prefixes
     from binary_spgemm_tpu_torch.utils.oracle import spgemm_oracle
 
@@ -268,7 +481,8 @@ def run_smoke() -> dict:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    errs = {"bitonic_sort_rows": 0, "fused_sort_compress": 0}
+    errs = {"bitonic_sort_rows": 0, "fused_sort_compress": 0, "class_gather": 0,
+            "class_gather_keys": 0}
 
     phase("3. kernels against their plain versions")
     for k, L in [(1024, 3968), (512, 4096), (333, 37), (16, bitonic.MAX_L), (7, 1),
@@ -293,11 +507,60 @@ def run_smoke() -> dict:
                        if name == "bitonic_sort_rows" else "")
             print(f"{name}{variant} [{k}, {L}]: bit-equal")
 
+    phase("4. P3 and P4 against their plain versions")
+    for w in GATHER_WIDTHS:
+        g, pad = (3, 6) if w == 10240 else (64, 45)
+        table, pos, rows, rp, ncol = gather_case(torch, rng, w, g, pad)
+        shift = int(ncol).bit_length()
+        want_r, want_c = gather.class_gather_plain(table, pos, rows, rp, ncol)
+        want_k = gather.class_gather_keys_plain(table, pos, rows, rp, ncol, shift)
+        got_r, got_c = gather.class_gather(table, pos, rows, rp, ncol)
+        got_k = gather.class_gather_keys(table, pos, rows, rp, ncol, shift)
+        # the same from column slices of wider inputs, into a column span of a
+        # wider stream
+        wide = [torch.zeros((g, pad + 3), dtype=torch.int32, device=dev)
+                for _ in range(2)]
+        wide[0][:, 3:], wide[1][:, 3:] = pos, rows
+        col0, span = 11, pad * w
+        outs = [torch.full((g, span + 20), -7, dtype=torch.int32, device=dev)
+                for _ in range(3)]
+        gather.class_gather(table, wide[0][:, 3:], wide[1][:, 3:], rp, ncol,
+                            out=outs[:2], col0=col0)
+        gather.class_gather_keys(table, wide[0][:, 3:], wide[1][:, 3:], rp, ncol,
+                                 shift, out=outs[2], col0=col0)
+        torch.cuda.synchronize()
+        for name, got, want in (("class_gather", got_r, want_r),
+                                ("class_gather", got_c, want_c),
+                                ("class_gather_keys", got_k, want_k)):
+            errs[name] = max(errs[name], int((got.long() - want.long()).abs().max()))
+            check(torch.equal(got, want), f"{name} differs at w={w}")
+        for o, want in zip(outs, (want_r, want_c, want_k)):
+            check(torch.equal(o[:, col0 : col0 + span], want)
+                  and bool((o[:, :col0] == -7).all())
+                  and bool((o[:, col0 + span :] == -7).all()),
+                  f"P3/P4 into a column span differ at w={w}")
+        check(bool((want_r == rp).any()), "no sentinel slot in the case")
+        print(f"P3 and P4 [{g}, {pad}] x w={w} (positions out of range, sentinel "
+              f"rows, column slices in, column span out): bit-equal")
+    n3, n4 = gather.class_gather.launches, gather.class_gather_keys.launches
+    for g, pad in ((0, 5), (4, 0)):
+        z = torch.zeros((g, pad), dtype=torch.int32, device=dev)
+        table = torch.zeros((4, 3), dtype=torch.int32, device=dev)
+        check(gather.class_gather(table, z, z, 8, 100)[0].shape == (g, 3 * pad)
+              and gather.class_gather_keys(table, z, z, 8, 100, 7).shape == (g, 3 * pad),
+              "empty group shapes")
+    check((gather.class_gather.launches, gather.class_gather_keys.launches) == (n3, n4),
+          "an empty group launched a gather")
+    print("P3 and P4 on empty groups (g = 0, pad = 0): no launch")
+
     counters = {
         "bitonic_sort_rows": bitonic.bitonic_sort_rows,
         "fused_sort_compress": bitonic.fused_sort_compress,
         "grouped_block_matmul": block_matmul.grouped_block_matmul,
+        "class_gather": gather.class_gather,
+        "class_gather_keys": gather.class_gather_keys,
     }
+    routes = bitonic.sort_rows.routes
 
     k1_by_variant = bitonic.bitonic_sort_rows.launches_by_variant
     k3_by_variant = block_matmul.grouped_block_matmul.launches_by_variant
@@ -305,14 +568,14 @@ def run_smoke() -> dict:
     def reset_counts() -> None:
         for fn in counters.values():
             fn.launches = 0
-        for by_variant in (k1_by_variant, k3_by_variant):
+        for by_variant in (k1_by_variant, k3_by_variant, routes):
             for variant in by_variant:
                 by_variant[variant] = 0
 
     def read_counts() -> dict[str, int]:
         return {name: fn.launches for name, fn in counters.items()}
 
-    phase("4. main path")
+    phase("5. main path")
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -326,6 +589,7 @@ def run_smoke() -> dict:
     c = ex.assemble(out)
     launches = read_counts()
     k1_variants = dict(k1_by_variant)
+    main_routes = dict(routes)
     check(isinstance(ex, ell.EllSpGEMMExecutor) and ex.batched, "not batched")
     print(f"input nnz {a.nnz}; plan + stage {plan_s:.2f} s: k={ex.n_chunks} "
           f"groups={ex.n_groups}x{ex.group_size} rows_pad={ex.rows_pad} "
@@ -340,12 +604,23 @@ def run_smoke() -> dict:
     check(k1_variants == {"reg": 2 * ex.n_groups, "smem": 0},
           f"K1 variants {k1_variants}: expected the register kernel every time")
     check(launches["grouped_block_matmul"] == 0, "K3 ran on the ELL path")
+    gathered_main = sum(s is not None for s in ex.table_shapes)
+    check(launches["class_gather_keys"] == gathered_main * ex.n_groups
+          and launches["class_gather"] == 0,
+          f"P4 launched {launches['class_gather_keys']} times, expected "
+          f"{gathered_main} gathered classes x {ex.n_groups} groups; P3 "
+          f"{launches['class_gather']} times, expected 0")
+    check(main_routes == {"k1": 2 * ex.n_groups, "torch_sort": 0},
+          f"sort_rows routes {main_routes}")
+    print(f"sort_rows routes {main_routes}; P4 launches per run() "
+          f"{launches['class_gather_keys']} ({gathered_main} gathered classes "
+          f"x {ex.n_groups} groups)")
     ref = spgemm_oracle(a, a)
     check(c.equals(ref), "C = A·A differs from scipy")
     check(c.nnz == EXPECTED_NNZ, f"output nnz {c.nnz} != {EXPECTED_NNZ}")
     print(f"C = A·A bit-exact against scipy: output nnz {c.nnz}")
 
-    phase("5. K2 on the main path's key streams")
+    phase("6. K2 on the main path's key streams")
     shift = int(ex.n_cols).bit_length()
     limit = ex.rows_pad << shift
     tables = ell._unpack_tables(ex.tables_flat, ex.table_shapes)
@@ -381,7 +656,7 @@ def run_smoke() -> dict:
     print(f"K2 equal to K1 + dedup + K1 on all {len(keys)} group streams "
           f"{tuple(keys[0].shape)}, and to run()'s outputs")
 
-    phase("6. times (CUDA events)")
+    phase("7. times (CUDA events)")
     for _ in range(3):
         ex.run()
     torch.cuda.synchronize()
@@ -465,7 +740,9 @@ def run_smoke() -> dict:
               f"{row['ms']:.4f} ms, torch.sort {row['library_ms']:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})")
 
-    phase("7. blocked path")
+    gather_main = time_gathers(torch, gather, ell, ex, "main path", reps=20)
+
+    phase("8. blocked path")
     n_blk, block, bpr, density, seed_blk = BLOCKED
     reset_counts()
     held = torch.cuda.memory_allocated()  # the ELL path's buffers still held
@@ -501,7 +778,8 @@ def run_smoke() -> dict:
           == (BLOCKED_PAIRS, BLOCKED_PAIRS_PAD, BLOCKED_OUT),
           f"blocked plan {(bex._ex.npairs, bex.n_pairs, bex.n_out)}")
     check(launches_b == {"bitonic_sort_rows": 0, "fused_sort_compress": 0,
-                         "grouped_block_matmul": 1},
+                         "grouped_block_matmul": 1, "class_gather": 0,
+                         "class_gather_keys": 0},
           f"blocked path launches {launches_b}")
     t0 = time.perf_counter()
     ref_b = spgemm_oracle(ab, ab)
@@ -521,7 +799,7 @@ def run_smoke() -> dict:
     print(f"one-shot spgemm(a, a): bit-exact, one more K3 launch (pipe), "
           f"{one_shot_s:.2f} s on the host clock (plan, staging, run, assemble)")
 
-    phase("8. K3 against its plain version")
+    phase("9. K3 against its plain version")
     k3 = block_matmul.grouped_block_matmul
     k3_plain = block_matmul.grouped_block_matmul_plain
     k3_named = block_matmul._grouped_block_matmul_variant
@@ -576,7 +854,7 @@ def run_smoke() -> dict:
               f"{' and '.join(variants)} equal to the plain version")
     check(torch.equal(k3(*real, n_out=n_out_real), counts), "K3 not deterministic")
 
-    phase("9. blocked path times (CUDA events)")
+    phase("10. blocked path times (CUDA events)")
     for _ in range(3):
         bex.run()
     torch.cuda.synchronize()
@@ -697,6 +975,99 @@ def run_smoke() -> dict:
           f"tiles): K3 ({k3_variant}) {long_groups['ms']:.4f} ms, K3 (simple) "
           f"{long_groups['previous_ms']:.4f} ms")
 
+    path_kw = dict(reset_counts=reset_counts, read_counts=read_counts,
+                   routes=routes, auto_executor=auto_executor,
+                   spgemm_oracle=spgemm_oracle)
+
+    def gathered(ex) -> int:
+        return sum(s is not None for s in ex.table_shapes)
+
+    phase("11. rows past K1's window: rmat-s16 (batched)")
+    scale, ef, seed_r = RMAT16
+    a16 = BCSR.rmat(scale, ef, seed=seed_r)
+    ex16, launches16, routes16, times16 = drive_ell_path(
+        torch, f"BCSR.rmat({scale}, {ef}, seed={seed_r})", a16, RMAT16_NNZ,
+        runs=5, e2e_runs=2, profile_reps=1, **path_kw)
+    check(ex16.batched and ex16.sort_pad > bitonic.MAX_L,
+          f"rmat-s16: batched {ex16.batched}, sort_pad {ex16.sort_pad}")
+    check(routes16 == {"k1": 0, "torch_sort": 2 * ex16.n_groups},
+          f"rmat-s16 sort_rows routes {routes16}")
+    check(launches16["bitonic_sort_rows"] == 0
+          and launches16["class_gather_keys"] == gathered(ex16) * ex16.n_groups
+          and launches16["class_gather"] == 0,
+          f"rmat-s16 launches {launches16}")
+    print(f"every sort past K1's window went through torch.sort: {routes16}; P4 "
+          f"launches per run() {launches16['class_gather_keys']}")
+    del ex16, a16
+
+    phase("12. the unrolled route at full size: rmat-s18-e8 (dealt)")
+    scale, ef, seed_r = RMAT18
+    t0 = time.perf_counter()
+    a18 = BCSR.rmat(scale, ef, seed=seed_r)
+    print(f"generator {time.perf_counter() - t0:.2f} s")
+    ex18, launches18, routes18, times18 = drive_ell_path(
+        torch, f"rmat-s18-e8, BCSR.rmat({scale}, {ef}, seed={seed_r})", a18,
+        RMAT18_NNZ, runs=5, e2e_runs=1, profile_reps=1, **path_kw)
+    check(not ex18.batched and ex18.row_sets is not None,
+          "rmat-s18-e8 did not take the unrolled dealt plan")
+    check(launches18["class_gather"] == gathered(ex18) * ex18.n_groups
+          and launches18["class_gather_keys"] == 0
+          and launches18["bitonic_sort_rows"] == 0,
+          f"rmat-s18-e8 launches {launches18}")
+    check(routes18 == {"k1": 0, "torch_sort": 2 * ex18.n_groups},
+          f"rmat-s18-e8 sort_rows routes {routes18}")
+    print(f"P3 launches per run() {launches18['class_gather']} ({gathered(ex18)} "
+          f"gathered classes x {ex18.n_groups} groups)")
+    gather_rmat = time_gathers(torch, gather, ell, ex18, "rmat-s18-e8", reps=4)
+    del ex18, a18
+
+    phase("13. the unrolled contiguous plan: random 32k")
+    n32, d32, seed32 = RAND32K
+    a32 = BCSR.random(n32, n32, d32, seed=seed32)
+    ex32, launches32, routes32, times32 = drive_ell_path(
+        torch, f"BCSR.random({n32}, {n32}, {d32}, seed={seed32})", a32,
+        RAND32K_NNZ, runs=10, e2e_runs=3, profile_reps=3, **path_kw)
+    check(not ex32.batched and ex32.row_sets is None,
+          "random 32k did not take the unrolled contiguous plan")
+    check(launches32["class_gather"] == gathered(ex32) * ex32.n_groups
+          and launches32["class_gather_keys"] == 0,
+          f"random 32k launches {launches32}")
+    print(f"P3 launches per run() {launches32['class_gather']}; sort_rows routes "
+          f"{routes32}")
+    n3 = gather.class_gather.launches
+    t0 = time.perf_counter()
+    c1 = spgemm(a32, a32)
+    one_shot_s = time.perf_counter() - t0
+    check(gather.class_gather.launches - n3 == launches32["class_gather"],
+          "one-shot spgemm did not run the unrolled plan")
+    check(c1.equals(spgemm_oracle(a32, a32)) and c1.nnz == RAND32K_NNZ,
+          "one-shot spgemm differs from scipy")
+    print(f"one-shot spgemm(a, a): bit-exact, {one_shot_s:.2f} s on the host "
+          f"clock (plan, staging, run, assemble)")
+    del ex32, a32, c1
+
+    phase("14. the host engine: validity-class")
+    nv, dv, seed_v = VALIDITY
+    av = BCSR.random(nv, nv, dv, seed=seed_v)
+    served = []
+    real_host = host.host_spgemm
+    host.host_spgemm = lambda a, b: served.append(1) or real_host(a, b)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        cv = spgemm(av, av)
+        host_s = time.perf_counter() - t0
+        launches_v = read_counts()
+    finally:
+        host.host_spgemm = real_host
+    check(served == [1], "the host engine did not serve validity-class")
+    check(not any(launches_v.values()), f"a kernel ran on the host route: {launches_v}")
+    check(cv.equals(spgemm_oracle(av, av)) and cv.nnz == VALIDITY_NNZ,
+          "validity-class differs from scipy")
+    print(f"spgemm on validity-class ({av.nnz} input nnz): served by host_spgemm "
+          f"in {host_s * 1e3:.2f} ms on the host clock, no kernel launched, "
+          f"bit-exact ({cv.nnz} output nnz)")
+
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
     kernels = [
         {
@@ -730,8 +1101,52 @@ def run_smoke() -> dict:
             "launches_by_variant": k3_variants, "long_groups": long_groups,
             "output_write_ms": write_ms,
         },
+        {
+            "name": "class_gather", "route": "cuda",
+            "source": "binary_spgemm_tpu_torch/csrc/gather.cu",
+            "replaces": "benchmarks/pallas_gather.py:53",
+            "launches": launches18["class_gather"],
+            "max_abs_err": errs["class_gather"], "ms": gather_rmat["t"]["p3"],
+            "plain_ms": gather_rmat["t"]["p3_plain"],
+            "bound_ms": gather_rmat["bound3"][0], "bound_by": gather_rmat["bound3"][1],
+            "library_ms": gather_rmat["t"]["lib"],
+            "shape": dict(gather_rmat["shape"], path="rmat-s18-e8, one group"),
+            "on_main_path": True,
+            "launches_by_path": {"rmat-s18-e8": launches18["class_gather"],
+                                 "random-32k": launches32["class_gather"],
+                                 "bench": launches["class_gather"],
+                                 "rmat-s16": launches16["class_gather"]},
+            "bench_group": {"ms": gather_main["t"]["p3"],
+                            "plain_ms": gather_main["t"]["p3_plain"],
+                            "bound_ms": gather_main["bound3"][0],
+                            "library_ms": gather_main["t"]["lib"],
+                            "shape": gather_main["shape"]},
+        },
+        {
+            "name": "class_gather_keys", "route": "cuda",
+            "source": "binary_spgemm_tpu_torch/csrc/gather.cu",
+            "replaces": "benchmarks/pallas_gather.py:75",
+            "launches": launches["class_gather_keys"],
+            "max_abs_err": errs["class_gather_keys"], "ms": gather_main["t"]["p4"],
+            "plain_ms": gather_main["t"]["p4_plain"],
+            "bound_ms": gather_main["bound4"][0], "bound_by": gather_main["bound4"][1],
+            "library_ms": gather_main["t"]["lib"],
+            "shape": dict(gather_main["shape"], path="bench config, one group"),
+            "on_main_path": True,
+            "launches_by_path": {"bench": launches["class_gather_keys"],
+                                 "rmat-s16": launches16["class_gather_keys"],
+                                 "rmat-s18-e8": launches18["class_gather_keys"],
+                                 "random-32k": launches32["class_gather_keys"]},
+            "rmat_s18_group": {"ms": gather_rmat["t"]["p4"],
+                               "plain_ms": gather_rmat["t"]["p4_plain"],
+                               "bound_ms": gather_rmat["bound4"][0],
+                               "library_ms": gather_rmat["t"]["lib"],
+                               "shape": gather_rmat["shape"]},
+        },
     ]
-    phase("10. kernels")
+    phase("15. kernels")
+    paths = {"rmat-s16": times16, "rmat-s18-e8": times18, "random-32k": times32}
+    print(f"paths: {json.dumps(paths)}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

@@ -107,6 +107,38 @@ def test_longest_row_is_one_power_of_two_of_shared_memory():
     assert torch.equal(bitonic.sort_rows(x), torch.sort(x, dim=1).values)
 
 
+@pytest.mark.parametrize("k,L", [(2, 40000), (3, bitonic.MAX_L + 1), (1, 70000)])
+def test_sort_rows_past_the_kernels_window(k, L):
+    """Rows longer than MAX_L take torch.sort, as the JAX package's
+    sort_rows takes lax.sort outside its kernel's window; K1 itself still
+    raises there."""
+    rng = np.random.default_rng(L)
+    x = rng.integers(I32_MIN, I32_MAX, (k, L), dtype=np.int64, endpoint=True)
+    x = x.astype(np.int32)
+    x[0, :5] = x[0, 7]  # duplicates
+    xt = torch.from_numpy(x)
+    before = dict(bitonic.sort_rows.routes)
+    got = bitonic.sort_rows(xt)
+    assert bitonic.sort_rows.routes == {"k1": before["k1"],
+                                        "torch_sort": before["torch_sort"] + 1}
+    assert torch.equal(got, torch.sort(xt, dim=1).values)
+    assert np.array_equal(got.numpy(), np.asarray(jx_bitonic.sort_rows(jnp.asarray(x))))
+    with pytest.raises(ValueError, match="shared-memory"):
+        bitonic.bitonic_sort_rows(xt)
+
+
+@pytest.mark.parametrize("L,route", [(1, "k1"), (4096, "k1"), (bitonic.MAX_L, "k1"),
+                                     (bitonic.MAX_L + 1, "torch_sort")])
+def test_sort_rows_route_is_a_function_of_the_row_length(L, route):
+    x = torch.from_numpy(stream(2, L, 6, hi=1 << 20)) if L >= 3 else torch.zeros(
+        (2, L), dtype=torch.int32)
+    before = dict(bitonic.sort_rows.routes)
+    assert torch.equal(bitonic.sort_rows(x), torch.sort(x, dim=1).values)
+    after = bitonic.sort_rows.routes
+    assert after[route] == before[route] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
 @pytest.mark.parametrize(
     "L,variant",
     [(1, "smem"), (2, "smem"), (128, "smem"), (129, "reg"), (255, "reg"),

@@ -446,9 +446,10 @@ def test_cached_executor_allow_bsr(blocked_4k):
     assert isinstance(ex, tp_bsr.BsrStagedExecutor)
     assert tp_ell.cached_executor(t, t, allow_bsr=True, device=CPU) is ex
     # without the opt-in the screen is not consulted: the sort engines take
-    # the product, and below 2^16 rows that is the unrolled plan (not ported)
-    with pytest.raises(NotImplementedError, match="unrolled"):
-        tp_ell.cached_executor(t, t, device=CPU)
+    # the product, and below 2^16 rows that is the unrolled plan
+    ex = tp_ell.cached_executor(t, t, device=CPU)
+    assert isinstance(ex, tp_ell.EllSpGEMMExecutor) and not ex.batched
+    assert ex.assemble(ex.run()).equals(tp_oracle.spgemm_oracle(t, t))
 
 
 def test_spgemm_routes_blocked(blocked_4k):
@@ -472,9 +473,16 @@ def test_screen_falls_through_past_the_byte_budget(monkeypatch, blocked_4k):
     monkeypatch.setattr(jx_bsr, "BSR_MAX_STAGED_BYTES", 1 << 20)
     assert jx_bsr.maybe_bsr_executor(j, j) is None
     assert tp_bsr.maybe_bsr_executor(t, t, device=CPU) is None
-    # auto_executor then goes on to the sort engines (unrolled: not ported)
-    with pytest.raises(NotImplementedError, match="unrolled"):
-        tp.auto_executor(t, t, device=CPU)
+    # auto_executor then goes on to the sort engines: the unrolled plan, as
+    # in the JAX package
+    jex, tex = jx_ell.auto_executor(j, j), tp.auto_executor(t, t, device=CPU)
+    assert isinstance(tex, tp_ell.EllSpGEMMExecutor) and not tex.batched
+    assert (tex.n_chunks, tex.sort_pad, tex.chunks) == (
+        jex.n_chunks, jex.sort_pad, jex.chunks
+    )
+    c = tex.assemble(tex.run())
+    assert same(jex.assemble(jex.run()), c)
+    assert c.equals(tp_oracle.spgemm_oracle(t, t))
 
 
 def test_screen_falls_through_on_memory_error(monkeypatch, blocked_4k):

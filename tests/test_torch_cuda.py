@@ -94,6 +94,129 @@ def test_batched_executor_on_the_card(cuda_device):
     assert ex.assemble(out).equals(spgemm_oracle(a, a))
 
 
+def gather_case(w, g, pad, seed, nc=37, rows_pad=8, n_cols=1000):
+    """A class table with sentinel tails, row ids with staged padding rows
+    and one past the sentinel row, positions with out-of-range and negative
+    ones (clamped as JAX's indexing clamps)."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, n_cols, (nc, w)).astype(np.int32)
+    lens = rng.integers(1, w + 1, nc)
+    table[np.arange(w)[None, :] >= lens[:, None]] = n_cols
+    rows = rng.integers(0, rows_pad, (g, pad)).astype(np.int32)
+    rows[:, -2:] = rows_pad
+    rows[0, 0] = rows_pad + 5
+    pos = rng.integers(0, nc, (g, pad)).astype(np.int32)
+    pos[:, -2:] = 0
+    pos[-1, :4] = [nc, nc + 9, -1, -nc - 3]
+    dev = torch.device("cuda")
+    return (torch.from_numpy(table).to(dev), torch.from_numpy(pos).to(dev),
+            torch.from_numpy(rows).to(dev), rows_pad, n_cols)
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 16, 40, 10240])
+def test_gathers_equal_their_plain_versions(cuda_device, w):
+    from binary_spgemm_tpu_torch.ops import gather
+
+    g, pad = (3, 6) if w == 10240 else (7, 45)
+    table, pos, rows, rows_pad, n_cols = gather_case(w, g, pad, seed=w)
+    shift = int(n_cols).bit_length()
+    n3, n4 = gather.class_gather.launches, gather.class_gather_keys.launches
+    r, c = gather.class_gather(table, pos, rows, rows_pad, n_cols)
+    key = gather.class_gather_keys(table, pos, rows, rows_pad, n_cols, shift)
+    torch.cuda.synchronize()
+    want_r, want_c = gather.class_gather_plain(table, pos, rows, rows_pad, n_cols)
+    assert torch.equal(r, want_r) and torch.equal(c, want_c)
+    assert torch.equal(key, gather.class_gather_keys_plain(
+        table, pos, rows, rows_pad, n_cols, shift))
+    assert (want_r == rows_pad).any()  # sentinel rows and columns occur
+    # into a column span of a wider stream, from column slices of wider inputs
+    wide_pos = torch.zeros((g, pad + 3), dtype=torch.int32, device=cuda_device)
+    wide_rows = torch.full_like(wide_pos, rows_pad)
+    wide_pos[:, 3:], wide_rows[:, 3:] = pos, rows
+    col0, span = 11, pad * w
+    out = tuple(torch.full((g, span + 20), -7, dtype=torch.int32, device=cuda_device)
+                for _ in range(3))
+    gather.class_gather(table, wide_pos[:, 3:], wide_rows[:, 3:], rows_pad, n_cols,
+                        out=out[:2], col0=col0)
+    gather.class_gather_keys(table, wide_pos[:, 3:], wide_rows[:, 3:], rows_pad,
+                             n_cols, shift, out=out[2], col0=col0)
+    torch.cuda.synchronize()
+    for o, want in zip(out, (want_r, want_c, key)):
+        assert torch.equal(o[:, col0 : col0 + span], want)
+        assert (o[:, :col0] == -7).all() and (o[:, col0 + span :] == -7).all()
+    assert gather.class_gather.launches == n3 + 2
+    assert gather.class_gather_keys.launches == n4 + 2
+
+
+def test_gathers_launch_nothing_on_empty_groups(cuda_device):
+    from binary_spgemm_tpu_torch.ops import gather
+
+    table = torch.zeros((4, 3), dtype=torch.int32, device=cuda_device)
+    n3, n4 = gather.class_gather.launches, gather.class_gather_keys.launches
+    for g, pad in ((0, 5), (2, 0)):
+        z = torch.zeros((g, pad), dtype=torch.int32, device=cuda_device)
+        assert gather.class_gather(table, z, z, 8, 100)[0].shape == (g, 3 * pad)
+        assert gather.class_gather_keys(table, z, z, 8, 100, 7).shape == (g, 3 * pad)
+    assert (gather.class_gather.launches, gather.class_gather_keys.launches) == (n3, n4)
+
+
+@pytest.mark.parametrize("dealt", [False, True])
+def test_unrolled_executor_on_the_card(cuda_device, dealt):
+    from binary_spgemm_tpu_torch.ops import gather
+
+    if dealt:
+        a = tp.BCSR.rmat(10, 5.0, seed=61)
+        ex = tp.EllSpGEMMExecutor(a, a, row_chunks="deal")
+    else:
+        a = tp.BCSR.random(3000, 3000, 4.0, seed=1)
+        ex = tp.auto_executor(a, a)  # below 2^16 rows: the unrolled plan
+    assert not ex.batched and (ex.row_sets is not None) == dealt
+    assert ex.er_all.device.type == "cuda"
+    gathered = sum(s is not None for s in ex.table_shapes)
+    ref = spgemm_oracle(a, a)
+    for _ in range(2):
+        n3, n4 = gather.class_gather.launches, gather.class_gather_keys.launches
+        c = ex.assemble(ex.run())
+        assert gather.class_gather.launches == n3 + gathered * ex.n_groups
+        assert gather.class_gather_keys.launches == n4
+        assert c.equals(ref)
+    assert ex.run_assemble_streaming().equals(ref)
+
+
+@pytest.mark.parametrize("L,route", [(32768, "k1"), (32769, "torch_sort")])
+def test_sort_rows_at_the_kernels_bound(cuda_device, L, route):
+    rng = np.random.default_rng(L)
+    x = rng.integers(I32_MIN, I32_MAX, (3, L), dtype=np.int64, endpoint=True)
+    xt = torch.from_numpy(x.astype(np.int32)).to(cuda_device)
+    routes = dict(bitonic.sort_rows.routes)
+    n1 = bitonic.bitonic_sort_rows.launches
+    got = bitonic.sort_rows(xt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.sort(xt, dim=1).values)
+    routes[route] += 1
+    assert bitonic.sort_rows.routes == routes
+    assert bitonic.bitonic_sort_rows.launches == n1 + (route == "k1")
+
+
+def test_heavy_row_product_on_the_card(cuda_device):
+    """A 2^16 random pattern whose row 0 gets 12,000 more columns: batched,
+    k = 64, sort_pad 172,032, so every sort takes torch.sort."""
+    n = 65536
+    a = tp.BCSR.random(n, n, 4.0, seed=1)
+    r, c = a.to_coo()
+    cols = np.random.default_rng(0).choice(n, 12000, replace=False)
+    h = tp.BCSR.from_coo(np.concatenate([r, np.zeros(12000, np.int64)]),
+                         np.concatenate([c, cols]), (n, n))
+    ex = tp.auto_executor(h, h)
+    assert ex.batched and (ex.n_chunks, ex.sort_pad) == (64, 172032)
+    routes = dict(bitonic.sort_rows.routes)
+    out = ex.run()
+    torch.cuda.synchronize()
+    assert bitonic.sort_rows.routes["torch_sort"] == routes["torch_sort"] + 2 * ex.n_groups
+    got = ex.assemble(out)
+    assert got.nnz == 1_130_438 and got.equals(spgemm_oracle(h, h))
+
+
 def k3_plan(b, n_a, n_b, group_sizes, seed, ones=False):
     """Random 0/1 bf16 tiles and a sorted, bucket-padded pair plan on the card."""
     from binary_spgemm_tpu_torch.ops.bsr import _pad_pair_plan

@@ -140,18 +140,28 @@ def test_one_row():
 
 
 def test_degenerate_input_raises():
-    # no flops in any bin: _batched_deal_plan returns None and the JAX
-    # package drops to the unrolled plan
+    """No flops in any bin: ``_batched_deal_plan`` returns None and both
+    packages drop to the unrolled plan, which serves the (empty) product;
+    ``batched=False`` is the unrolled plan itself.  Nothing raises."""
     empty = jx.BCSR(np.zeros(101, np.int32), np.zeros(0, np.int32), (100, 100))
     jex = jx_ell.EllSpGEMMExecutor(empty, empty, batched=True)
-    assert not jex.batched
-    with pytest.raises(NotImplementedError, match="unrolled"):
-        tp_ell.EllSpGEMMExecutor(
-            to_port(empty), to_port(empty), batched=True, device="cpu"
-        )
-    a = tp.BCSR.random(50, 50, 2.0, seed=1)
-    with pytest.raises(NotImplementedError, match="unrolled"):
-        tp_ell.EllSpGEMMExecutor(a, a, device="cpu")  # batched=False
+    tex = tp_ell.EllSpGEMMExecutor(
+        to_port(empty), to_port(empty), batched=True, device="cpu"
+    )
+    assert not jex.batched and not tex.batched
+    assert (tex.n_chunks, tex.rows_pad, tex.sort_pad, tex.chunks) == (
+        jex.n_chunks, jex.rows_pad, jex.sort_pad, jex.chunks
+    )
+    c = tex.assemble(tex.run())
+    assert c.nnz == 0 and c.equals(spgemm_oracle(to_port(empty), to_port(empty)))
+    ja = jx.BCSR.random(50, 50, 2.0, seed=1)
+    a = to_port(ja)
+    ex = tp_ell.EllSpGEMMExecutor(a, a, device="cpu")  # batched=False
+    jx_ex = jx_ell.EllSpGEMMExecutor(ja, ja)
+    assert not ex.batched and ex.chunks == jx_ex.chunks
+    c = ex.assemble(ex.run())
+    assert np.array_equal(c.indices, jx_ex.assemble(jx_ex.run()).indices)
+    assert c.equals(spgemm_oracle(a, a))
 
 
 def test_skew_guard_raises_before_staging():

@@ -15,6 +15,7 @@ from binary_spgemm_tpu.ops import ell as jx_ell
 
 import binary_spgemm_tpu_torch as tp
 from binary_spgemm_tpu_torch.ops import ell as tp_ell
+from binary_spgemm_tpu_torch.ops import host as tp_host
 from binary_spgemm_tpu_torch.ops import spgemm as tp_sp
 from binary_spgemm_tpu_torch.utils.oracle import spgemm_oracle
 
@@ -49,7 +50,7 @@ def test_auto_executor_end_to_end():
 def test_spgemm_end_to_end():
     ja = jx.BCSR.random(1 << 16, 1 << 16, 6.5, seed=3)  # > HOST_MAX_FLOPS
     ta = to_port(ja)
-    assert tp.spgemm_flops(ta, ta) > tp_sp.HOST_MAX_FLOPS
+    assert tp.spgemm_flops(ta, ta) > tp_host.HOST_MAX_FLOPS
     c = tp.spgemm(ta, ta, device="cpu")
     assert_same(jx.spgemm(ja, ja), c)
     assert c.equals(spgemm_oracle(ta, ta))
@@ -68,9 +69,14 @@ def test_spgemm_empty_operand():
 
 
 def test_host_route_raises():
-    a = tp.BCSR.random(500, 500, 2.0, seed=1)  # far below HOST_MAX_FLOPS
-    with pytest.raises(NotImplementedError, match="host engine"):
-        tp.spgemm(a, a, device="cpu")
+    """Products of at most HOST_MAX_FLOPS flops are served by the host
+    engine, as in the JAX package (they raised before it was ported)."""
+    ja = jx.BCSR.random(500, 500, 2.0, seed=1)  # far below HOST_MAX_FLOPS
+    a = to_port(ja)
+    assert tp.spgemm_flops(a, a) <= tp_host.HOST_MAX_FLOPS
+    c = tp.spgemm(a, a, device="cpu")
+    assert_same(jx.spgemm(ja, ja), c)
+    assert c.equals(spgemm_oracle(a, a))
 
 
 def test_explicit_chunk_flops_raises():
@@ -119,15 +125,28 @@ def test_blocked_route_raises():
 
 
 def test_unrolled_routes_raise(monkeypatch):
-    a = tp.BCSR.random(3000, 3000, 4.0, seed=1)  # few rows: unrolled plan
+    """Below 2^16 rows, and past the skew guard, both packages take the
+    unrolled plan; the port now serves it, equal to the JAX package."""
+    ja = jx.BCSR.random(3000, 3000, 4.0, seed=1)  # few rows: unrolled plan
+    a = to_port(ja)
     assert not tp_ell.prefer_batched(a, a)
-    with pytest.raises(NotImplementedError, match="unrolled"):
-        tp.auto_executor(a, a, device="cpu")
-    # the skew guard sends the JAX package to the unrolled plan too
-    monkeypatch.setattr(tp_ell, "prefer_batched", lambda a, b: True)
-    monkeypatch.setattr(tp_ell, "BATCHED_MAX_SLOTS", 1)
-    with pytest.raises(NotImplementedError, match="unrolled"):
-        tp.auto_executor(a, a, device="cpu")
+    ref = spgemm_oracle(a, a)
+
+    def same_unrolled(jex, tex):
+        assert not tex.batched and not jex.batched
+        assert (tex.n_chunks, tex.sort_pad, tex.pads, tex.chunks) == (
+            jex.n_chunks, jex.sort_pad, jex.pads, jex.chunks
+        )
+        c = tex.assemble(tex.run())
+        assert_same(jex.assemble(jex.run()), c)
+        assert c.equals(ref)
+
+    same_unrolled(jx_ell.auto_executor(ja, ja), tp.auto_executor(a, a, device="cpu"))
+    # the skew guard sends both packages to the unrolled plan too
+    for mod in (tp_ell, jx_ell):
+        monkeypatch.setattr(mod, "prefer_batched", lambda a, b: True)
+        monkeypatch.setattr(mod, "BATCHED_MAX_SLOTS", 1)
+    same_unrolled(jx_ell.auto_executor(ja, ja), tp.auto_executor(a, a, device="cpu"))
 
 
 def test_past_the_resident_budget_raises(monkeypatch):
@@ -136,6 +155,61 @@ def test_past_the_resident_budget_raises(monkeypatch):
     monkeypatch.setattr(tp_ell, "AUTO_ELL_MAX_SLOTS", 0)
     with pytest.raises(NotImplementedError, match="ESC"):
         tp.auto_executor(a, a, device="cpu")
+
+
+def heavy_row_product():
+    """ROADMAP's heavy-row product: a random 2^16 pattern whose row 0 gets
+    12,000 more columns.  Both packages plan it batched with k = 64 and
+    sort_pad 172,032, past K1's longest row."""
+    n = 65536
+    a = jx.BCSR.random(n, n, 4.0, seed=1)
+    r, c = a.to_coo()
+    cols = np.random.default_rng(0).choice(n, 12000, replace=False)
+    rows = np.concatenate([r, np.zeros(12000, np.int64)])
+    return jx.BCSR.from_coo(rows, np.concatenate([c, cols]), (n, n))
+
+
+def test_heavy_row_product_sorts_past_the_kernels_window():
+    from binary_spgemm_tpu_torch.ops import bitonic
+
+    ja = heavy_row_product()
+    ta = to_port(ja)
+    jex = jx_ell.auto_executor(ja, ja)
+    tex = tp.auto_executor(ta, ta, device="cpu")
+    assert tex.batched and (tex.n_chunks, tex.sort_pad) == (64, 172032)
+    assert (tex.n_chunks, tex.sort_pad, tex.pads) == (jex.n_chunks, jex.sort_pad, jex.pads)
+    before = dict(bitonic.sort_rows.routes)
+    c = tex.assemble(tex.run())
+    assert bitonic.sort_rows.routes["torch_sort"] == before["torch_sort"] + 2 * tex.n_groups
+    assert bitonic.sort_rows.routes["k1"] == before["k1"]
+    assert c.nnz == 1_130_438
+    assert_same(jex.assemble(jex.run()), c)
+    assert c.equals(spgemm_oracle(ta, ta))
+
+
+def test_unrolled_executor_runs_without_jax():
+    """The port imports and runs the unrolled executor in a process where
+    importing jax fails."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "import binary_spgemm_tpu_torch as tp\n"
+        "from binary_spgemm_tpu_torch.utils.oracle import spgemm_oracle\n"
+        "a = tp.BCSR.random(800, 800, 5.0, seed=3)\n"
+        "ex = tp.EllSpGEMMExecutor(a, a, row_chunks='deal', device='cpu')\n"
+        "assert not ex.batched and ex.row_sets is not None\n"
+        "assert ex.assemble(ex.run()).equals(spgemm_oracle(a, a))\n"
+        "assert tp.spgemm(a, a, device='cpu').equals(spgemm_oracle(a, a))\n"
+        "assert not any(m == 'binary_spgemm_tpu' or m.startswith('binary_spgemm_tpu.')\n"
+        "               for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def port_sources():
@@ -164,7 +238,7 @@ def test_entry_points_default_to_cuda():
     from binary_spgemm_tpu_torch.ops import bsr as tp_bsr
 
     for fn in (tp.spgemm, tp.auto_executor, tp.EllSpGEMMExecutor,
-               tp_ell.cached_executor, tp.bsr_spgemm, tp_bsr.BsrExecutor,
+               tp.ell_spgemm, tp_ell.cached_executor, tp.bsr_spgemm, tp_bsr.BsrExecutor,
                tp_bsr.BsrStagedExecutor, tp_bsr.maybe_bsr_executor,
                tp_sp.blocked_route):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
