@@ -8,6 +8,15 @@
 // K2  fused_sort_compress(x, limit)   replaces binary_spgemm_tpu/ops/bitonic.py::fused_sort_compress
 //     Sort the row; keep an entry if it differs from its left neighbour (position 0
 //     always) and is below `limit`; set the rest to INT32_MAX; sort again.
+// P1  bitonic_network_rows(x, 1)      replaces benchmarks/pallas_sort.py::make_bitonic
+// P2  bitonic_network_rows(x, lk0)    replaces benchmarks/ab_wruns.py::make_kernel
+//     The same network over rows of a power-of-two length L, run only from the merge of
+//     size 2^lk0 on: lk0 = 1 is the whole network (a sort); lk0 = log2(2w) skips the
+//     merges that w-aligned sorted runs of alternating direction already satisfy.  K1's
+//     two kernels run it, chosen by L as K1 chooses (bitonic_network_rows and
+//     bitonic_network_rows_reg); K1 and K2 pass lk0 = 1.  A merge is skipped whole by a
+//     test that is the same for every thread of the block, so the guard adds no
+//     divergence and no template instantiation.
 //
 // Design.  The TPU kernel held [B, L] row blocks in VMEM and found bitonic partners
 // with two lane rotations per stage.  Here a thread block owns whole rows.  It loads
@@ -68,11 +77,12 @@ __device__ __forceinline__ void store_rows(int* __restrict__ out, const int* s, 
   }
 }
 
-// Ascending bitonic network over each P-slot segment of s[0, n).
-__device__ __forceinline__ void bitonic_network(int* s, int log_p, int n) {
+// Ascending bitonic network over each P-slot segment of s[0, n), from the merge of size
+// 2^log_kk0 on (log_kk0 = 1: the whole network).
+__device__ __forceinline__ void bitonic_network(int* s, int log_p, int n, int log_kk0) {
   const int P = 1 << log_p;
   const int pairs = n >> 1;
-  for (int kk = 2; kk <= P; kk <<= 1) {
+  for (int kk = 1 << log_kk0; kk <= P; kk <<= 1) {
     for (int j = kk >> 1; j > 0; j >>= 1) {
       for (int t = threadIdx.x; t < pairs; t += blockDim.x) {
         const int i = 2 * t - (t & (j - 1));  // lower slot of the pair: bit j clear
@@ -109,12 +119,12 @@ __device__ __forceinline__ void dedup_demote(int* s, int log_p, int n, int limit
 }
 
 __global__ void sort_rows_kernel(const int* __restrict__ x, int* __restrict__ out, long long k,
-                                 int L, int log_p, int rows_per_block) {
+                                 int L, int log_p, int rows_per_block, int log_kk0) {
   extern __shared__ int s[];
   const int n = rows_per_block << log_p;
   const long long row0 = (long long)blockIdx.x * rows_per_block;
   load_rows(x, s, k, L, log_p, n, row0);
-  bitonic_network(s, log_p, n);
+  bitonic_network(s, log_p, n, log_kk0);
   store_rows(out, s, k, L, log_p, n, row0);
 }
 
@@ -125,9 +135,9 @@ __global__ void fused_sort_compress_kernel(const int* __restrict__ x, int* __res
   const int n = rows_per_block << log_p;
   const long long row0 = (long long)blockIdx.x * rows_per_block;
   load_rows(x, s, k, L, log_p, n, row0);
-  bitonic_network(s, log_p, n);
+  bitonic_network(s, log_p, n, 1);
   dedup_demote(s, log_p, n, limit);
-  bitonic_network(s, log_p, n);
+  bitonic_network(s, log_p, n, 1);
   store_rows(out, s, k, L, log_p, n, row0);
 }
 
@@ -245,32 +255,38 @@ __device__ __forceinline__ void merge(int (&r)[kRegPerThread], int* s, int t) {
   lane_steps<LOG_P, LK, (LK - 1 < 7 ? LK - 1 : 7)>(r, t);
 }
 
+// The merges of size 2^LK ... P, each skipped whole below 2^lk0.  A merge leaves the
+// thread's slots in its registers, so a skipped one leaves the next merge's phases as
+// they would be: a merge of size >= 512 always enters shared memory from registers.
 template <int LOG_P, int LK>
-__device__ __forceinline__ void sort_network(int (&r)[kRegPerThread], int* s, int t) {
-  merge<LOG_P, LK>(r, s, t);
-  if constexpr (LK < LOG_P) sort_network<LOG_P, LK + 1>(r, s, t);
+__device__ __forceinline__ void sort_network(int (&r)[kRegPerThread], int* s, int t,
+                                             int lk0) {
+  if (LK >= lk0) merge<LOG_P, LK>(r, s, t);
+  if constexpr (LK < LOG_P) sort_network<LOG_P, LK + 1>(r, s, t, lk0);
 }
 
 template <int LOG_P>
 __global__ void __launch_bounds__(kRegThreads)
-    sort_rows_reg_kernel(const int* __restrict__ x, int* __restrict__ out, long long k, int L) {
+    sort_rows_reg_kernel(const int* __restrict__ x, int* __restrict__ out, long long k, int L,
+                         int lk0) {
   __shared__ __align__(16) int s[kRegSlots];
   const int t = threadIdx.x;
   const long long row0 = (long long)blockIdx.x * (kRegSlots >> LOG_P);
   load_rows(x, s, k, L, LOG_P, kRegSlots, row0);
   int r[kRegPerThread];
   from_shared(r, s, t);
-  sort_network<LOG_P, 1>(r, s, t);
+  sort_network<LOG_P, 1>(r, s, t, lk0);
   to_shared(r, s, t);
   __syncthreads();
   store_rows(out, s, k, L, LOG_P, kRegSlots, row0);
 }
 
 template <int LOG_P>
-cudaError_t launch_reg(const int* x, int* out, long long k, int L, cudaStream_t stream) {
+cudaError_t launch_reg(const int* x, int* out, long long k, int L, int lk0,
+                       cudaStream_t stream) {
   constexpr long long rows = kRegSlots >> LOG_P;
   sort_rows_reg_kernel<LOG_P><<<(unsigned)((k + rows - 1) / rows), kRegThreads, 0, stream>>>(
-      x, out, k, L);
+      x, out, k, L, lk0);
   return cudaGetLastError();
 }
 
@@ -310,16 +326,47 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// K1 "smem" over rows of any L up to kMaxPow2, from the merge of size 2^log_kk0 on.
+cudaError_t launch_smem(const void* x, void* out, long long k, int L, int log_kk0,
+                        void* stream) {
+  Launch p;
+  if (!plan_launch(k, L, &p)) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(sort_rows_kernel, p.smem);
+  if (err != cudaSuccess) return err;
+  sort_rows_kernel<<<p.grid, p.block, p.smem, (cudaStream_t)stream>>>(
+      (const int*)x, (int*)out, k, L, p.log_p, p.rows_per_block, log_kk0);
+  return cudaGetLastError();
+}
+
+// K1 "reg": 129 <= L <= 4096 only (rows padded to P = 2^8 ... 2^12).
+cudaError_t launch_reg_any(const void* x, void* out, long long k, int L, int lk0,
+                           void* stream) {
+  if (k <= 0 || L <= (1 << (kRegMinLogP - 1)) || L > (1 << kRegMaxLogP))
+    return cudaErrorInvalidValue;
+  int log_p = 0;
+  while ((1 << log_p) < L) ++log_p;
+  const int* xi = (const int*)x;
+  int* o = (int*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (log_p) {
+    case 8: return launch_reg<8>(xi, o, k, L, lk0, st);
+    case 9: return launch_reg<9>(xi, o, k, L, lk0, st);
+    case 10: return launch_reg<10>(xi, o, k, L, lk0, st);
+    case 11: return launch_reg<11>(xi, o, k, L, lk0, st);
+    default: return launch_reg<12>(xi, o, k, L, lk0, st);
+  }
+}
+
+// The network kernels take rows of a power-of-two length only, and a first merge
+// 2^log_kk0 with 1 <= log_kk0 <= 16 (past log2(L) no merge runs: a copy).
+bool network_args(int L, int log_kk0) {
+  return L > 0 && (L & (L - 1)) == 0 && log_kk0 >= 1 && log_kk0 <= 16;
+}
+
 }  // namespace
 
 extern "C" int bitonic_sort_rows(const void* x, void* out, long long k, int L, void* stream) {
-  Launch p;
-  if (!plan_launch(k, L, &p)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(sort_rows_kernel, p.smem);
-  if (err != cudaSuccess) return (int)err;
-  sort_rows_kernel<<<p.grid, p.block, p.smem, (cudaStream_t)stream>>>(
-      (const int*)x, (int*)out, k, L, p.log_p, p.rows_per_block);
-  return (int)cudaGetLastError();
+  return (int)launch_smem(x, out, k, L, 1, stream);
 }
 
 extern "C" int fused_sort_compress(const void* x, void* out, long long k, int L, int limit,
@@ -333,21 +380,21 @@ extern "C" int fused_sort_compress(const void* x, void* out, long long k, int L,
   return (int)cudaGetLastError();
 }
 
-// K1 "reg": 129 <= L <= 4096 only (rows padded to P = 2^8 ... 2^12).
 extern "C" int bitonic_sort_rows_reg(const void* x, void* out, long long k, int L,
                                      void* stream) {
-  if (k <= 0 || L <= (1 << (kRegMinLogP - 1)) || L > (1 << kRegMaxLogP))
-    return (int)cudaErrorInvalidValue;
-  int log_p = 0;
-  while ((1 << log_p) < L) ++log_p;
-  const int* xi = (const int*)x;
-  int* o = (int*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (log_p) {
-    case 8: return (int)launch_reg<8>(xi, o, k, L, st);
-    case 9: return (int)launch_reg<9>(xi, o, k, L, st);
-    case 10: return (int)launch_reg<10>(xi, o, k, L, st);
-    case 11: return (int)launch_reg<11>(xi, o, k, L, st);
-    default: return (int)launch_reg<12>(xi, o, k, L, st);
-  }
+  return (int)launch_reg_any(x, out, k, L, 1, stream);
+}
+
+// P1/P2 through K1's shared-memory kernel (the L that k1_variant gives "smem").
+extern "C" int bitonic_network_rows(const void* x, void* out, long long k, int L, int log_kk0,
+                                    void* stream) {
+  if (!network_args(L, log_kk0)) return (int)cudaErrorInvalidValue;
+  return (int)launch_smem(x, out, k, L, log_kk0, stream);
+}
+
+// P1/P2 through K1's register kernel (128 < L <= 4096).
+extern "C" int bitonic_network_rows_reg(const void* x, void* out, long long k, int L,
+                                        int log_kk0, void* stream) {
+  if (!network_args(L, log_kk0)) return (int)cudaErrorInvalidValue;
+  return (int)launch_reg_any(x, out, k, L, log_kk0, stream);
 }

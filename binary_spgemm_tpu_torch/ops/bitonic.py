@@ -9,7 +9,13 @@ Two kernels written by hand for Hopper live in ``csrc/bitonic.cu``:
   network in shared memory, every other L);
 * K2 :func:`fused_sort_compress` — sort, left-neighbour dedup with
   demote-to-``INT32_MAX`` of everything at or above ``limit``, sort again, in
-  one pass over each row (replaces ``fused_sort_compress`` there).
+  one pass over each row (replaces ``fused_sort_compress`` there);
+* P1/P2 :func:`bitonic_network_rows` — the bitonic network over rows of a
+  power-of-two length, run from a given merge size on: from the first, a
+  sort (replaces ``benchmarks/pallas_sort.py::make_bitonic``); from merge
+  ``2w``, the shortcut for streams of w-aligned sorted runs of alternating
+  direction (replaces ``benchmarks/ab_wruns.py::make_kernel``).  K1's two
+  kernels run it, chosen by the row length as :func:`k1_variant` chooses.
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in
 its ``launches`` attribute; for a CPU tensor it computes the plain PyTorch
@@ -27,6 +33,8 @@ import torch
 
 __all__ = [
     "MAX_L",
+    "bitonic_network_rows",
+    "bitonic_network_rows_plain",
     "bitonic_sort_rows",
     "bitonic_sort_rows_plain",
     "fused_sort_compress",
@@ -46,16 +54,23 @@ MAX_L = 1 << 15
 # block of 512 threads holding 8 slots each.
 REG_MIN_L, REG_MAX_L = (1 << 7) + 1, 1 << 12
 
-# K1's C entry point for each variant
+# K1's C entry point for each variant, and the network's (P1/P2)
 _K1_ENTRY = {"reg": "bitonic_sort_rows_reg", "smem": "bitonic_sort_rows"}
+_NETWORK_ENTRY = {"reg": "bitonic_network_rows_reg", "smem": "bitonic_network_rows"}
 
 _SORT_SIG = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
     ctypes.c_void_p,
 ]
+_NETWORK_SIG = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
+]
 _SIG = {
     "bitonic_sort_rows": _SORT_SIG,
     "bitonic_sort_rows_reg": _SORT_SIG,
+    "bitonic_network_rows": _NETWORK_SIG,
+    "bitonic_network_rows_reg": _NETWORK_SIG,
     "fused_sort_compress": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p,
@@ -169,6 +184,77 @@ def fused_sort_compress(x: torch.Tensor, limit: int) -> torch.Tensor:
 
 
 fused_sort_compress.launches = 0
+
+
+def _stages(L: int) -> list[tuple[int, int]]:
+    """Bitonic network (kk, j) stage list for pow2 length L."""
+    out = []
+    kk = 2
+    while kk <= L:
+        j = kk // 2
+        while j >= 1:
+            out.append((kk, j))
+            j //= 2
+        kk *= 2
+    return out
+
+
+def _pick_block(k: int, L: int) -> int | None:
+    """The JAX kernels' row block (rows a grid step) for ``k`` rows of
+    ``L``, verbatim; its grid leaves rows past a multiple of it undefined.
+    The port's kernels take any k; this says at which k the two agree."""
+    cap = 128 if L <= 2048 else 32  # measured-safe VMEM block budget
+    for b in (128, 64, 32, 16, 8):
+        if b <= cap and k % b == 0:
+            return b
+    return None
+
+
+def bitonic_network_rows_plain(x: torch.Tensor, min_kk: int = 2) -> torch.Tensor:
+    """Plain PyTorch version of P1/P2: the stages ``(kk, j)`` of
+    :func:`_stages` with ``kk >= min_kk``, each as the JAX kernels run it,
+    two ``torch.roll``s and ``torch.where``s.  Not ``torch.sort``: from a
+    later first merge the output is sorted only on the runs it assumes."""
+    L = x.shape[1]
+    i = torch.arange(L, dtype=torch.int32, device=x.device)
+    out = x
+    for kk, j in _stages(L):
+        if kk < min_kk:
+            continue
+        is_lo = (i & j) == 0
+        take_min = is_lo == ((i & kk) == 0)
+        partner = torch.where(is_lo, torch.roll(out, -j, 1), torch.roll(out, j, 1))
+        out = torch.where(take_min, torch.minimum(out, partner),
+                          torch.maximum(out, partner))
+    return x.clone() if out is x else out
+
+
+def _first_merge(min_kk: int, L: int) -> int:
+    """log2 of the first merge size that the network over rows of ``L`` runs
+    for ``min_kk``: the kernels' ``log_kk0``, ``log2(L) + 1`` when none runs."""
+    return min((max(int(min_kk), 2) - 1).bit_length(), L.bit_length())
+
+
+def bitonic_network_rows(x: torch.Tensor, min_kk: int = 2) -> torch.Tensor:
+    """P1/P2: the ascending bitonic network over each row of int32 ``[k, L]``
+    ``x`` (L a power of two), running only the stages whose merge size
+    ``kk >= min_kk``.  ``min_kk <= 2`` sorts every row (P1); ``min_kk = 2w``
+    sorts rows made of w-aligned sorted runs whose direction alternates
+    (ascending where ``(start & w) == 0``) and gives the partial network's
+    permutation on other rows (P2); ``min_kk > L`` runs no stage (a copy)."""
+    _check(x, "bitonic_network_rows")
+    L = x.shape[1]
+    if L < 1 or L & (L - 1):
+        raise ValueError(f"bitonic_network_rows: row length {L} is not a power of two")
+    if x.device.type == "cpu":
+        return bitonic_network_rows_plain(x, min_kk)
+    out = _launch(_NETWORK_ENTRY[k1_variant(L)], x, _first_merge(min_kk, L))
+    if x.numel():
+        bitonic_network_rows.launches += 1
+    return out
+
+
+bitonic_network_rows.launches = 0
 
 
 def sort_rows(x: torch.Tensor) -> torch.Tensor:

@@ -70,7 +70,18 @@ Phases, each reported on its own lines; any failure exits non-zero:
     16.0, seed=7)`` the same way, then through one-shot ``spgemm``;
 14. the host engine: ``spgemm`` on validity-class, ``BCSR.random(50000,
     50000, 0.5, seed=7)``, served by ``host_spgemm``, bit-exact;
-15. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
+15. P1 and P2 (``bitonic_network_rows``) and the sort drivers: the network
+    ``torch.equal`` to its plain version at P1's three shapes and at L = 2,
+    128, 256, 4096 and 32768 with min_kk = 2, 4, 32, L and 2L, on random rows
+    and on rows of alternating sorted runs (where it must also equal
+    ``torch.sort`` from min_kk <= 2w); P2's ``skip-w16`` equal to
+    ``torch.sort`` on its run input; then each driver's ``main`` once
+    (``benchmarks/pallas_sort``, ``ab_wruns``, ``sort_rate_table``,
+    ``pallas_gather``), rows into ``build/``, every compared row bit-exact,
+    with the launch counts set to 0 just before each and read just after; P1
+    and P2 times beside ``torch.sort``, K1, their plain versions and their
+    bound;
+16. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -103,6 +114,7 @@ RAND32K, RAND32K_NNZ = (32768, 16.0, 7), 8_360_900
 # validity-class, BCSR.random(n, n, d, seed): the host engine
 VALIDITY, VALIDITY_NNZ = (50000, 0.5, 7), 12_596
 GATHER_WIDTHS = (1, 2, 3, 16, 40, 10240)
+NETWORK_LENGTHS = (2, 128, 256, 4096, 32768)  # P1/P2 around K1's variant bounds
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT32_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores (FP32 rate)
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -119,8 +131,12 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeError(msg)
 
 
+_START = time.perf_counter()
+
+
 def phase(title: str) -> None:
-    print(f"== {title}", flush=True)
+    """Print a phase's header with the seconds since the script started."""
+    print(f"== {title} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def event_ms(torch, fn, reps: int) -> float:
@@ -377,6 +393,39 @@ def time_gathers(torch, gather, ell, ex, label: str, reps: int) -> dict:
     return {"t": t, "bound3": (b3, b3_by), "bound4": (b4, b4_by), "shape": shape}
 
 
+def network_cases(torch, bitonic, ab_wruns, dev, rng) -> tuple[int, int]:
+    """P1/P2 against their plain version at each of NETWORK_LENGTHS, at
+    min_kk = 2, 4, 32, L and 2L, on random rows (duplicates, int32
+    extremes) and on rows of alternating w-aligned sorted runs, which must
+    come out sorted from min_kk <= 2w.  Returns the largest difference seen
+    and the number of cases."""
+    err, n_cases = 0, 0
+    for L in NETWORK_LENGTHS:
+        k = max(8, (1 << 16) // L)
+        w = min(16, L // 2)
+        x = rng.integers(INT32_MIN, INT32_MAX, (k, L), dtype=np.int64, endpoint=True
+                         ).astype(np.int32)
+        x[0, : L // 2] = x[0, 0]  # duplicates
+        x[1, :1] = INT32_MAX
+        x[-1, :1] = INT32_MIN
+        x = torch.from_numpy(x).to(dev)
+        runs = ab_wruns.alternating_runs(x, w)
+        want_sorted = torch.sort(x, dim=1).values
+        for min_kk in (2, 4, 32, L, 2 * L):
+            for label, inp in (("random", x), ("runs", runs)):
+                got = bitonic.bitonic_network_rows(inp, min_kk)
+                want = bitonic.bitonic_network_rows_plain(inp, min_kk)
+                err = max(err, int((got.long() - want.long()).abs().max()))
+                check(torch.equal(got, want),
+                      f"the network differs from its plain version: L={L}, "
+                      f"min_kk={min_kk}, {label} rows")
+                if label == "runs" and min_kk <= 2 * w:
+                    check(torch.equal(got, want_sorted),
+                          f"the network does not sort w={w} runs: L={L}, min_kk={min_kk}")
+                n_cases += 1
+    return err, n_cases
+
+
 def drive_ell_path(torch, label: str, a, expected_nnz: int, *, reset_counts,
                    read_counts, routes, auto_executor, spgemm_oracle,
                    runs: int, e2e_runs: int, profile_reps: int):
@@ -555,6 +604,7 @@ def run_smoke() -> dict:
 
     counters = {
         "bitonic_sort_rows": bitonic.bitonic_sort_rows,
+        "bitonic_network_rows": bitonic.bitonic_network_rows,
         "fused_sort_compress": bitonic.fused_sort_compress,
         "grouped_block_matmul": block_matmul.grouped_block_matmul,
         "class_gather": gather.class_gather,
@@ -777,9 +827,9 @@ def run_smoke() -> dict:
     check((bex._ex.npairs, bex.n_pairs, bex.n_out)
           == (BLOCKED_PAIRS, BLOCKED_PAIRS_PAD, BLOCKED_OUT),
           f"blocked plan {(bex._ex.npairs, bex.n_pairs, bex.n_out)}")
-    check(launches_b == {"bitonic_sort_rows": 0, "fused_sort_compress": 0,
-                         "grouped_block_matmul": 1, "class_gather": 0,
-                         "class_gather_keys": 0},
+    check(launches_b == {"bitonic_sort_rows": 0, "bitonic_network_rows": 0,
+                         "fused_sort_compress": 0, "grouped_block_matmul": 1,
+                         "class_gather": 0, "class_gather_keys": 0},
           f"blocked path launches {launches_b}")
     t0 = time.perf_counter()
     ref_b = spgemm_oracle(ab, ab)
@@ -1068,6 +1118,112 @@ def run_smoke() -> dict:
           f"in {host_s * 1e3:.2f} ms on the host clock, no kernel launched, "
           f"bit-exact ({cv.nnz} output nnz)")
 
+
+    phase("15. P1 and P2, and the sort drivers")
+    from binary_spgemm_tpu_torch.benchmarks import (
+        ab_wruns, pallas_gather as gather_driver, pallas_sort, sort_rate_table)
+
+    net = bitonic.bitonic_network_rows
+    net_plain = bitonic.bitonic_network_rows_plain
+    serving = {"bench": launches, "blocked": launches_b, "rmat-s16": launches16,
+               "rmat-s18-e8": launches18, "random-32k": launches32,
+               "validity-class": launches_v}
+    check(not any(v["bitonic_network_rows"] for v in serving.values()),
+          f"P1/P2 ran on a serving path: {serving}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    err_net = 0
+    for k, L in pallas_sort.SHAPES:  # P1's shapes, the whole network
+        x = torch.randint(0, 1 << 30, (k, L), dtype=torch.int32, device=dev,
+                          generator=gen)
+        got, want = net(x, 2), net_plain(x, 2)
+        err_net = max(err_net, int((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want) and torch.equal(got, torch.sort(x, dim=1).values),
+              f"P1 differs from its plain version or torch.sort at [{k}, {L}]")
+        print(f"P1 [{k}, {L}] ({bitonic.k1_variant(L)}): equal to its plain version "
+              f"and torch.sort")
+        del x, got, want
+    err, n_cases = network_cases(torch, bitonic, ab_wruns, dev, rng)
+    err_net = max(err_net, err)
+    print(f"the network at L = {NETWORK_LENGTHS} x min_kk = 2, 4, 32, L, 2L x random "
+          f"and alternating-run rows: {n_cases} cases equal to the plain version; "
+          f"sorted wherever min_kk <= 2w on the runs")
+    # P2's input: the driver's shape with every 16-block presorted
+    x2 = torch.randint(0, 1 << 30, (ab_wruns.K, ab_wruns.L), dtype=torch.int32,
+                       device=dev, generator=gen)
+    xp = ab_wruns.alternating_runs(x2, ab_wruns.W)
+    skip = 2 * ab_wruns.W
+    got, want = net(xp, skip), net_plain(xp, skip)
+    check(torch.equal(got, want) and torch.equal(got, torch.sort(x2, dim=1).values),
+          "P2 skip-w16 differs from its plain version or torch.sort on its run input")
+    print(f"P2 skip-w16 [{ab_wruns.K}, {ab_wruns.L}]: equal to its plain version and "
+          f"to torch.sort on the run input")
+    del got, want
+
+    drivers = {}
+    rows_path = os.path.join(ROOT, "build", "driver_rows.jsonl")
+    os.makedirs(os.path.dirname(rows_path), exist_ok=True)
+    for name, driver_main, argv in (
+            ("pallas_sort", pallas_sort.main, []),
+            ("ab_wruns", ab_wruns.main, []),
+            ("sort_rate_table", sort_rate_table.main, ["--elems", "27"]),
+            ("pallas_gather", gather_driver.main, [])):
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = driver_main(argv + ["--results", rows_path])
+        seconds = time.perf_counter() - t0
+        drivers[name] = {"rows": rows, "launches": read_counts(), "s": seconds}
+        bad = [r for r in rows if r.get("bit_exact") not in (True, "n/a")]
+        check(not bad, f"{name}: rows not bit-exact: {bad}")
+        print(f"driver {name}: {len(rows)} rows in {seconds:.2f} s, launches "
+              f"{drivers[name]['launches']}")
+    for name, kernel in (("pallas_sort", "bitonic_network_rows"),
+                         ("ab_wruns", "bitonic_network_rows"),
+                         ("sort_rate_table", "bitonic_sort_rows"),
+                         ("pallas_gather", "class_gather"),
+                         ("pallas_gather", "class_gather_keys")):
+        check(drivers[name]["launches"][kernel] > 0,
+              f"driver {name} did not launch {kernel}")
+
+    def drv(name, **match):
+        found = [r for r in drivers[name]["rows"]
+                 if all(r.get(key) == v for key, v in match.items())]
+        check(len(found) == 1, f"driver {name}: no single row {match}")
+        return found[0]
+
+    p1_shapes = []
+    for k, L in pallas_sort.SHAPES:
+        x = torch.randint(0, 1 << 30, (k, L), dtype=torch.int32, device=dev,
+                          generator=gen)
+        plain_ms = min(event_ms(torch, lambda: net_plain(x, 2), 1) for _ in range(2))
+        b_ms, b_by = sort_bound_ms(k * L, L)
+        row = {"shape": [k, L], "variant": bitonic.k1_variant(L),
+               "ms": drv("pallas_sort", variant="network", k=k, L=L)["t"] * 1e3,
+               "k1_ms": drv("pallas_sort", variant="k1", k=k, L=L)["t"] * 1e3,
+               "library_ms": drv("pallas_sort", variant="torch.sort", k=k, L=L)["t"] * 1e3,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        p1_shapes.append(row)
+        print(f"P1 at [{k}, {L}] ({row['variant']}): network {row['ms']:.4f} ms, K1 "
+              f"{row['k1_ms']:.4f} ms, torch.sort {row['library_ms']:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del x
+    full = drv("ab_wruns", variant="full")["t"] * 1e3
+    skip_ms = drv("ab_wruns", variant="skip-w16")["t"] * 1e3
+    p2_plain = min(event_ms(torch, lambda: net_plain(xp, skip), 1) for _ in range(2))
+    p2_lib = min(event_ms(torch, lambda: torch.sort(xp, dim=1), 5) for _ in range(2))
+    p2_k1 = min(event_ms(torch, lambda: bitonic.bitonic_sort_rows(xp), 5)
+                for _ in range(2))
+    p2_bound, p2_by = sort_bound_ms(xp.numel(), ab_wruns.L)
+    saving = drv("ab_wruns", variant="verdict")["pass_skip_saving_pct"]
+    print(f"P2 at [{ab_wruns.K}, {ab_wruns.L}], w = {ab_wruns.W}: skip-w16 "
+          f"{skip_ms:.4f} ms, full {full:.4f} ms (saving {saving:.2f} %), K1 "
+          f"{p2_k1:.4f} ms, torch.sort {p2_lib:.4f} ms, plain {p2_plain:.4f} ms, "
+          f"bound {p2_bound:.4f} ms ({p2_by})")
+    rates = drv("sort_rate_table", kind="summary")
+    print(f"sort-rate table (2^27 elements a shape; launch floor "
+          f"{rates['floor_s'] * 1e3:.4f} ms): 2-D {rates['table_2d_ns']}, flat "
+          f"{rates['table_flat_ns']}")
+    del x2, xp
+
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
     kernels = [
         {
@@ -1143,10 +1299,38 @@ def run_smoke() -> dict:
                                "library_ms": gather_rmat["t"]["lib"],
                                "shape": gather_rmat["shape"]},
         },
+        {
+            "name": "bitonic_network_rows (P1, min_kk=2)", "route": "cuda",
+            "source": src, "replaces": "benchmarks/pallas_sort.py:61",
+            "launches": sum(v["bitonic_network_rows"] for v in serving.values()),
+            "launches_by_path": {k: v["bitonic_network_rows"] for k, v in serving.items()},
+            "driver_launches": {"pallas_sort": drivers["pallas_sort"]["launches"][
+                "bitonic_network_rows"]},
+            "max_abs_err": err_net, "ms": p1_shapes[-1]["ms"],
+            "plain_ms": p1_shapes[-1]["plain_ms"], "bound_ms": p1_shapes[-1]["bound_ms"],
+            "bound_by": p1_shapes[-1]["bound_by"],
+            "library_ms": p1_shapes[-1]["library_ms"], "shape": p1_shapes[-1]["shape"],
+            "variant": p1_shapes[-1]["variant"], "k1_ms": p1_shapes[-1]["k1_ms"],
+            "on_main_path": False, "other_shapes": p1_shapes[:-1],
+        },
+        {
+            "name": "bitonic_network_rows (P2, min_kk=32)", "route": "cuda",
+            "source": src, "replaces": "benchmarks/ab_wruns.py:38",
+            "launches": sum(v["bitonic_network_rows"] for v in serving.values()),
+            "launches_by_path": {k: v["bitonic_network_rows"] for k, v in serving.items()},
+            "driver_launches": {"ab_wruns": drivers["ab_wruns"]["launches"][
+                "bitonic_network_rows"]},
+            "max_abs_err": err_net, "ms": skip_ms, "plain_ms": p2_plain,
+            "bound_ms": p2_bound, "bound_by": p2_by, "library_ms": p2_lib,
+            "shape": [ab_wruns.K, ab_wruns.L], "variant": bitonic.k1_variant(ab_wruns.L),
+            "full_ms": full, "k1_ms": p2_k1, "saving_pct": saving,
+            "on_main_path": False,
+        },
     ]
-    phase("15. kernels")
+    phase("16. kernels")
     paths = {"rmat-s16": times16, "rmat-s18-e8": times18, "random-32k": times32}
     print(f"paths: {json.dumps(paths)}")
+    print(f"drivers (s): {json.dumps({k: v['s'] for k, v in drivers.items()})}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

@@ -318,3 +318,61 @@ def test_blocked_executor_on_the_card(cuda_device):
         assert k3.grouped_block_matmul.launches_by_variant == by_variant
         assert c.equals(ref)
     assert tp.spgemm(a, a).equals(ref)
+
+
+def runs_input(k, L, w, seed):
+    """Random int32 rows with duplicates and extremes, and the same rows with
+    each w-aligned block sorted, descending where ``(start & w) != 0``."""
+    from binary_spgemm_tpu_torch.benchmarks.ab_wruns import alternating_runs
+
+    rng = np.random.default_rng(seed)
+    x = rng.integers(I32_MIN, I32_MAX, (k, L), dtype=np.int64, endpoint=True)
+    x = x.astype(np.int32)
+    x[0, : L // 2] = x[0, 0]
+    x[1, :1] = I32_MAX
+    x[-1, :1] = I32_MIN
+    xt = torch.from_numpy(x).to(torch.device("cuda"))
+    return xt, alternating_runs(xt, w)
+
+
+@pytest.mark.parametrize("L", [128, 256, 4096, 8192, 32768])
+@pytest.mark.parametrize("first", ["2", "4", "32", "L", "2L"])
+def test_network_equals_its_plain_version(cuda_device, L, first):
+    min_kk = {"L": L, "2L": 2 * L}.get(first) or int(first)
+    k = max(8, (1 << 16) // L)
+    w = min(16, L // 2)
+    x, runs = runs_input(k, L, w, seed=L + min_kk)
+    want_sorted = torch.sort(x, dim=1).values
+    n = bitonic.bitonic_network_rows.launches
+    for inp, label in ((x, "random"), (runs, "runs")):
+        got = bitonic.bitonic_network_rows(inp, min_kk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, bitonic.bitonic_network_rows_plain(inp, min_kk)), label
+        if label == "runs" and min_kk <= 2 * w:
+            assert torch.equal(got, want_sorted)
+        if min_kk > L:
+            assert torch.equal(got, inp) and got.data_ptr() != inp.data_ptr()
+    assert bitonic.bitonic_network_rows.launches == n + 2
+
+
+@pytest.mark.parametrize("k,L", [(2048, 4096), (512, 8192)])
+def test_network_skip_on_runs_equals_torch_sort(cuda_device, k, L):
+    x, runs = runs_input(k, L, 16, seed=k)
+    got = bitonic.bitonic_network_rows(runs, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.sort(x, dim=1).values)
+
+
+@pytest.mark.parametrize(
+    "L", [1, 37, 128, 129, 255, 256, 257, 512, 1000, 1024, 2048, 3968, 4095, 4096,
+          4097, 32768])
+def test_k1_unchanged_by_the_first_merge_argument(cuda_device, L):
+    """K1 passes the first merge to the kernels it shares with the network:
+    it still sorts, and at a power-of-two length equals the whole network."""
+    x, _ = runs_input(max(16, (1 << 15) // L), L, 1, seed=L) if L > 1 else (
+        torch.zeros((4, 1), dtype=torch.int32, device=cuda_device), None)
+    got = bitonic.bitonic_sort_rows(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bitonic.bitonic_sort_rows_plain(x))
+    if L & (L - 1) == 0:
+        assert torch.equal(bitonic.bitonic_network_rows(x, 2), got)

@@ -1,0 +1,165 @@
+"""The port's trace, timer and debug utilities on the CPU, against the JAX
+package's: ``roofline`` / ``bsr_roofline`` give the JAX functions' dicts on
+the CPU, ``sort_rate_ns`` interpolates as the JAX function does on the same
+table, an H100's name prices with the H100's rates, and ``phase_timer``,
+``trace``, ``measure_dispatch_floor``, ``BenchStats`` / ``bench_fn`` and
+``format_csr`` run and agree with their JAX counterparts."""
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from binary_spgemm_tpu import BCSR as JaxBCSR
+from binary_spgemm_tpu.utils import debug as jx_debug
+from binary_spgemm_tpu.utils import timers as jx_timers
+from binary_spgemm_tpu.utils import trace as jx_trace
+
+from binary_spgemm_tpu_torch import BCSR
+from binary_spgemm_tpu_torch.utils import debug, timers, trace
+
+H100 = "NVIDIA H100 80GB HBM3"
+JAX_CPU = jax.devices("cpu")[0]
+
+
+@pytest.mark.parametrize("sort_len", [None, 2, 4096, 1 << 20])
+@pytest.mark.parametrize("floor_s", [None, 0.0005, 0.5])
+def test_roofline_on_the_cpu_is_the_jax_dict(sort_len, floor_s):
+    for flops_pad in (1, 3, 1 << 10, 1 << 20, 30_000_001):
+        for nnz_a, nnz_c in ((0, 0), (1000, 5000)):
+            for seconds in (0.0, 0.001, 0.1):
+                kw = dict(sort_len=sort_len, floor_s=floor_s)
+                want = jx_trace.roofline(flops_pad, nnz_a, nnz_c, seconds, JAX_CPU, **kw)
+                for device in ("cpu", torch.device("cpu")):
+                    assert trace.roofline(flops_pad, nnz_a, nnz_c, seconds, device,
+                                          **kw) == want
+
+
+@pytest.mark.parametrize("block_size", [8, 16, 100, 128])
+def test_bsr_roofline_on_the_cpu_is_the_jax_dict(block_size):
+    for n_pairs, n_out in ((0, 0), (1, 1), (1114, 1106), (10**6, 3)):
+        for seconds in (0.0, 1e-4, 0.01):
+            want = jx_trace.bsr_roofline(n_pairs, n_out, block_size, seconds, JAX_CPU)
+            assert trace.bsr_roofline(n_pairs, n_out, block_size, seconds,
+                                      "cpu") == want
+
+
+@pytest.mark.parametrize("flat", [False, True])
+def test_sort_rate_ns_interpolates_as_the_jax_function(monkeypatch, flat):
+    monkeypatch.setattr(trace, "SORT_RATE_2D_NS", {"h100": dict(jx_trace.SORT_RATE_2D_NS)})
+    monkeypatch.setattr(trace, "SORT_RATE_FLAT_NS",
+                        {"h100": dict(jx_trace.SORT_RATE_FLAT_NS)})
+    for L in (1, 128, 256, 300, 512, 777, 1024, 3968, 4096, 5000, 8192, 10**5,
+              1 << 19, 1 << 21, 3_000_000, 1 << 25, 1 << 28):
+        want = jx_trace.sort_rate_ns(L, flat=flat)
+        assert trace.sort_rate_ns(L, flat=flat, kind=H100) == want
+        assert trace.sort_rate_ns(L, flat=flat) == want
+
+
+def test_an_h100_prices_with_the_h100s_rates():
+    r = trace.roofline(1 << 20, 1000, 5000, 0.01, H100)
+    assert r["bandwidth_assumed_gbps"] == 3350.0
+    b = trace.bsr_roofline(1114, 1106, 128, 1e-4, H100)
+    assert b["bandwidth_assumed_gbps"] == 3350.0 and b["mxu_assumed_tflops"] == 989.0
+    # the dual roofline from the card's own measured table
+    assert r["sort_rate_ns_per_elem"] == trace.sort_rate_ns(1 << 20, flat=True, kind=H100)
+    assert r["sort_compute_s"] == 2 * (1 << 20) * r["sort_rate_ns_per_elem"] / 1e9
+    assert r["fraction_of_dual"] == max(r["speed_of_light_s"], r["sort_compute_s"]) / 0.01
+    assert "dispatch_floor_s" not in r  # no floor passed
+    f = trace.roofline(1 << 20, 1000, 5000, 0.01, H100, floor_s=0.001)
+    assert f["dispatch_floor_s"] == 0.001
+    assert f["fraction_ex_dispatch"] == f["speed_of_light_s"] / (0.01 - 0.001)
+    assert f["fraction_of_dual_device"] == max(f["speed_of_light_s"],
+                                               f["sort_compute_s"]) / (0.01 - 0.001)
+    # at or below the floor the fractions above it are meaningless: omitted
+    assert "fraction_ex_dispatch" not in trace.roofline(1 << 20, 0, 0, 0.001, H100,
+                                                        floor_s=0.001)
+
+
+def test_a_card_without_a_table_has_no_dual_roofline(monkeypatch):
+    monkeypatch.setattr(trace, "SORT_RATE_2D_NS", {})
+    r = trace.roofline(1 << 20, 1000, 5000, 0.01, H100, floor_s=0.001)
+    assert "fraction_of_dual" not in r and "fraction_of_dual_device" not in r
+    assert "fraction_ex_dispatch" in r
+    with pytest.raises(KeyError, match="no measured sort-rate table"):
+        trace.sort_rate_ns(4096, kind=H100)
+    assert "fraction_of_dual" not in trace.roofline(1 << 20, 0, 0, 0.01, "cpu")
+
+
+def test_the_pinned_tables_are_h100_measurements():
+    for table in (trace.SORT_RATE_2D_NS, trace.SORT_RATE_FLAT_NS):
+        assert set(table) == {"h100"}
+        assert all(r > 0 for r in table["h100"].values())
+    assert sorted(trace.SORT_RATE_2D_NS["h100"]) == [256, 512, 1024, 2048, 4096, 8192]
+    assert sorted(trace.SORT_RATE_FLAT_NS["h100"]) == [1 << n for n in (19, 20, 22, 23, 25)]
+    assert 0 < trace.DISPATCH_FLOOR_S < 0.001
+    assert set(trace.HBM_BYTES_PER_S) == {"h100", "cpu"}
+    assert set(trace.BF16_FLOPS_PER_S) == {"h100", "cpu"}
+
+
+@pytest.mark.parametrize("device,kind", [
+    ("cpu", "cpu"), (torch.device("cpu"), "cpu"), (H100, "nvidia h100 80gb hbm3"),
+    ("h100", "h100")])
+def test_device_kind(device, kind):
+    assert trace.device_kind(device) == kind
+
+
+def test_phase_timer_on_the_cpu():
+    pt = trace.phase_timer("cpu")
+    with pt("a"):
+        x = torch.arange(1000) * 2
+    with pt("b"):
+        _ = x + 1
+    assert [r.name for r in pt.records] == ["a", "b"]
+    assert all(r.seconds >= 0 for r in pt.records)
+    rep = pt.report()
+    assert "a" in rep and "ms" in rep
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    logdir = tmp_path / "trace"
+    with trace.trace(str(logdir)):
+        torch.arange(1000).sum()
+    with open(logdir / "trace.json") as f:
+        assert "traceEvents" in json.load(f)
+
+
+def test_measure_dispatch_floor_on_the_cpu():
+    floor = trace.measure_dispatch_floor(reps=3, device="cpu")
+    assert 0 < floor < 1.0
+
+
+@pytest.mark.parametrize("times", [[0.3], [0.5, 0.1, 0.2], [1.0, 2.0, 3.0, 4.0]])
+def test_bench_stats_are_the_jax_ones(times):
+    got, want = timers.BenchStats(list(times)), jx_timers.BenchStats(list(times))
+    assert (got.mean, got.median, got.fastest) == (want.mean, want.median, want.fastest)
+
+
+def test_bench_fn_calls_the_barrier_before_each_run():
+    calls = []
+    stats = timers.bench_fn(lambda: calls.append("fn"), repeats=3,
+                            barrier=lambda: calls.append("barrier"))
+    assert calls == ["barrier", "fn"] * 3
+    assert len(stats.times) == 3 and all(t >= 0 for t in stats.times)
+    with timers.Timer() as t:
+        pass
+    assert t.seconds >= 0
+
+
+@pytest.mark.parametrize("n,block", [(2, None), (4, 2), (5, 2), (6, 3), (9, 4), (7, None)])
+def test_format_csr_is_the_jax_one(n, block):
+    dense = (np.random.default_rng(n).random((n, n + 1)) < 0.4).astype(np.int8)
+    got = debug.format_csr(BCSR.from_dense(dense), block=block)
+    assert got == jx_debug.format_csr(JaxBCSR.from_dense(dense), block=block)
+
+
+def test_format_csr_too_large():
+    with pytest.raises(ValueError, match="too large"):
+        debug.format_csr(BCSR.random(2000, 2000, 1.0, seed=0))
+
+
+def test_print_csr(capsys):
+    debug.print_csr(BCSR.from_dense(np.eye(2, dtype=np.int8)))
+    assert capsys.readouterr().out.startswith("1 .\n. 1")
+
