@@ -35,7 +35,12 @@ import numpy as np
 import torch
 
 from ..formats.bcsr import BCSR
-from .gather import class_gather, class_gather_keys
+from .gather import (
+    class_gather,
+    class_gather_group,
+    class_gather_keys,
+    class_gather_keys_group,
+)
 from .spgemm import (
     INT,
     _chunk_rows,
@@ -249,13 +254,24 @@ def _expand_class_2d(
     return out
 
 
-def _expand_classes(tables, entry_rows, entry_pos, widths, pads, out, **kw) -> int:
+def _expand_classes(tables, entry_rows, entry_pos, widths, pads, out, *,
+                    rows_pad: int, n_cols: int, shift: int | None = None) -> int:
     """Write every class's expansion into its column span of ``out``, in
-    class order from column 0; return the first column past them."""
-    off = 0
+    class order from column 0; return the first column past them.  Inlined
+    classes are torch ops; the gathered ones go to P4 (with ``shift``) or P3
+    together, one launch for the group."""
+    gathered, off = [], 0
     for t, er, ep, w, p in zip(tables, entry_rows, entry_pos, widths, pads):
-        _expand_class_2d(t, er, ep, w=w, out=out, col0=off, **kw)
+        if t is None:
+            _expand_class_2d(None, er, ep, rows_pad, n_cols, w=w, shift=shift,
+                             out=out, col0=off)
+        else:
+            gathered.append((t, ep, er, off))
         off += p * w
+    if shift is not None:
+        class_gather_keys_group(gathered, rows_pad, n_cols, shift, out)
+    else:
+        class_gather_group(gathered, rows_pad, n_cols, out)
     return off
 
 

@@ -7,8 +7,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. the build of every kernel source (``csrc/*.cu``): seconds and ptxas report;
-   K1's register kernel and K3's pipe kernel must show no stack frame and no
-   spills in any instantiation;
+   K1's register kernel, K3's pipe kernel and the P3/P4 group kernel must
+   show no stack frame and no spills in any instantiation;
 3. K1 (bitonic_sort_rows) and K2 (fused_sort_compress) bit-equal to their
    plain PyTorch versions at the main path's shape, a power-of-two length,
    a short odd length, the longest length the kernels take, and the lengths
@@ -17,12 +17,17 @@ Phases, each reported on its own lines; any failure exits non-zero:
    plain PyTorch versions at widths 1, 2, 3, 16, 40 and 10240, with
    out-of-range and negative positions, sentinel and out-of-range row ids,
    empty groups, column slices as inputs and a column offset into a wider
-   stream;
+   stream; then their group entry points (``class_gather_group``,
+   ``class_gather_keys_group``, one launch per dispatch group) on groups of
+   widths 1 to 200, of w = 10240 between two narrow classes and of more
+   classes than one launch takes (two launches), each span from an odd
+   column of a stream whose row stride is not a multiple of 4, and on
+   groups with no gathered class (no launch);
 5. the main path: C = A·A for ``BCSR.random(65536, 65536, 16.0, seed=2026)``
    through ``auto_executor`` -> ``run()`` -> ``assemble()``, bit-exact against
    scipy, with the launch counts set to 0 just before ``auto_executor`` and
    read just after ``assemble()`` (K1 twice per dispatch group, every time as
-   its register variant; P4 once per gathered class and group; P3 never);
+   its register variant; P4 once per dispatch group; P3 never);
 6. K2 on the main path's real key streams, equal to K1 twice plus the dedup;
 7. times from CUDA events: ``run()``, ``run()`` + ``assemble()``, each kernel,
    its plain version and ``torch.sort`` at the main path's shape, with K1's
@@ -30,8 +35,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
    ``torch.sort`` at three more shapes; the host clock's split of
    ``assemble()`` into pull and host assembly; a ``torch.profiler`` breakdown
    of ``run()`` with the device's idle share; P3 and P4 over one dispatch
-   group's gathered classes beside their plain versions and
-   ``torch.index_select``;
+   group's gathered classes (one launch each) beside their plain versions
+   and ``torch.index_select`` per class;
 8. the blocked path: C = A·A for ``BCSR.random_blocked(32768, 128, 2.0, 0.3,
    seed=7)`` (the blocked canonical, blocked-32k-b128) through
    ``auto_executor`` -> ``BsrStagedExecutor`` -> ``run()`` -> ``assemble()``,
@@ -58,16 +63,18 @@ Phases, each reported on its own lines; any failure exits non-zero:
 11. rows past K1's window: C = A·A for ``BCSR.rmat(16, 8.0, seed=7)``
     (batched, ``sort_pad`` 1,703,936) through ``auto_executor`` -> ``run()``
     -> ``assemble()``, bit-exact against scipy, every sort through
-    ``torch.sort`` (``sort_rows.routes``), with its times;
+    ``torch.sort`` (``sort_rows.routes``), P4 once per dispatch group, with
+    its times and P3/P4 over one of its dispatch groups as in phase 7;
 12. the unrolled route at full size: C = A·A for rmat-s18-e8,
     ``BCSR.rmat(18, 8.0, seed=7)`` (a dealt plan: 256 chunks of
     4,980,736 slots in 10 dispatch groups), through ``auto_executor`` ->
-    ``run()`` -> ``assemble()``, bit-exact against scipy, P3 once per gathered
-    class and group; its times, profile and peak memory; P3 and P4 over one
-    of its dispatch groups beside their plain versions and
-    ``torch.index_select``;
+    ``run()`` -> ``assemble()``, bit-exact against scipy, P3 once per
+    dispatch group; its times, profile and peak memory; P3 and P4 over one
+    of its dispatch groups as in phase 7, and split by width band (w < 32,
+    32 <= w < 512, w >= 512), each band one group launch over its classes;
 13. the unrolled contiguous plan: C = A·A for ``BCSR.random(32768, 32768,
-    16.0, seed=7)`` the same way, then through one-shot ``spgemm``;
+    16.0, seed=7)`` the same way (P3 once per dispatch group, and over its
+    group as in phase 7), then through one-shot ``spgemm``;
 14. the host engine: ``spgemm`` on validity-class, ``BCSR.random(50000,
     50000, 0.5, seed=7)``, served by ``host_spgemm``, bit-exact;
 15. P1 and P2 (``bitonic_network_rows``) and the sort drivers: the network
@@ -80,7 +87,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
     ``pallas_gather``), rows into ``build/``, every compared row bit-exact,
     with the launch counts set to 0 just before each and read just after; P1
     and P2 times beside ``torch.sort``, K1, their plain versions and their
-    bound;
+    bound; P3/P4 at the ``pallas_gather`` driver's prototype shape as in
+    phase 7;
 16. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -315,47 +323,48 @@ def group_gathers(ell, ex, row0: int) -> list:
     return out
 
 
-def time_gathers(torch, gather, ell, ex, label: str, reps: int) -> dict:
-    """P3 and P4 over the gathered classes of ``ex``'s first dispatch group,
-    written into the group's stream as ``run()`` writes them, each held
-    ``torch.equal`` to its plain version; then, in turns, both kernels,
-    their plain versions and ``torch.index_select(table, 0, pos)`` per class
-    (the library call for the gather alone).  The kernels and the library
-    call are timed from CUDA-graph replays of ``reps`` group calls (a
-    group's launches are shorter than their host time); the plain versions,
-    whose indexing may synchronise, over ``reps`` calls back to back."""
-    classes = group_gathers(ell, ex, 0)
-    g, rp, nc_, sp = ex.group_size, ex.rows_pad, ex.n_cols, ex.sort_pad
+def group_launches(gather, ex) -> int:
+    """P3/P4 launches a ``run()`` of ``ex`` makes: one per dispatch group
+    that has a gathered class (more past ``GROUP_CAP`` classes)."""
+    gathered = sum(s is not None for s in ex.table_shapes)
+    return ex.n_groups * -(-gathered // gather.GROUP_CAP)
+
+
+def time_gathers(torch, gather, classes, g: int, rp: int, nc_: int, width: int,
+                 label: str, reps: int, full: bool = True) -> dict:
+    """P3 and P4 over ``classes`` (``group_gathers``' tuples), the gathered
+    classes of one dispatch group of ``g`` rows, written into a ``[g,
+    width]`` stream as ``run()`` writes them: one group launch each, checked
+    to launch once per ``GROUP_CAP`` classes and held ``torch.equal`` to the
+    plain version in every class's span.  Then, in turns, the group launches,
+    the plain versions and ``torch.index_select(table, 0, pos)`` per class
+    (the library call for the gather alone).  Kernels and library call are
+    timed from CUDA-graph replays of ``reps`` group calls (a group's launches
+    are shorter than their host time); the plain versions, whose indexing
+    may synchronise, over ``reps`` calls back to back.  Without ``full``,
+    only the group launches."""
     shift = int(nc_).bit_length()
     check((rp + 1) << shift <= 1 << 31, f"{label}: keys do not pack")
-    dev = ex.er_all.device
-    key = torch.empty((g, sp), dtype=torch.int32, device=dev)
+    dev = classes[0][0].device
+    key = torch.empty((g, width), dtype=torch.int32, device=dev)
     row = torch.empty_like(key)
     col = torch.empty_like(key)
-    flat = [p.reshape(-1).contiguous() for _, _, p, _, _, _ in classes]
+    group = [(t, p, r, off) for t, r, p, _, _, off in classes]
+    slots = sum(g * pad * w for _, _, _, w, pad, _ in classes)
 
     def p3():
-        for t, r, p, w, pad, off in classes:
-            gather.class_gather(t, p, r, rp, nc_, out=(row, col), col0=off)
+        gather.class_gather_group(group, rp, nc_, (row, col))
 
     def p4():
-        for t, r, p, w, pad, off in classes:
-            gather.class_gather_keys(t, p, r, rp, nc_, shift, out=key, col0=off)
+        gather.class_gather_keys_group(group, rp, nc_, shift, key)
 
-    def p3_plain():
-        for t, r, p, _, _, _ in classes:
-            gather.class_gather_plain(t, p, r, rp, nc_)
-
-    def p4_plain():
-        for t, r, p, _, _, _ in classes:
-            gather.class_gather_keys_plain(t, p, r, rp, nc_, shift)
-
-    def lib():
-        for (t, _, _, _, _, _), fp in zip(classes, flat):
-            torch.index_select(t, 0, fp)
-
+    n3, n4 = gather.class_gather.launches, gather.class_gather_keys.launches
     p3()
     p4()
+    per_group = -(-len(classes) // gather.GROUP_CAP)
+    check(gather.class_gather.launches - n3 == per_group
+          and gather.class_gather_keys.launches - n4 == per_group,
+          f"{label}: the group launches were not {per_group} each")
     torch.cuda.synchronize()
     for t, r, p, w, pad, off in classes:
         want_r, want_c = gather.class_gather_plain(t, p, r, rp, nc_)
@@ -365,8 +374,14 @@ def time_gathers(torch, gather, ell, ex, label: str, reps: int) -> dict:
               f"{label}: P3 differs from its plain version, class w={w}")
         check(torch.equal(key[:, span], want_k),
               f"{label}: P4 differs from its plain version, class w={w}")
-    fns = {"p3": p3, "p4": p4, "p3_plain": p3_plain, "p4_plain": p4_plain,
-           "lib": lib}
+    fns = {"p3": p3, "p4": p4}
+    flat = [(t, p.reshape(-1).contiguous()) for t, _, p, _, _, _ in classes]
+    if full:
+        fns.update({
+            "p3_plain": lambda: gather.class_gather_group_plain(group, rp, nc_, (row, col)),
+            "p4_plain": lambda: gather.class_gather_keys_group_plain(
+                group, rp, nc_, shift, key),
+            "lib": lambda: [torch.index_select(t, 0, fp) for t, fp in flat]})
     timers = {}
     for name, fn in fns.items():
         fn()
@@ -382,15 +397,57 @@ def time_gathers(torch, gather, ell, ex, label: str, reps: int) -> dict:
     t = {name: min(v) for name, v in times.items()}
     b3, b3_by = gather_bound_ms(classes, g, 8)
     b4, b4_by = gather_bound_ms(classes, g, 4)
-    slots = sum(g * pad * w for _, _, _, w, pad, _ in classes)
     shape = {"group": g, "classes": len(classes),
-             "widths": [w for _, _, _, w, _, _ in classes], "slots": slots}
-    print(f"{label}, one dispatch group ({g} rows, {len(classes)} gathered classes, "
-          f"{slots} slots, launches one per class): P3 {t['p3']:.4f} ms, plain "
-          f"{t['p3_plain']:.4f} ms, bound {b3:.4f} ms ({b3_by}); P4 {t['p4']:.4f} ms, "
-          f"plain {t['p4_plain']:.4f} ms, bound {b4:.4f} ms ({b4_by}); "
-          f"torch.index_select per class {t['lib']:.4f} ms")
+             "widths": [w for _, _, _, w, _, _ in classes], "slots": slots,
+             "launches": per_group}
+    if full:
+        print(f"{label} ({g} rows, {len(classes)} gathered classes, {slots} slots, "
+              f"{per_group} launch each): P3 {t['p3']:.4f} ms, plain "
+              f"{t['p3_plain']:.4f} ms, bound {b3:.4f} ms ({b3_by}); P4 {t['p4']:.4f} "
+              f"ms, plain {t['p4_plain']:.4f} ms, "
+              f"bound {b4:.4f} ms ({b4_by}); torch.index_select per class "
+              f"{t['lib']:.4f} ms")
+    else:
+        print(f"{label} ({len(classes)} classes, widths {shape['widths'][:3]}..., "
+              f"{slots} slots): P3 {t['p3']:.4f} ms, bound {b3:.4f} ms; P4 "
+              f"{t['p4']:.4f} ms, bound {b4:.4f} ms")
     return {"t": t, "bound3": (b3, b3_by), "bound4": (b4, b4_by), "shape": shape}
+
+
+def time_path_gathers(torch, gather, ell, ex, label: str, reps: int) -> dict:
+    """``time_gathers`` over ``ex``'s first dispatch group."""
+    return time_gathers(torch, gather, group_gathers(ell, ex, 0), ex.group_size,
+                        ex.rows_pad, ex.n_cols, ex.sort_pad, label, reps)
+
+
+def gather_row(res: dict, kernel: str, launches: int, label: str) -> dict:
+    """One shape's numbers for P3 (``kernel`` "p3") or P4 ("p4") in the
+    kernels line."""
+    bound = res["bound3" if kernel == "p3" else "bound4"]
+    t = res["t"]
+    return {"shape": dict(res["shape"], path=label), "ms": t[kernel],
+            "plain_ms": t[kernel + "_plain"], "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": t["lib"], "launches": launches}
+
+
+def group_case(torch, rng, widths, g: int, pad: int) -> tuple[list, int]:
+    """One dispatch group of classes of ``widths`` (``gather_case`` each) for
+    the group entry points: inputs as column slices of wider staged arrays,
+    each class's span from an odd first column of a stream whose row stride
+    is not a multiple of 4.  Returns ``(classes, width)``, the classes as
+    ``(table, pos, rows, col0)``."""
+    parts = [gather_case(torch, rng, w, g, pad, nc=37 + k) for k, w in enumerate(widths)]
+    wide_pos = torch.cat([torch.zeros((g, 3), dtype=torch.int32, device="cuda")]
+                         + [x[1] for x in parts], dim=1)
+    wide_rows = torch.cat([torch.full((g, 3), 8, dtype=torch.int32, device="cuda")]
+                          + [x[2] for x in parts], dim=1)
+    classes, off, col0 = [], 3, 5
+    for x, w in zip(parts, widths):
+        classes.append((x[0], wide_pos[:, off : off + pad], wide_rows[:, off : off + pad],
+                        col0))
+        off += pad
+        col0 += pad * w
+    return classes, col0 + 7 if (col0 + 7) % 4 else col0 + 6
 
 
 def network_cases(torch, bitonic, ab_wruns, dev, rng) -> tuple[int, int]:
@@ -514,7 +571,8 @@ def run_smoke() -> dict:
         print("libraries were already built from the same sources")
     # kernels that must keep everything in registers: (source, name, count)
     for stem, kernel, count in (("bitonic", "sort_rows_reg_kernel", 5),
-                                ("block_matmul", "grouped_block_matmul_pipe_kernel", 8)):
+                                ("block_matmul", "grouped_block_matmul_pipe_kernel", 8),
+                                ("gather", "class_gather_group_kernel", 2)):
         if stem not in _build.build_log:
             continue
         frames = {name: line for name, line in
@@ -601,6 +659,48 @@ def run_smoke() -> dict:
     check((gather.class_gather.launches, gather.class_gather_keys.launches) == (n3, n4),
           "an empty group launched a gather")
     print("P3 and P4 on empty groups (g = 0, pad = 0): no launch")
+    # the group entry points: every gathered class of a dispatch group in one
+    # launch (two past GROUP_CAP classes)
+    over_cap = rng.integers(1, 50, gather.GROUP_CAP + 11).tolist()
+    shift = int(1000).bit_length()
+    for label, widths, g, pad in (
+            ("widths 1-200", [1, 2, 3, 5, 7, 16, 40, 200], 64, 45),
+            ("w=10240 between two narrow classes", [3, 10240, 5], 3, 6),
+            (f"{len(over_cap)} classes, past the cap of {gather.GROUP_CAP}", over_cap, 4, 9)):
+        classes, width = group_case(torch, rng, widths, g, pad)
+        launches = -(-len(widths) // gather.GROUP_CAP)
+        want = [torch.full((g, width), -7, dtype=torch.int32, device=dev)
+                for _ in range(3)]
+        gather.class_gather_group_plain(classes, 8, 1000, want[:2])
+        gather.class_gather_keys_group_plain(classes, 8, 1000, shift, want[2])
+        check(bool((want[0] == 8).any()), "no sentinel slot in the group case")
+        outs = [torch.full((g, width), -7, dtype=torch.int32, device=dev)
+                for _ in range(3)]
+        n3, n4 = gather.class_gather.launches, gather.class_gather_keys.launches
+        gather.class_gather_group(classes, 8, 1000, outs[:2])
+        gather.class_gather_keys_group(classes, 8, 1000, shift, outs[2])
+        torch.cuda.synchronize()
+        check((gather.class_gather.launches - n3, gather.class_gather_keys.launches - n4)
+              == (launches, launches),
+              f"group gathers, {label}: not {launches} launch(es) each")
+        for name, got, w_ in (("class_gather", outs[0], want[0]),
+                              ("class_gather", outs[1], want[1]),
+                              ("class_gather_keys", outs[2], want[2])):
+            errs[name] = max(errs[name], int((got.long() - w_.long()).abs().max()))
+            check(torch.equal(got, w_), f"{name} group differs, {label}")
+        print(f"P3 and P4 groups, {label} ([{g}, {pad}] a class, first span at column "
+              f"{classes[0][3]}, row stride {width}, inputs column slices): {launches} "
+              f"launch(es) each, bit-equal")
+    n3, n4 = gather.class_gather.launches, gather.class_gather_keys.launches
+    key = torch.full((4, 10), -7, dtype=torch.int32, device=dev)
+    empty = torch.zeros((4, 0), dtype=torch.int32, device=dev)
+    for classes in ([], [(torch.zeros((3, 2), dtype=torch.int32, device=dev), empty,
+                          empty, 1)]):
+        gather.class_gather_group(classes, 8, 1000, (key, key.clone()))
+        gather.class_gather_keys_group(classes, 8, 1000, 10, key)
+    check((gather.class_gather.launches, gather.class_gather_keys.launches) == (n3, n4)
+          and bool((key == -7).all()), "a group with no gathered class launched a gather")
+    print("P3 and P4 groups with no gathered class: no launch")
 
     counters = {
         "bitonic_sort_rows": bitonic.bitonic_sort_rows,
@@ -655,16 +755,16 @@ def run_smoke() -> dict:
           f"K1 variants {k1_variants}: expected the register kernel every time")
     check(launches["grouped_block_matmul"] == 0, "K3 ran on the ELL path")
     gathered_main = sum(s is not None for s in ex.table_shapes)
-    check(launches["class_gather_keys"] == gathered_main * ex.n_groups
+    check(launches["class_gather_keys"] == group_launches(gather, ex) == ex.n_groups
           and launches["class_gather"] == 0,
-          f"P4 launched {launches['class_gather_keys']} times, expected "
-          f"{gathered_main} gathered classes x {ex.n_groups} groups; P3 "
-          f"{launches['class_gather']} times, expected 0")
+          f"P4 launched {launches['class_gather_keys']} times, expected one per "
+          f"dispatch group ({ex.n_groups}); P3 {launches['class_gather']} times, "
+          f"expected 0")
     check(main_routes == {"k1": 2 * ex.n_groups, "torch_sort": 0},
           f"sort_rows routes {main_routes}")
     print(f"sort_rows routes {main_routes}; P4 launches per run() "
-          f"{launches['class_gather_keys']} ({gathered_main} gathered classes "
-          f"x {ex.n_groups} groups)")
+          f"{launches['class_gather_keys']} (one per group, {gathered_main} gathered "
+          f"classes each)")
     ref = spgemm_oracle(a, a)
     check(c.equals(ref), "C = A·A differs from scipy")
     check(c.nnz == EXPECTED_NNZ, f"output nnz {c.nnz} != {EXPECTED_NNZ}")
@@ -790,7 +890,8 @@ def run_smoke() -> dict:
               f"{row['ms']:.4f} ms, torch.sort {row['library_ms']:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})")
 
-    gather_main = time_gathers(torch, gather, ell, ex, "main path", reps=20)
+    gather_main = time_path_gathers(torch, gather, ell, ex, "bench, one dispatch group",
+                                    reps=20)
 
     phase("8. blocked path")
     n_blk, block, bpr, density, seed_blk = BLOCKED
@@ -1043,11 +1144,14 @@ def run_smoke() -> dict:
     check(routes16 == {"k1": 0, "torch_sort": 2 * ex16.n_groups},
           f"rmat-s16 sort_rows routes {routes16}")
     check(launches16["bitonic_sort_rows"] == 0
-          and launches16["class_gather_keys"] == gathered(ex16) * ex16.n_groups
-          and launches16["class_gather"] == 0,
+          and launches16["class_gather_keys"] == group_launches(gather, ex16)
+          == ex16.n_groups and launches16["class_gather"] == 0,
           f"rmat-s16 launches {launches16}")
     print(f"every sort past K1's window went through torch.sort: {routes16}; P4 "
-          f"launches per run() {launches16['class_gather_keys']}")
+          f"launches per run() {launches16['class_gather_keys']} (one per group, "
+          f"{gathered(ex16)} gathered classes each)")
+    gather_s16 = time_path_gathers(torch, gather, ell, ex16,
+                                   "rmat-s16, one dispatch group", reps=4)
     del ex16, a16
 
     phase("12. the unrolled route at full size: rmat-s18-e8 (dealt)")
@@ -1060,16 +1164,29 @@ def run_smoke() -> dict:
         RMAT18_NNZ, runs=5, e2e_runs=1, profile_reps=1, **path_kw)
     check(not ex18.batched and ex18.row_sets is not None,
           "rmat-s18-e8 did not take the unrolled dealt plan")
-    check(launches18["class_gather"] == gathered(ex18) * ex18.n_groups
+    check(launches18["class_gather"] == group_launches(gather, ex18) == ex18.n_groups
           and launches18["class_gather_keys"] == 0
           and launches18["bitonic_sort_rows"] == 0,
           f"rmat-s18-e8 launches {launches18}")
     check(routes18 == {"k1": 0, "torch_sort": 2 * ex18.n_groups},
           f"rmat-s18-e8 sort_rows routes {routes18}")
-    print(f"P3 launches per run() {launches18['class_gather']} ({gathered(ex18)} "
-          f"gathered classes x {ex18.n_groups} groups)")
-    gather_rmat = time_gathers(torch, gather, ell, ex18, "rmat-s18-e8", reps=4)
-    del ex18, a18
+    print(f"P3 launches per run() {launches18['class_gather']} (one per group, "
+          f"{gathered(ex18)} gathered classes each)")
+    gather_rmat = time_path_gathers(torch, gather, ell, ex18,
+                                    "rmat-s18-e8, one dispatch group", reps=4)
+    # the same group by width band, each band one group launch over its classes
+    classes18 = group_gathers(ell, ex18, 0)
+    bands = {}
+    for band, lo, hi in (("w < 32", 0, 32), ("32 <= w < 512", 32, 512),
+                         ("w >= 512", 512, 1 << 31)):
+        sub = [c for c in classes18 if lo <= c[3] < hi]
+        res = time_gathers(torch, gather, sub, ex18.group_size, ex18.rows_pad,
+                           ex18.n_cols, ex18.sort_pad, f"rmat-s18-e8 band {band}",
+                           reps=4, full=False)
+        bands[band] = {"classes": len(sub), "slots": res["shape"]["slots"],
+                       "p3_ms": res["t"]["p3"], "p4_ms": res["t"]["p4"],
+                       "p3_bound_ms": res["bound3"][0], "p4_bound_ms": res["bound4"][0]}
+    del ex18, a18, classes18
 
     phase("13. the unrolled contiguous plan: random 32k")
     n32, d32, seed32 = RAND32K
@@ -1079,11 +1196,13 @@ def run_smoke() -> dict:
         RAND32K_NNZ, runs=10, e2e_runs=3, profile_reps=3, **path_kw)
     check(not ex32.batched and ex32.row_sets is None,
           "random 32k did not take the unrolled contiguous plan")
-    check(launches32["class_gather"] == gathered(ex32) * ex32.n_groups
+    check(launches32["class_gather"] == group_launches(gather, ex32) == ex32.n_groups
           and launches32["class_gather_keys"] == 0,
           f"random 32k launches {launches32}")
-    print(f"P3 launches per run() {launches32['class_gather']}; sort_rows routes "
-          f"{routes32}")
+    print(f"P3 launches per run() {launches32['class_gather']} (one per group, "
+          f"{gathered(ex32)} gathered classes each); sort_rows routes {routes32}")
+    gather_32k = time_path_gathers(torch, gather, ell, ex32,
+                                   "random 32k, one dispatch group", reps=10)
     n3 = gather.class_gather.launches
     t0 = time.perf_counter()
     c1 = spgemm(a32, a32)
@@ -1218,6 +1337,19 @@ def run_smoke() -> dict:
           f"{skip_ms:.4f} ms, full {full:.4f} ms (saving {saving:.2f} %), K1 "
           f"{p2_k1:.4f} ms, torch.sort {p2_lib:.4f} ms, plain {p2_plain:.4f} ms, "
           f"bound {p2_bound:.4f} ms ({p2_by})")
+    # P3/P4 at the pallas_gather driver's prototype shape: one class, a 2^16-row
+    # table of width 16, 2^20 positions in one group row, every slot valid
+    proto = gather_driver.T, gather_driver.W, gather_driver.E
+    g_rng = np.random.default_rng(0)
+    p_table = torch.from_numpy(g_rng.integers(0, proto[0], proto[:2], dtype=np.int32)).to(dev)
+    p_pos = torch.from_numpy(g_rng.integers(0, proto[0], (1, proto[2]), dtype=np.int32)).to(dev)
+    p_rows = torch.from_numpy(g_rng.integers(0, gather_driver.ROWS_PAD, (1, proto[2]),
+                                             dtype=np.int32)).to(dev)
+    gather_proto = time_gathers(
+        torch, gather, [(p_table, p_rows, p_pos, proto[1], proto[2], 0)], 1,
+        gather_driver.ROWS_PAD, proto[0], proto[1] * proto[2],
+        "the pallas_gather driver's prototype shape", reps=20)
+    del p_table, p_pos, p_rows
     rates = drv("sort_rate_table", kind="summary")
     print(f"sort-rate table (2^27 elements a shape; launch floor "
           f"{rates['floor_s'] * 1e3:.4f} ms): 2-D {rates['table_2d_ns']}, flat "
@@ -1267,16 +1399,24 @@ def run_smoke() -> dict:
             "bound_ms": gather_rmat["bound3"][0], "bound_by": gather_rmat["bound3"][1],
             "library_ms": gather_rmat["t"]["lib"],
             "shape": dict(gather_rmat["shape"], path="rmat-s18-e8, one group"),
-            "on_main_path": True,
+            "on_main_path": True, "variant": "group launch",
             "launches_by_path": {"rmat-s18-e8": launches18["class_gather"],
                                  "random-32k": launches32["class_gather"],
                                  "bench": launches["class_gather"],
                                  "rmat-s16": launches16["class_gather"]},
-            "bench_group": {"ms": gather_main["t"]["p3"],
-                            "plain_ms": gather_main["t"]["p3_plain"],
-                            "bound_ms": gather_main["bound3"][0],
-                            "library_ms": gather_main["t"]["lib"],
-                            "shape": gather_main["shape"]},
+            "on_path": {
+                "rmat-s18-e8": gather_row(gather_rmat, "p3", launches18["class_gather"],
+                                          "rmat-s18-e8, one group"),
+                "random-32k": gather_row(gather_32k, "p3", launches32["class_gather"],
+                                         "random 32k, one group")},
+            "rmat_s18_bands": bands,
+            "off_path": {
+                "bench group": gather_row(gather_main, "p3", 0,
+                                          "bench group (P3 does not run there)"),
+                "rmat-s16 group": gather_row(gather_s16, "p3", 0,
+                                             "rmat-s16 group (P3 does not run there)"),
+                "prototype": gather_row(gather_proto, "p3", 0,
+                                        "pallas_gather driver's prototype shape")},
         },
         {
             "name": "class_gather_keys", "route": "cuda",
@@ -1288,16 +1428,23 @@ def run_smoke() -> dict:
             "bound_ms": gather_main["bound4"][0], "bound_by": gather_main["bound4"][1],
             "library_ms": gather_main["t"]["lib"],
             "shape": dict(gather_main["shape"], path="bench config, one group"),
-            "on_main_path": True,
+            "on_main_path": True, "variant": "group launch",
             "launches_by_path": {"bench": launches["class_gather_keys"],
                                  "rmat-s16": launches16["class_gather_keys"],
                                  "rmat-s18-e8": launches18["class_gather_keys"],
                                  "random-32k": launches32["class_gather_keys"]},
-            "rmat_s18_group": {"ms": gather_rmat["t"]["p4"],
-                               "plain_ms": gather_rmat["t"]["p4_plain"],
-                               "bound_ms": gather_rmat["bound4"][0],
-                               "library_ms": gather_rmat["t"]["lib"],
-                               "shape": gather_rmat["shape"]},
+            "on_path": {
+                "bench": gather_row(gather_main, "p4", launches["class_gather_keys"],
+                                    "bench config, one group"),
+                "rmat-s16": gather_row(gather_s16, "p4", launches16["class_gather_keys"],
+                                       "rmat-s16, one group")},
+            "off_path": {
+                "rmat-s18-e8 group": gather_row(
+                    gather_rmat, "p4", 0, "rmat-s18-e8 group (P4 does not run there)"),
+                "random-32k group": gather_row(
+                    gather_32k, "p4", 0, "random 32k group (P4 does not run there)"),
+                "prototype": gather_row(gather_proto, "p4", 0,
+                                        "pallas_gather driver's prototype shape")},
         },
         {
             "name": "bitonic_network_rows (P1, min_kk=2)", "route": "cuda",

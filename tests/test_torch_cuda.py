@@ -83,11 +83,17 @@ def test_batched_executor_on_the_card(cuda_device):
     a = tp.BCSR.random(1 << 16, 1 << 16, 2.0, seed=31)
     ex = tp.auto_executor(a, a)
     assert ex.er_all.device.type == "cuda"
+    from binary_spgemm_tpu_torch.ops import gather
+
     n1 = bitonic.bitonic_sort_rows.launches
+    n34 = gather.class_gather.launches + gather.class_gather_keys.launches
     by_variant = dict(bitonic.bitonic_sort_rows.launches_by_variant)
     out = ex.run()
     torch.cuda.synchronize()
     assert bitonic.bitonic_sort_rows.launches == n1 + 2 * ex.n_groups
+    if any(s is not None for s in ex.table_shapes):  # one P3 or P4 launch per group
+        assert (gather.class_gather.launches + gather.class_gather_keys.launches
+                == n34 + ex.n_groups)
     variant = bitonic.k1_variant(ex.sort_pad)
     by_variant[variant] += 2 * ex.n_groups
     assert bitonic.bitonic_sort_rows.launches_by_variant == by_variant
@@ -148,6 +154,58 @@ def test_gathers_equal_their_plain_versions(cuda_device, w):
     assert gather.class_gather_keys.launches == n4 + 2
 
 
+def group_gather_case(widths, g, pad, seed, rows_pad=8, n_cols=1000):
+    """Classes of ``widths`` as one dispatch group: inputs as column slices
+    of wider staged arrays, each class's span from an odd first column of a
+    stream whose row stride is not a multiple of 4."""
+    dev = torch.device("cuda")
+    parts = [gather_case(w, g, pad, seed + k, nc=37 + k, rows_pad=rows_pad,
+                         n_cols=n_cols) for k, w in enumerate(widths)]
+    wide_pos = torch.cat([torch.zeros((g, 3), dtype=torch.int32, device=dev)]
+                         + [p[1] for p in parts], dim=1)
+    wide_rows = torch.cat([torch.full((g, 3), rows_pad, dtype=torch.int32, device=dev)]
+                          + [p[2] for p in parts], dim=1)
+    classes, off, col = [], 3, 5
+    for (table, _, _, _, _), w in zip(parts, widths):
+        classes.append((table, wide_pos[:, off : off + pad], wide_rows[:, off : off + pad],
+                        col))
+        off += pad
+        col += pad * w
+    width = col + 7 if (col + 7) % 4 else col + 6  # 7 or 6 columns past the spans
+    return classes, width, rows_pad, n_cols
+
+
+@pytest.mark.parametrize("case", ["widths 1-200", "w=10240", "past the cap"])
+def test_group_gathers_equal_their_plain_versions(cuda_device, case):
+    from binary_spgemm_tpu_torch.ops import gather
+
+    if case == "widths 1-200":
+        widths, g, pad = [1, 2, 3, 5, 7, 16, 40, 200], 7, 45
+    elif case == "w=10240":
+        widths, g, pad = [3, 10240, 5], 3, 6
+    else:
+        widths = np.random.default_rng(0).integers(1, 50, gather.GROUP_CAP + 11).tolist()
+        g, pad = 4, 9
+    classes, width, rows_pad, n_cols = group_gather_case(widths, g, pad, seed=len(widths))
+    assert width % 4 and classes[0][3] % 2 and not classes[0][1].is_contiguous()
+    shift = int(n_cols).bit_length()
+    launches = -(-len(widths) // gather.GROUP_CAP)
+    outs = [torch.full((g, width), -7, dtype=torch.int32, device=cuda_device)
+            for _ in range(3)]
+    want = [o.clone() for o in outs]
+    n3, n4 = gather.class_gather.launches, gather.class_gather_keys.launches
+    gather.class_gather_group(classes, rows_pad, n_cols, outs[:2])
+    gather.class_gather_keys_group(classes, rows_pad, n_cols, shift, outs[2])
+    torch.cuda.synchronize()
+    assert gather.class_gather.launches == n3 + launches
+    assert gather.class_gather_keys.launches == n4 + launches
+    gather.class_gather_group_plain(classes, rows_pad, n_cols, want[:2])
+    gather.class_gather_keys_group_plain(classes, rows_pad, n_cols, shift, want[2])
+    for o, w_ in zip(outs, want):
+        assert torch.equal(o, w_)
+    assert (want[0] == rows_pad).any() and (want[0][:, :5] == -7).all()
+
+
 def test_gathers_launch_nothing_on_empty_groups(cuda_device):
     from binary_spgemm_tpu_torch.ops import gather
 
@@ -173,11 +231,12 @@ def test_unrolled_executor_on_the_card(cuda_device, dealt):
     assert not ex.batched and (ex.row_sets is not None) == dealt
     assert ex.er_all.device.type == "cuda"
     gathered = sum(s is not None for s in ex.table_shapes)
+    assert 0 < gathered <= gather.GROUP_CAP
     ref = spgemm_oracle(a, a)
     for _ in range(2):
         n3, n4 = gather.class_gather.launches, gather.class_gather_keys.launches
         c = ex.assemble(ex.run())
-        assert gather.class_gather.launches == n3 + gathered * ex.n_groups
+        assert gather.class_gather.launches == n3 + ex.n_groups  # one per group
         assert gather.class_gather_keys.launches == n4
         assert c.equals(ref)
     assert ex.run_assemble_streaming().equals(ref)
