@@ -12,6 +12,15 @@ package.  Ported so far:
   (``ops/bitonic.py``, ``csrc/bitonic.cu``) up to 32,768 slots a row and
   ``torch.sort`` past that; its class-table row gathers are hand-written
   CUDA kernels (``ops/gather.py``, ``csrc/gather.cu``);
+* ``tuned_executor``: the batched plan's bin count picked by timing the
+  model's best candidates between CUDA events on the card;
+* the chunked expand–sort–compress (ESC) engine (``SpGEMMExecutor``, and
+  behind ``spgemm`` / ``auto_executor`` for an explicit ``chunk_flops``,
+  products past the resident ELL budget and products every ELL plan
+  overflows), in torch ops with one-key ``torch.sort`` calls (an int64
+  ``(row << 32) | col`` key where the pair does not pack into int32);
+* the column-windowed route for rows past ``GIANT_ROW_FLOPS`` flops, behind
+  ``spgemm``;
 * the host engine for small products (``host_spgemm``, behind ``spgemm``);
 * the blocked tensor-core route for block-clustered operands
   (``BlockedBCSR``, ``bsr_spgemm``, and ``BsrStagedExecutor`` behind
@@ -19,21 +28,23 @@ package.  Ported so far:
   hand-written CUDA kernel (``ops/block_matmul.py``,
   ``csrc/block_matmul.cu``).
 
-Entry points run on ``device="cuda"`` unless told otherwise; routes of the
-JAX package not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item that will port them.
+Entry points run on ``device="cuda"`` unless told otherwise; what the JAX
+package serves beyond ``spgemm`` (the masked, union, OR and counting ops,
+the device pipelines, the distributed layer) is not ported yet (ROADMAP.md
+Queue 1).
 """
 from .formats.bbcsr import BlockedBCSR, blocked_from_arrays
 from .formats.bcsr import BCSR, bcsr_from_arrays, coo_to_csr_stable
 from .ops.bsr import bsr_spgemm
-from .ops.ell import EllSpGEMMExecutor, auto_executor, ell_spgemm
+from .ops.ell import EllSpGEMMExecutor, auto_executor, ell_spgemm, tuned_executor
 from .ops.host import host_spgemm
-from .ops.spgemm import spgemm, spgemm_flops
+from .ops.spgemm import SpGEMMExecutor, spgemm, spgemm_flops
 
 __all__ = [
     "BCSR",
     "BlockedBCSR",
     "EllSpGEMMExecutor",
+    "SpGEMMExecutor",
     "auto_executor",
     "bcsr_from_arrays",
     "blocked_from_arrays",
@@ -43,6 +54,7 @@ __all__ = [
     "host_spgemm",
     "spgemm",
     "spgemm_flops",
+    "tuned_executor",
 ]
 
 __version__ = "0.1.0"

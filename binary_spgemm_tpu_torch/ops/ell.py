@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..formats.bcsr import BCSR
+from ..utils.timers import bench_fn, event_seconds
 from .gather import (
     class_gather,
     class_gather_group,
@@ -63,13 +64,9 @@ __all__ = [
     "cached_executor",
     "ell_spgemm",
     "prefer_batched",
+    "tuned_executor",
     "width_bucket",
 ]
-
-# Where the routes this port does not serve yet are tracked.
-_ESC = (
-    "the chunked ESC executor is not ported yet (ROADMAP.md, Queue 1 item 1)"
-)
 
 
 def width_bucket(w: int) -> int:
@@ -1258,28 +1255,127 @@ def _auto_ell(a: BCSR, b: BCSR, *, device: str | torch.device = "cuda"):
     return EllSpGEMMExecutor(a, b, device=device)
 
 
-def auto_executor(a: BCSR, b: BCSR, *, device: str | torch.device = "cuda"):
+def tuned_executor(
+    a: BCSR,
+    b: BCSR,
+    *,
+    masked: bool = False,
+    top: int = 6,
+    margin: float = 1.15,
+    times: int = 2,
+    device: str | torch.device = "cuda",
+) -> EllSpGEMMExecutor:
+    """Pick the batched plan's bin count by measuring the model's best-ranked
+    candidates on ``device`` and keeping the fastest.
+
+    Candidates are every k whose model cost is within ``margin`` of the best
+    (at most ``top``), plus the unrolled plan as ``k = 0``; each is built,
+    run once to warm up, timed ``times`` times (CUDA events around
+    ``run()`` on a card, the host clock on the CPU; the fastest kept) and
+    released before the next is built, so at most two are resident.  The winner carries ``tune_report``,
+    a sorted list of ``(seconds, k)``.  Candidates whose plan overflows or
+    trips the skew guard are skipped, as are those the card has no memory
+    for; any other failure raises.  If no batched plan exists, or no
+    candidate survives, the unrolled plan is returned.  ``masked=True`` (the
+    op family, ROADMAP.md Queue 1 item 4) raises ``NotImplementedError``."""
+    if masked:
+        raise NotImplementedError(
+            "masked plans belong to the op family, which is not ported yet "
+            "(ROADMAP.md, Queue 1 item 4)"
+        )
+    device = resolve_device(device)
+
+    try:
+        ex0 = EllSpGEMMExecutor(
+            a, b, batched=True, batched_slots_cap=BATCHED_MAX_SLOTS,
+            device=device,
+        )
+    except OverflowError:
+        ex0 = None
+    if ex0 is None or not ex0.batched:
+        return EllSpGEMMExecutor(a, b, device=device)
+    # every k within ``margin`` of the model's best, at most ``top`` of them:
+    # the model ranks coarsely where tuning matters, so a cost margin keeps
+    # every plausibly best plan
+    ranking = sorted(ex0.k_ranking)
+    cutoff = ranking[0][0] * max(margin, 1.0)
+    ks = []
+    for cost, k in ranking[: max(top, 1)]:
+        if cost <= cutoff and k not in ks:
+            ks.append(k)
+
+    def measure(ex) -> float:
+        # one warm-up run, then the fastest of ``times``: between CUDA events
+        # on a card, on the host clock on the CPU
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                return event_seconds(ex.run, repeats=max(times, 1)).fastest
+        ex.run()
+        return bench_fn(ex.run, repeats=max(times, 1)).fastest
+
+    report, best, best_t = [], None, float("inf")
+    if ex0.n_chunks not in ks:
+        ex0 = None  # the seed plan is no candidate: release it up front
+    for k in ks + [0]:
+        try:
+            if k == 0:
+                ex = EllSpGEMMExecutor(a, b, device=device)
+            elif ex0 is not None and k == ex0.n_chunks:
+                ex = ex0
+            else:
+                ex = EllSpGEMMExecutor(
+                    a, b, batched=True, deal_k=k,
+                    batched_slots_cap=BATCHED_MAX_SLOTS, device=device,
+                )
+        except OverflowError:  # the plan overflows or trips the skew guard
+            continue
+        try:
+            t = measure(ex)
+        except torch.cuda.OutOfMemoryError:
+            if ex is ex0:
+                ex0 = None
+            del ex
+            torch.cuda.empty_cache()
+            continue
+        report.append((t, k))
+        if t < best_t:
+            best, best_t = ex, t
+        if ex is ex0:
+            ex0 = None  # measured: the seed need not stay resident on a loss
+        del ex
+    if best is None:
+        return EllSpGEMMExecutor(a, b, device=device)
+    best.tune_report = sorted(report)
+    return best
+
+
+def auto_executor(
+    a: BCSR,
+    b: BCSR,
+    *,
+    chunk_flops: int | None = None,
+    device: str | torch.device = "cuda",
+):
     """The executor for C = A·B on this input: block-clustered operands take
     the staged blocked engine (:func:`..bsr.maybe_bsr_executor`, a
     ``BsrStagedExecutor``); otherwise the sliced-ELL plan of
     :func:`_auto_ell` when its resident output fits ``AUTO_ELL_MAX_SLOTS``.
-    Past that, or where every ELL plan overflows int32, the JAX package takes
-    the chunked ESC executor, and this raises ``NotImplementedError``."""
+    Past that, or where every ELL plan overflows int32, the chunked ESC
+    executor (:class:`..spgemm.SpGEMMExecutor`, with ``chunk_flops``)."""
     from .bsr import maybe_bsr_executor
+    from .spgemm import SpGEMMExecutor
 
     bex = maybe_bsr_executor(a, b, device=device)
     if bex is not None:
         return bex
     try:
         ex = _auto_ell(a, b, device=device)
-    except OverflowError as err:
-        raise NotImplementedError(f"{err}: {_ESC}") from err
-    if ex.resident_slots > AUTO_ELL_MAX_SLOTS:
-        raise NotImplementedError(
-            f"resident output {ex.resident_slots} slots > "
-            f"AUTO_ELL_MAX_SLOTS: {_ESC}"
-        )
-    return ex
+        if ex.resident_slots <= AUTO_ELL_MAX_SLOTS:
+            return ex
+        del ex  # release its staging before ESC stages
+    except OverflowError:
+        pass
+    return SpGEMMExecutor(a, b, chunk_flops=chunk_flops, device=device)
 
 
 def _chunk_bounds(rf: np.ndarray, budget: int, max_rows: int) -> list[int]:

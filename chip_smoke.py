@@ -89,7 +89,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
     and P2 times beside ``torch.sort``, K1, their plain versions and their
     bound; P3/P4 at the ``pallas_gather`` driver's prototype shape as in
     phase 7;
-16. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
+16. ESC, giant rows and ``tuned_executor``: (a) the bench config through
+    ``SpGEMMExecutor`` (one chunk, two-key int64 sort), equal to phase 5's
+    product, no hand kernel and no ``sort_rows`` call, its times, profile and
+    ``torch.sort``'s share of the busy time, the running maximum it scans
+    with against ``torch.cummax`` at its length, then ``auto_executor`` with
+    ``AUTO_ELL_MAX_SLOTS`` = 0 returning a ``SpGEMMExecutor``; (b)
+    rmat-s18-e8 through one-shot ``spgemm(chunk_flops=DEFAULT_CHUNK_FLOPS)``
+    (26 chunks), equal to phase 12's product, then ``SpGEMMExecutor``'s
+    ``run()`` and peak memory beside phase 12's ELL ones; (c) the giant-row
+    route on rmat-s16 with ``GIANT_ROW_FLOPS`` = 2^17 (17 rows windowed on
+    the host, the rest through the ELL plan ``_auto_ell`` picks, with its
+    launches), equal to phase 11's product; (d) ``tuned_executor`` on the
+    bench config, its ``tune_report`` and a bit-exact winner, then again
+    with ``times=10``, to show whether the winner holds;
+17. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -117,6 +131,9 @@ LONG_GROUPS = (8, 128)  # output blocks x pairs each: K3's long-group plan
 RMAT16, RMAT16_NNZ = (16, 8.0, 7), 67_129_035
 # rmat-s18-e8 (the JAX package's skew canonical): the unrolled dealt plan
 RMAT18, RMAT18_NNZ = (18, 8.0, 7), 495_803_109
+# phase 16's giant route: rmat-s16's rows past this many flops (the JAX tests
+# lower GIANT_ROW_FLOPS the same way), and how many there are
+GIANT_BUDGET, GIANT_ROWS = 1 << 17, 17
 # BCSR.random(n, n, d, seed) below 2^16 rows: the unrolled contiguous plan
 RAND32K, RAND32K_NNZ = (32768, 16.0, 7), 8_360_900
 # validity-class, BCSR.random(n, n, d, seed): the host engine
@@ -183,12 +200,14 @@ def sort_bound_ms(numel: int, length: int, sorts: int = 1) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def profile_run(torch, run, reps: int = 3) -> None:
+def profile_run(torch, run, reps: int = 3) -> dict | None:
     """Device time of ``run()`` by kernel name (torch.profiler), and the
     device's idle share on the profiler's own device timeline: the time
     between the first recorded kernel's start and the last one's end that no
     kernel or copy covers.  Taking both from the recorded events keeps the
-    share right when the profiler misses an event."""
+    share right when the profiler misses an event.  Returns ``{"busy_ms",
+    "idle", "per_name_ms"}``, or ``None`` when no device time was
+    recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -209,7 +228,7 @@ def profile_run(torch, run, reps: int = 3) -> None:
     if not spans:
         print("profile of run(): the profiler recorded no device time "
               "(busy share not measured)")
-        return
+        return None
     window = max(s[1] for s in spans) - spans[0][0]
     busy, reach = 0.0, spans[0][0]
     per_name: dict[str, list[float]] = {}
@@ -226,6 +245,8 @@ def profile_run(torch, run, reps: int = 3) -> None:
     for total, count, name in rows[:10]:
         print(f"  {total / 1e3:8.4f} ms  {total / busy:6.1%}  x{count} recorded, "
               f"{total / count / 1e3:.4f} ms each  {name[:80]}")
+    return {"busy_ms": busy / 1e3 / reps, "idle": 1 - busy / window,
+            "per_name_ms": {k: sum(v) / 1e3 / reps for k, v in per_name.items()}}
 
 
 def ptxas_frames(report: str) -> dict[str, str]:
@@ -489,7 +510,8 @@ def drive_ell_path(torch, label: str, a, expected_nnz: int, *, reset_counts,
     """C = A·A through ``auto_executor`` -> ``run()`` -> ``assemble()``,
     the launch counts and sort routes set to 0 just before and read just
     after; bit-exact against scipy; then ``run()`` and ``run()`` +
-    ``assemble()`` timed with CUDA events and ``run()`` profiled."""
+    ``assemble()`` timed with CUDA events and ``run()`` profiled.  Returns
+    the executor, the launches, the routes, the times and the product."""
     reset_counts()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -520,7 +542,7 @@ def drive_ell_path(torch, label: str, a, expected_nnz: int, *, reset_counts,
     check(c.nnz == expected_nnz, f"{label}: output nnz {c.nnz} != {expected_nnz}")
     print(f"C = A·A bit-exact against scipy (oracle {oracle_s:.2f} s): output "
           f"nnz {c.nnz}")
-    del c, ref
+    del ref
     ex.run()
     torch.cuda.synchronize()
     run_ms = [event_ms(torch, ex.run, 1) for _ in range(runs)]
@@ -534,7 +556,239 @@ def drive_ell_path(torch, label: str, a, expected_nnz: int, *, reset_counts,
     profile_run(torch, ex.run, reps=profile_reps)
     return ex, launches, rts, {"run_ms": statistics.median(run_ms),
                                "e2e_ms": statistics.median(e2e_ms),
-                               "peak_mib": peak / 2**20}
+                               "peak_mib": peak / 2**20}, c
+
+
+def esc_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
+              bench, rmat18, rmat16, giant_budget: int, expect: dict) -> dict:
+    """ESC, the giant-row route and ``tuned_executor`` (phase 16).  ``bench``,
+    ``rmat18`` and ``rmat16`` are ``(A, C = A·A, extra)`` from the earlier
+    phases, their products already bit-exact against scipy, so each product
+    here is held equal to theirs.  ``api`` holds the entry points and
+    modules.  Launch counts and sort routes are set to 0 just before each
+    route and read just after it.  Returns the numbers for the summary."""
+    sp, ell, host = api["spgemm_mod"], api["ell"], api["host"]
+    SpGEMMExecutor, spgemm = api["SpGEMMExecutor"], api["spgemm"]
+    out: dict = {}
+
+    def no_kernel(label: str) -> dict:
+        launches, rts = read_counts(), dict(routes)
+        print(f"{label}: launches {launches}; sort_rows routes {rts}")
+        check(not any(launches.values()) and not any(rts.values()),
+              f"{label}: a hand kernel or sort_rows ran on the ESC path")
+        return launches
+
+    def sort_share(prof) -> float | None:
+        """Share of the device's busy time in kernels named *sort*
+        (torch.sort's radix passes)."""
+        if prof is None:
+            return None
+        return sum(v for k, v in prof["per_name_ms"].items()
+                   if "sort" in k.lower()) / prof["busy_ms"]
+
+    # (a) the bench config through the staged ESC executor
+    a, c, k_auto = bench
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex = SpGEMMExecutor(a, a)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    res = ex.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ce = ex.assemble(res)
+    no_kernel("bench config, SpGEMMExecutor -> run() -> assemble()")
+    del res
+    packed = sp.packable(ex._rows_pad, ex.n_cols)
+    print(f"bench config through SpGEMMExecutor(a, a): plan + stage {plan_s:.2f} s: "
+          f"{len(ex.chunks)} chunk(s), rows_pad {ex._rows_pad}, flops_pad "
+          f"{ex.flops_pad}, {'packed int32' if packed else 'two-key int64'} sort key; "
+          f"peak device memory through run() {peak / 2**20:.1f} MiB")
+    check((len(ex.chunks), ex.flops_pad, packed) == expect["bench_plan"],
+          f"bench ESC plan {(len(ex.chunks), ex.flops_pad, packed)}, "
+          f"expected {expect['bench_plan']}")
+    check(ce.equals(c), "bench ESC product differs from phase 5's")
+    print(f"C = A·A through ESC equal to phase 5's product (bit-exact against "
+          f"scipy): output nnz {ce.nnz}")
+    del ce
+    ex.run()
+    torch.cuda.synchronize()
+    run_ms = [event_ms(torch, ex.run, 1) for _ in range(7)]
+    e2e_ms = [event_ms(torch, lambda: ex.assemble(ex.run()), 1) for _ in range(3)]
+    print(f"ESC run(): median {statistics.median(run_ms):.4f} ms, fastest "
+          f"{min(run_ms):.4f}, slowest {max(run_ms):.4f} (7 runs); run() + assemble(): "
+          f"median {statistics.median(e2e_ms):.2f} ms, fastest {min(e2e_ms):.2f}, "
+          f"slowest {max(e2e_ms):.2f} (3 runs); {card}")
+    prof = profile_run(torch, ex.run, reps=3)
+    share = sort_share(prof)
+    print(f"share of the busy time in kernels named *sort* (torch.sort): "
+          f"{'not measured' if share is None else f'{share:.3f}'}")
+    # the running maximum expand_pairs scans with, against torch.cummax (one
+    # serial row scan) on a stream of the chunk's length
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randint(0, 1 << 30, (ex.flops_pad,), dtype=torch.int32, device="cuda",
+                      generator=gen)
+    want = torch.cummax(x, 0).values
+    check(torch.equal(sp._running_max(x), want), "_running_max differs from torch.cummax")
+    scan = {"cummax_ms": min(event_ms(torch, lambda: torch.cummax(x, 0), 1) for _ in range(2)),
+            "running_max_ms": min(event_ms(torch, lambda: sp._running_max(x), 10)
+                                  for _ in range(2))}
+    print(f"running maximum of {ex.flops_pad} int32 slots: torch.cummax "
+          f"{scan['cummax_ms']:.4f} ms, _running_max (rows of {sp._SCAN_ROW}) "
+          f"{scan['running_max_ms']:.4f} ms, equal; {card}")
+    del x, want
+    out["bench"] = {"run_ms": statistics.median(run_ms), "e2e_ms": statistics.median(e2e_ms),
+                    "peak_mib": peak / 2**20, "sort_share": share,
+                    "idle": None if prof is None else prof["idle"], **scan}
+    # auto_executor falls to ESC past the resident ELL budget
+    saved = ell.AUTO_ELL_MAX_SLOTS
+    ell.AUTO_ELL_MAX_SLOTS = 0
+    try:
+        aex = api["auto_executor"](a, a)
+    finally:
+        ell.AUTO_ELL_MAX_SLOTS = saved
+    check(isinstance(aex, sp.SpGEMMExecutor) and aex.chunks == ex.chunks
+          and aex.flops_pad == ex.flops_pad,
+          f"auto_executor past AUTO_ELL_MAX_SLOTS returned {type(aex).__name__}")
+    check(aex.assemble(aex.run()).equals(c), "auto_executor's ESC product differs")
+    print("auto_executor(a, a) with AUTO_ELL_MAX_SLOTS = 0: a SpGEMMExecutor of the "
+          "same plan, bit-exact")
+    del ex, aex
+
+    # (b) rmat-s18-e8 through one-shot spgemm(chunk_flops=), then staged
+    a18, c18, ell18 = rmat18
+    rf = sp.row_flops(a18, a18)
+    chunks, rows_pad, _, flops_pad = sp.uniform_chunk_plan(
+        a18, rf, sp.DEFAULT_CHUNK_FLOPS, a18.n_cols)
+    print(f"rmat-s18-e8 ESC plan: {len(chunks)} chunks, rows_pad {rows_pad}, flops_pad "
+          f"{flops_pad}, {'packed' if sp.packable(rows_pad, a18.n_cols) else 'two-key'}")
+    check(len(chunks) == expect["rmat18_chunks"],
+          f"rmat-s18-e8: {len(chunks)} ESC chunks, expected {expect['rmat18_chunks']}")
+    reset_counts()
+    t0 = time.perf_counter()
+    cs = spgemm(a18, a18, chunk_flops=sp.DEFAULT_CHUNK_FLOPS)
+    one_shot_s = time.perf_counter() - t0
+    no_kernel("rmat-s18-e8, spgemm(chunk_flops=DEFAULT_CHUNK_FLOPS)")
+    check(cs.equals(c18), "rmat-s18-e8 ESC product differs from phase 12's")
+    print(f"one-shot spgemm(a18, a18, chunk_flops={sp.DEFAULT_CHUNK_FLOPS}): equal to "
+          f"phase 12's product, output nnz {cs.nnz}, {one_shot_s:.2f} s on the host clock")
+    del cs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex = SpGEMMExecutor(a18, a18)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    idx, nnz = ex.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    real = int(nnz.sum()) - len(ex.chunks) * ex._rows_pad  # less the separators
+    check(real == c18.nnz, f"rmat-s18-e8 staged ESC counts {real} entries")
+    del idx, nnz
+    run_ms = [event_ms(torch, ex.run, 1) for _ in range(3)]
+    print(f"SpGEMMExecutor(a18, a18): plan + stage {plan_s:.2f} s; run() median "
+          f"{statistics.median(run_ms):.2f} ms (fastest {min(run_ms):.2f}, slowest "
+          f"{max(run_ms):.2f}, 3 runs), peak device memory {peak / 2**20:.1f} MiB; "
+          f"phase 12's ELL run() median {ell18['run_ms']:.2f} ms, peak "
+          f"{ell18['peak_mib']:.1f} MiB; {card}")
+    prof = profile_run(torch, ex.run, reps=1)
+    share = sort_share(prof)
+    out["rmat18"] = {"run_ms": statistics.median(run_ms), "one_shot_s": one_shot_s,
+                     "peak_mib": peak / 2**20, "ell_run_ms": ell18["run_ms"],
+                     "ell_peak_mib": ell18["peak_mib"], "chunks": len(ex.chunks),
+                     "sort_share": share, "idle": None if prof is None else prof["idle"]}
+    print(f"share of the busy time in kernels named *sort*: "
+          f"{'not measured' if share is None else f'{share:.3f}'}")
+    del ex
+    torch.cuda.empty_cache()
+
+    # (c) the giant-row route on rmat-s16, its rows past giant_budget windowed
+    a16, c16, _ = rmat16
+    rf = sp.row_flops(a16, a16)
+    n_giant = int((rf > giant_budget).sum())
+    check(n_giant == expect["giant_rows"],
+          f"rmat-s16: {n_giant} rows past {giant_budget} flops")
+    picked, served = [], []
+    real_auto_ell, real_host = ell._auto_ell, host.host_spgemm
+
+    def spy_auto_ell(a_, b_, **kw):
+        picked.append(real_auto_ell(a_, b_, **kw))
+        return picked[-1]
+
+    saved = sp.GIANT_ROW_FLOPS
+    sp.GIANT_ROW_FLOPS = giant_budget
+    ell._auto_ell = spy_auto_ell
+    host.host_spgemm = lambda a_, b_: served.append(1) or real_host(a_, b_)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        cg = spgemm(a16, a16)
+        giant_s = time.perf_counter() - t0
+        launches, rts = read_counts(), dict(routes)
+    finally:
+        sp.GIANT_ROW_FLOPS = saved
+        ell._auto_ell = real_auto_ell
+        host.host_spgemm = real_host
+    check(len(picked) == 1, f"the rest product built {len(picked)} ELL executors")
+    rex = picked[0]
+    form = "batched" if rex.batched else (
+        "unrolled, dealt" if rex.row_sets is not None else "unrolled, contiguous")
+    print(f"rmat-s16 with GIANT_ROW_FLOPS = {giant_budget}: {n_giant} giant rows "
+          f"({int(rf[rf > giant_budget].sum())} flops) in {len(served)} windows through "
+          f"host_spgemm; the rest through the {form} ELL plan (k={rex.n_chunks} "
+          f"sort_pad={rex.sort_pad} groups={rex.n_groups}x{rex.group_size})")
+    print(f"launches in spgemm: {launches}; sort_rows routes {rts}")
+    packed_rest = launches["class_gather_keys"] > 0  # keys: two sort_rows a group
+    check(launches["class_gather"] + launches["class_gather_keys"] > 0
+          and (not packed_rest or rts["k1"] + rts["torch_sort"] == 2 * rex.n_groups)
+          and launches["bitonic_sort_rows"] == rts["k1"]
+          and not (launches["grouped_block_matmul"] or launches["fused_sort_compress"]
+                   or launches["bitonic_network_rows"]),
+          "the rest product did not run its ELL plan's kernels")
+    check(cg.equals(c16), "the giant route's product differs from phase 11's")
+    print(f"giant route equal to phase 11's product: output nnz {cg.nnz}, "
+          f"{giant_s:.2f} s on the host clock; {card}")
+    out["giant"] = {"rows": n_giant, "windows": len(served), "s": giant_s,
+                    "rest_plan": form, "launches": launches}
+    del cg, rex, picked
+
+    # (d) tuned_executor on the bench config
+    reset_counts()
+    t0 = time.perf_counter()
+    tex = api["tuned_executor"](a, a)
+    tune_s = time.perf_counter() - t0
+    launches = read_counts()
+    report = [(round(t * 1e3, 4), k) for t, k in tex.tune_report]
+    win_k = tex.tune_report[0][1]
+    print(f"tuned_executor(a, a) in {tune_s:.2f} s: tune_report (ms, k) {report}; {card}")
+    print(f"winner k={win_k} ({'batched' if tex.batched else 'unrolled'}) beside "
+          f"auto_executor's k={k_auto}; launches while tuning {launches}")
+    check(any(k == 0 for _, k in report) and len(report) >= 2
+          and win_k == (tex.n_chunks if tex.batched else 0),
+          f"tune_report {report}")
+    check(launches["bitonic_sort_rows"] > 0 and launches["class_gather_keys"] > 0
+          and launches["class_gather"] > 0,
+          "the candidates did not run K1, P4 (batched) and P3 (unrolled)")
+    check(tex.assemble(tex.run()).equals(c), "tuned_executor's winner differs")
+    print("the winner's C = A·A equals phase 5's product (bit-exact)")
+    out["tuned"] = {"report_ms_k": report, "winner_k": win_k, "auto_k": k_auto,
+                    "s": tune_s}
+    del tex
+    # the same candidates timed ten times each: does the winner hold?
+    t0 = time.perf_counter()
+    tex = api["tuned_executor"](a, a, times=10)
+    tune_s = time.perf_counter() - t0
+    report10 = [(round(t * 1e3, 4), k) for t, k in tex.tune_report]
+    print(f"tuned_executor(a, a, times=10) in {tune_s:.2f} s: tune_report (ms, k) "
+          f"{report10}; winner k={report10[0][1]}; {card}")
+    check(sorted(k for _, k in report10) == sorted(k for _, k in report),
+          f"times=10 measured other candidates: {report10}")
+    check(tex.assemble(tex.run()).equals(c), "tuned_executor's times=10 winner differs")
+    out["tuned"]["times10"] = {"report_ms_k": report10, "winner_k": report10[0][1],
+                               "s": tune_s}
+    return out
 
 
 def run_smoke() -> dict:
@@ -1136,7 +1390,7 @@ def run_smoke() -> dict:
     phase("11. rows past K1's window: rmat-s16 (batched)")
     scale, ef, seed_r = RMAT16
     a16 = BCSR.rmat(scale, ef, seed=seed_r)
-    ex16, launches16, routes16, times16 = drive_ell_path(
+    ex16, launches16, routes16, times16, c16 = drive_ell_path(
         torch, f"BCSR.rmat({scale}, {ef}, seed={seed_r})", a16, RMAT16_NNZ,
         runs=5, e2e_runs=2, profile_reps=1, **path_kw)
     check(ex16.batched and ex16.sort_pad > bitonic.MAX_L,
@@ -1152,14 +1406,14 @@ def run_smoke() -> dict:
           f"{gathered(ex16)} gathered classes each)")
     gather_s16 = time_path_gathers(torch, gather, ell, ex16,
                                    "rmat-s16, one dispatch group", reps=4)
-    del ex16, a16
+    del ex16  # a16 and its product stay for phase 16's giant route
 
     phase("12. the unrolled route at full size: rmat-s18-e8 (dealt)")
     scale, ef, seed_r = RMAT18
     t0 = time.perf_counter()
     a18 = BCSR.rmat(scale, ef, seed=seed_r)
     print(f"generator {time.perf_counter() - t0:.2f} s")
-    ex18, launches18, routes18, times18 = drive_ell_path(
+    ex18, launches18, routes18, times18, c18 = drive_ell_path(
         torch, f"rmat-s18-e8, BCSR.rmat({scale}, {ef}, seed={seed_r})", a18,
         RMAT18_NNZ, runs=5, e2e_runs=1, profile_reps=1, **path_kw)
     check(not ex18.batched and ex18.row_sets is not None,
@@ -1186,12 +1440,12 @@ def run_smoke() -> dict:
         bands[band] = {"classes": len(sub), "slots": res["shape"]["slots"],
                        "p3_ms": res["t"]["p3"], "p4_ms": res["t"]["p4"],
                        "p3_bound_ms": res["bound3"][0], "p4_bound_ms": res["bound4"][0]}
-    del ex18, a18, classes18
+    del ex18, classes18  # a18 and its product stay for phase 16's ESC run
 
     phase("13. the unrolled contiguous plan: random 32k")
     n32, d32, seed32 = RAND32K
     a32 = BCSR.random(n32, n32, d32, seed=seed32)
-    ex32, launches32, routes32, times32 = drive_ell_path(
+    ex32, launches32, routes32, times32, c32 = drive_ell_path(
         torch, f"BCSR.random({n32}, {n32}, {d32}, seed={seed32})", a32,
         RAND32K_NNZ, runs=10, e2e_runs=3, profile_reps=3, **path_kw)
     check(not ex32.batched and ex32.row_sets is None,
@@ -1213,7 +1467,7 @@ def run_smoke() -> dict:
           "one-shot spgemm differs from scipy")
     print(f"one-shot spgemm(a, a): bit-exact, {one_shot_s:.2f} s on the host "
           f"clock (plan, staging, run, assemble)")
-    del ex32, a32, c1
+    del ex32, a32, c1, c32
 
     phase("14. the host engine: validity-class")
     nv, dv, seed_v = VALIDITY
@@ -1356,6 +1610,21 @@ def run_smoke() -> dict:
           f"{rates['table_flat_ns']}")
     del x2, xp
 
+    phase("16. ESC, giant rows and tuned_executor")
+    from binary_spgemm_tpu_torch import SpGEMMExecutor, tuned_executor
+    from binary_spgemm_tpu_torch.ops import spgemm as spgemm_mod
+
+    api = {"spgemm_mod": spgemm_mod, "ell": ell, "host": host, "spgemm": spgemm,
+           "SpGEMMExecutor": SpGEMMExecutor, "auto_executor": auto_executor,
+           "tuned_executor": tuned_executor}
+    esc = esc_phase(
+        torch, f"on {smi}", api=api, reset_counts=reset_counts, read_counts=read_counts,
+        routes=routes, bench=(a, c, ex.n_chunks), rmat18=(a18, c18, times18),
+        rmat16=(a16, c16, times16), giant_budget=GIANT_BUDGET,
+        expect={"bench_plan": (1, 1 << 24, False), "rmat18_chunks": 26,
+                "giant_rows": GIANT_ROWS})
+    del a18, c18, a16, c16
+
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
     kernels = [
         {
@@ -1474,8 +1743,9 @@ def run_smoke() -> dict:
             "on_main_path": False,
         },
     ]
-    phase("16. kernels")
-    paths = {"rmat-s16": times16, "rmat-s18-e8": times18, "random-32k": times32}
+    phase("17. kernels")
+    paths = {"rmat-s16": times16, "rmat-s18-e8": times18, "random-32k": times32,
+             "esc": esc}
     print(f"paths: {json.dumps(paths)}")
     print(f"drivers (s): {json.dumps({k: v['s'] for k, v in drivers.items()})}")
     print(f"card: {smi}")

@@ -276,6 +276,61 @@ def test_heavy_row_product_on_the_card(cuda_device):
     assert got.nnz == 1_130_438 and got.equals(spgemm_oracle(h, h))
 
 
+def esc_operands(packable):
+    """A packable product, or one whose (row, col) pairs need the int64
+    two-key sort (a 2^26-column B)."""
+    if packable:
+        a = tp.BCSR.random(3000, 3000, 4.0, seed=5)
+        return a, a
+    rng = np.random.default_rng(12)
+    m = 1 << 26
+    a = tp.BCSR.from_coo(rng.integers(0, 2000, 8000), rng.integers(0, 500, 8000), (2000, 500))
+    b = tp.BCSR.from_coo(rng.integers(0, 500, 6000), rng.integers(0, m, 6000), (500, m))
+    return a, b
+
+
+@pytest.mark.parametrize("packable", [True, False])
+def test_esc_on_the_card_equals_the_cpu(cuda_device, packable):
+    """``SpGEMMExecutor`` and one-shot ``spgemm(chunk_flops=)`` on the card
+    equal the same calls with ``device="cpu"`` (stacked outputs over their
+    valid prefixes, and the CSR), and launch no hand kernel."""
+    from binary_spgemm_tpu_torch.ops import gather
+    from binary_spgemm_tpu_torch.ops import spgemm as sp
+
+    a, b = esc_operands(packable)
+    assert sp.packable(a.n_rows, b.n_cols) == packable
+    ref = spgemm_oracle(a, b)
+    counts = lambda: (bitonic.bitonic_sort_rows.launches, dict(bitonic.sort_rows.routes),
+                      gather.class_gather.launches, gather.class_gather_keys.launches)
+    before = counts()
+    for chunk_flops in (None, 5000):
+        ex = tp.SpGEMMExecutor(a, b, chunk_flops=chunk_flops)
+        cpu = tp.SpGEMMExecutor(a, b, chunk_flops=chunk_flops, device="cpu")
+        assert ex.a_idx.device.type == "cuda" and ex.chunks == cpu.chunks
+        (idx, nnz), (c_idx, c_nnz) = ex.run(), cpu.run()
+        assert torch.equal(nnz.cpu(), c_nnz)
+        for i in range(len(ex.chunks)):
+            assert torch.equal(idx[i, : int(nnz[i])].cpu(), c_idx[i, : int(c_nnz[i])])
+        c = ex.assemble((idx, nnz))
+        assert c.equals(ref) and c.equals(cpu.assemble((c_idx, c_nnz)))
+        if chunk_flops:
+            assert len(ex.chunks) > 1
+            one = tp.spgemm(a, b, chunk_flops=chunk_flops)
+            assert one.equals(ref)
+            assert one.equals(tp.spgemm(a, b, chunk_flops=chunk_flops, device="cpu"))
+    assert counts() == before
+
+
+def test_pull_prefix_on_the_card(cuda_device):
+    from binary_spgemm_tpu_torch.ops import spgemm as sp
+
+    flat = torch.arange(1 << 20, dtype=torch.int32, device=cuda_device) * 7
+    want = flat.cpu().numpy()
+    for total in (0, 1, 999_999, 1 << 20, (1 << 20) + 5):
+        got = sp.pull_prefix(flat, total)
+        assert got.dtype == np.int32 and np.array_equal(got, want[:total])
+
+
 def k3_plan(b, n_a, n_b, group_sizes, seed, ones=False):
     """Random 0/1 bf16 tiles and a sorted, bucket-padded pair plan on the card."""
     from binary_spgemm_tpu_torch.ops.bsr import _pad_pair_plan

@@ -55,7 +55,7 @@ def test_expansion_and_keys_match_jax(n, k, m, d, seed):
 
 def test_route_pinning(monkeypatch):
     """Small-flop inputs route to the host engine; an explicit chunk_flops
-    (the ESC engine, not ported) and big products do not."""
+    (the chunked ESC engine) and big products do not."""
     calls = []
     real = host.host_spgemm
     monkeypatch.setattr(host, "host_spgemm", lambda a, b: calls.append(1) or real(a, b))
@@ -64,9 +64,11 @@ def test_route_pinning(monkeypatch):
     assert calls, "small input did not take the host route"
     assert c.equals(spgemm_oracle(small, small))
     calls.clear()
-    with pytest.raises(NotImplementedError, match="ESC"):
-        tp.spgemm(small, small, chunk_flops=10_000, device="cpu")
+    c = tp.spgemm(small, small, chunk_flops=10_000, device="cpu")
     assert not calls
+    assert c.equals(spgemm_oracle(small, small))
+    ex = tp.SpGEMMExecutor(small, small, chunk_flops=10_000, device="cpu")
+    assert c.equals(ex.assemble(ex.run()))
     big = tp.BCSR.random(3000, 3000, 30.0, seed=6)
     assert tp.spgemm_flops(big, big) > host.HOST_MAX_FLOPS
     tp_ell._EXEC_CACHE.clear()

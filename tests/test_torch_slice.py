@@ -1,6 +1,6 @@
 """The slice as a whole: ``auto_executor`` and ``spgemm`` end to end against
-the JAX package and scipy, the routes this slice does not port (each
-raises ``NotImplementedError``), the import boundary, and the default
+the JAX package and scipy on every route (batched and unrolled ELL, blocked,
+host, chunked ESC, giant rows), the import boundary, and the default
 device."""
 import ast
 import inspect
@@ -79,17 +79,57 @@ def test_host_route_raises():
     assert c.equals(spgemm_oracle(a, a))
 
 
-def test_explicit_chunk_flops_raises():
-    a = tp.BCSR.random(500, 500, 2.0, seed=1)
-    with pytest.raises(NotImplementedError, match="ESC"):
-        tp.spgemm(a, a, chunk_flops=1 << 20, device="cpu")
+def test_explicit_chunk_flops_raises(monkeypatch):
+    """An explicit ``chunk_flops`` takes the chunked ESC engine in both
+    packages (it raised before ESC was ported), even below
+    ``HOST_MAX_FLOPS``; the host engine is not asked."""
+    ja = jx.BCSR.random(500, 500, 2.0, seed=1)
+    a = to_port(ja)
+    monkeypatch.setattr(tp_host, "host_spgemm", None)  # must not be reached
+    for chunk_flops in (1 << 20, 300):
+        c = tp.spgemm(a, a, chunk_flops=chunk_flops, device="cpu")
+        assert_same(jx.spgemm(ja, ja, chunk_flops=chunk_flops), c)
+        assert c.equals(spgemm_oracle(a, a))
 
 
-def test_giant_rows_raise(monkeypatch):
-    monkeypatch.setattr(tp_sp, "GIANT_ROW_FLOPS", 1)
-    a = tp.BCSR.random(500, 500, 2.0, seed=1)
-    with pytest.raises(NotImplementedError, match="column-windowed"):
-        tp.spgemm(a, a, device="cpu")
+def giant_cases():
+    """``tests/test_spgemm.py``'s giant-row cases: rows 3 and 107 past the
+    budget (300 flops), a B row longer than the budget (100 flops, the
+    one-entry window), and giant rows at the matrix's first and last row."""
+    rng = np.random.default_rng(0)
+    a = jx.BCSR.random(200, 200, 2.0, seed=1)
+    rows, cols = a.to_coo()
+    extra_r = np.concatenate([np.full(150, 3), np.full(180, 107)])
+    extra_c = rng.integers(0, 200, size=330)
+    a2 = jx.BCSR.from_coo(np.concatenate([rows, extra_r]),
+                          np.concatenate([cols, extra_c]), (200, 200)).sum_duplicates()
+    b_rows = np.concatenate([np.zeros(400, np.int64), np.arange(200)])
+    b_cols = np.concatenate([rng.integers(0, 200, 400), np.arange(200)])
+    b = jx.BCSR.from_coo(b_rows, b_cols, (200, 200)).sum_duplicates()
+    a3 = jx.BCSR.from_coo(
+        np.concatenate([np.zeros(160, np.int64), np.full(160, 199)]),
+        np.concatenate([rng.integers(0, 200, 160), rng.integers(0, 200, 160)]),
+        (200, 200),
+    ).sum_duplicates()
+    return [(a2, a2, 300), (a2, b, 100), (a3, b, 100)]
+
+
+@pytest.mark.parametrize("chunk_flops", [None, 512])
+def test_giant_rows_raise(monkeypatch, chunk_flops):
+    """Rows past ``GIANT_ROW_FLOPS`` take the column-windowed route, equal
+    to the JAX package's and scipy (they raised before it was ported);
+    with ``chunk_flops`` the windows and the rest go through ESC."""
+    from binary_spgemm_tpu.ops import spgemm as jx_sp
+
+    for ja, jb, budget in giant_cases():
+        monkeypatch.setattr(jx_sp, "GIANT_ROW_FLOPS", budget)
+        monkeypatch.setattr(tp_sp, "GIANT_ROW_FLOPS", budget)
+        a, b = to_port(ja), to_port(jb)
+        rf = tp_sp.row_flops(a, b)
+        assert (rf > budget).sum() >= 2
+        c = tp.spgemm(a, b, chunk_flops=chunk_flops, device="cpu")
+        assert_same(jx.spgemm(ja, jb, chunk_flops=chunk_flops), c)
+        assert c.equals(spgemm_oracle(a, b))
 
 
 def test_blocked_route_raises():
@@ -150,11 +190,24 @@ def test_unrolled_routes_raise(monkeypatch):
 
 
 def test_past_the_resident_budget_raises(monkeypatch):
-    a = tp.BCSR.random(3000, 3000, 4.0, seed=1)
-    monkeypatch.setattr(tp_ell, "prefer_batched", lambda a, b: True)
-    monkeypatch.setattr(tp_ell, "AUTO_ELL_MAX_SLOTS", 0)
-    with pytest.raises(NotImplementedError, match="ESC"):
-        tp.auto_executor(a, a, device="cpu")
+    """Past ``AUTO_ELL_MAX_SLOTS`` both packages take the chunked ESC engine
+    (it raised before ESC was ported): ``auto_executor`` returns a
+    ``SpGEMMExecutor`` with the JAX package's plan, and ``spgemm`` the
+    same product."""
+    ja = jx.BCSR.random(3000, 3000, 4.0, seed=1)
+    a = to_port(ja)
+    for mod in (tp_ell, jx_ell):
+        monkeypatch.setattr(mod, "prefer_batched", lambda a, b: True)
+        monkeypatch.setattr(mod, "AUTO_ELL_MAX_SLOTS", 0)
+    ex = tp.auto_executor(a, a, device="cpu")
+    jex = jx_ell.auto_executor(ja, ja)
+    assert isinstance(ex, tp.SpGEMMExecutor) and isinstance(jex, jx.SpGEMMExecutor)
+    assert (ex.chunks, ex.flops_pad) == (jex.chunks, jex.flops_pad)
+    c = ex.assemble(ex.run())
+    assert_same(jex.assemble(jex.run()), c)
+    assert c.equals(spgemm_oracle(a, a))
+    tp_ell._EXEC_CACHE.clear()
+    assert_same(jx.spgemm(ja, ja), tp.spgemm(a, a, device="cpu"))
 
 
 def heavy_row_product():
@@ -240,7 +293,7 @@ def test_entry_points_default_to_cuda():
     for fn in (tp.spgemm, tp.auto_executor, tp.EllSpGEMMExecutor,
                tp.ell_spgemm, tp_ell.cached_executor, tp.bsr_spgemm, tp_bsr.BsrExecutor,
                tp_bsr.BsrStagedExecutor, tp_bsr.maybe_bsr_executor,
-               tp_sp.blocked_route):
+               tp_sp.blocked_route, tp.SpGEMMExecutor, tp.tuned_executor):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     a = tp.BCSR.random(1 << 16, 1 << 16, 1.0, seed=1)
     blk = tp.BlockedBCSR.from_bcsr(tp.BCSR.random_blocked(512, 128, 1.5, 0.2, seed=8))
@@ -248,9 +301,16 @@ def test_entry_points_default_to_cuda():
         ex = tp.EllSpGEMMExecutor(a, a, batched=True)
         assert ex.er_all.device.type == "cuda"
         assert tp_bsr.BsrExecutor(blk, blk).a_dev.device.type == "cuda"
+        assert tp.SpGEMMExecutor(a, a).a_idx.device.type == "cuda"
+        assert tp.tuned_executor(a, a, top=1, times=1).er_all.device.type == "cuda"
     else:  # no quiet switch to the CPU
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            tp.EllSpGEMMExecutor(a, a, batched=True)
+        for build in (lambda: tp.EllSpGEMMExecutor(a, a, batched=True),
+                      lambda: tp.SpGEMMExecutor(a, a),
+                      lambda: tp.tuned_executor(a, a),
+                      lambda: tp.auto_executor(a, a, chunk_flops=1 << 20),
+                      lambda: tp.spgemm(a, a, chunk_flops=1 << 20)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tp_bsr.BsrExecutor(blk, blk)
         with pytest.raises(RuntimeError, match="no CUDA device"):

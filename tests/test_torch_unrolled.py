@@ -284,16 +284,26 @@ def test_1d_compaction_rows_match_jax(n_cols):
 
 
 def test_overflow_routes_to_the_esc_item(monkeypatch):
-    """Where every ELL plan overflows int32 the JAX package takes its ESC
-    engine; the port raises NotImplementedError naming that item."""
-    a = tp.BCSR.random(3000, 3000, 30.0, seed=1)  # past HOST_MAX_FLOPS
+    """Where every ELL plan overflows int32 both packages take the chunked
+    ESC engine (the port raised before it was ported)."""
+    ja = jx.BCSR.random(3000, 3000, 30.0, seed=1)  # past HOST_MAX_FLOPS
+    a = to_port(ja)
 
     def overflow(*args, **kwargs):
         raise OverflowError("ELL chunk expansion exceeds int32")
 
-    monkeypatch.setattr(tp_ell, "EllSpGEMMExecutor", overflow)
-    with pytest.raises(NotImplementedError, match="ESC"):
-        tp.auto_executor(a, a, device="cpu")
+    for mod in (tp_ell, jx_ell):
+        monkeypatch.setattr(mod, "EllSpGEMMExecutor", overflow)
+    ex = tp.auto_executor(a, a, device="cpu")
+    jex = jx_ell.auto_executor(ja, ja)
+    assert isinstance(ex, tp_sp.SpGEMMExecutor) and isinstance(jex, jx_sp.SpGEMMExecutor)
+    assert (ex.chunks, ex.flops_pad) == (jex.chunks, jex.flops_pad)
+    ref = spgemm_oracle(a, a)
+    c = ex.assemble(ex.run())
+    assert c.equals(ref)
     tp_ell._EXEC_CACHE.clear()
-    with pytest.raises(NotImplementedError, match="ESC"):
-        tp.spgemm(a, a, device="cpu")
+    jx_ell._EXEC_CACHE.clear()
+    c1 = tp.spgemm(a, a, device="cpu")
+    assert c1.equals(ref)
+    j1 = jx.spgemm(ja, ja)
+    assert np.array_equal(j1.indptr, c1.indptr) and np.array_equal(j1.indices, c1.indices)
