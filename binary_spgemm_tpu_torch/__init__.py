@@ -21,24 +21,33 @@ package.  Ported so far:
   ``(row << 32) | col`` key where the pair does not pack into int32);
 * the column-windowed route for rows past ``GIANT_ROW_FLOPS`` flops, behind
   ``spgemm``;
-* the host engine for small products (``host_spgemm``, behind ``spgemm``);
+* the host engine for small products (``host_spgemm``, behind ``spgemm``,
+  and its masked, union and fused-OR forms behind the op family);
+* the op family on every engine: ``masked_spgemm`` (C = F .* (A·B)),
+  ``spm_or`` (A OR B) and ``spgemm_or`` (D OR (A·B), optionally masked),
+  with the executors' ``run_masked`` / ``run_or`` (``masked=True`` plans,
+  ``cached_executor(masked=)``, ``tuned_executor(masked=True)``) and the
+  one-sort ``run_padded`` / ``assemble_padded``;
 * the blocked tensor-core route for block-clustered operands
   (``BlockedBCSR``, ``bsr_spgemm``, and ``BsrStagedExecutor`` behind
   ``auto_executor`` / ``spgemm``), with its grouped tile products as a
   hand-written CUDA kernel (``ops/block_matmul.py``,
   ``csrc/block_matmul.cu``).
 
-Entry points run on ``device="cuda"`` unless told otherwise; what the JAX
-package serves beyond ``spgemm`` (the masked, union, OR and counting ops,
-the device pipelines, the distributed layer) is not ported yet (ROADMAP.md
-Queue 1).
+Entry points run on ``device="cuda"`` unless told otherwise.  Not ported
+yet (ROADMAP.md Queue 1): the counting family, the rest of the format and
+Matrix-Market ingest, the native host helpers, the device-resident
+pipelines and graph ops, the CLI and the distributed layer.
 """
 from .formats.bbcsr import BlockedBCSR, blocked_from_arrays
 from .formats.bcsr import BCSR, bcsr_from_arrays, coo_to_csr_stable
 from .ops.bsr import bsr_spgemm
 from .ops.ell import EllSpGEMMExecutor, auto_executor, ell_spgemm, tuned_executor
-from .ops.host import host_spgemm
+from .ops.fused import spgemm_or
+from .ops.host import host_masked_spgemm, host_spgemm, host_spgemm_or, host_spm_or
+from .ops.masked import masked_spgemm
 from .ops.spgemm import SpGEMMExecutor, spgemm, spgemm_flops
+from .ops.union import spm_or
 
 __all__ = [
     "BCSR",
@@ -51,9 +60,15 @@ __all__ = [
     "bsr_spgemm",
     "coo_to_csr_stable",
     "ell_spgemm",
+    "host_masked_spgemm",
     "host_spgemm",
+    "host_spgemm_or",
+    "host_spm_or",
+    "masked_spgemm",
     "spgemm",
     "spgemm_flops",
+    "spgemm_or",
+    "spm_or",
     "tuned_executor",
 ]
 

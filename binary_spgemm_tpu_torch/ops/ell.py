@@ -36,22 +36,34 @@ import torch
 
 from ..formats.bcsr import BCSR
 from ..utils.timers import bench_fn, event_seconds
+from .bitonic import sort_rows as sort_rows_1key
 from .gather import (
     class_gather,
     class_gather_group,
     class_gather_keys,
     class_gather_keys_group,
 )
+from .fused import (
+    _sort_compress_or_masked,
+    _sort_compress_or_masked_seps_2d,
+    _sort_compress_or_masked_seps_2d_keys,
+)
 from .spgemm import (
     INT,
+    INT32_MAX,
     _chunk_rows,
+    _prev,
+    _row_ids,
     _stitch,
     pad_bucket,
+    pad_chunk_csr,
     packable,
     pull_chunk_prefixes,
     require_int32_operands,
     resolve_device,
     row_flops,
+    sort_compress_masked_seps_2d,
+    sort_compress_masked_seps_2d_keys,
     sort_compress_seps_2d,
     sort_compress_seps_2d_keys,
     split_seps,
@@ -282,13 +294,15 @@ def _assemble_stream_2d(
     widths: tuple[int, ...],
     pads: tuple[int, ...],
     sort_pad: int,
+    extra: tuple = (),
     shift: int | None = None,
     device: torch.device | None = None,
 ):
     """The batched engine's ``[k, sort_pad]`` candidate stream: per-class
-    expansions, one ``(r, n_cols)`` separator per bin row, and sentinel fill
+    expansions, the ``extra`` ``(row, col)`` pair blocks (a fused-OR D
+    operand), one ``(r, n_cols)`` separator per bin row, and sentinel fill
     up to ``sort_pad``.  With ``shift``, one packed int32 key array; else the
-    ``(row, col)`` pair arrays.  Each class is written in place into its
+    ``(row, col)`` pair arrays.  Each piece is written in place into its
     column span, so the stream is never concatenated."""
     if device is None:
         device = entry_rows[0].device if entry_rows else None
@@ -297,6 +311,9 @@ def _assemble_stream_2d(
     if shift is not None:
         key = torch.empty((k, sort_pad), dtype=INT, device=device)
         off = _expand_classes(tables, entry_rows, entry_pos, widths, pads, key, **kw)
+        for er, ec in extra:
+            key[:, off : off + er.shape[1]] = (er << shift) | ec
+            off += er.shape[1]
         key[:, off : off + rows_pad] = (seps << shift) | n_cols
         key[:, off + rows_pad :] = (rows_pad << shift) | n_cols
         return key
@@ -305,6 +322,10 @@ def _assemble_stream_2d(
     off = _expand_classes(
         tables, entry_rows, entry_pos, widths, pads, (row, col), **kw
     )
+    for er, ec in extra:
+        row[:, off : off + er.shape[1]] = er
+        col[:, off : off + er.shape[1]] = ec
+        off += er.shape[1]
     row[:, off : off + rows_pad] = seps
     row[:, off + rows_pad :] = rows_pad
     col[:, off:] = n_cols
@@ -322,14 +343,17 @@ def _chunk_pair_streams(
     widths,
     pads,
     sort_pad: int,
+    extra: tuple = (),
+    seps: bool = True,
     device: torch.device | None = None,
 ):
     """The unrolled engine's per-chunk padded candidate ``(row, col)``
-    streams with their separators, stacked: row i of each ``[n_chunks,
-    sort_pad]`` array is chunk i's stream as the JAX package's separator
-    kernel sorts it, its ``_chunk_pair_streams`` (class expansions in class
-    order, then ``(rows_pad, n_cols)`` fill) followed by the chunk's
-    ``rows_pad`` separators ``(r, n_cols)`` in the last columns."""
+    streams, stacked: row i of each ``[n_chunks, sort_pad]`` array is chunk
+    i's stream as the JAX package's kernels sort it, its
+    ``_chunk_pair_streams`` (class expansions in class order, then ``(rows_pad,
+    n_cols)`` fill), then the ``extra`` ``(row, col)`` pair blocks (a
+    fused-OR D operand), then, with ``seps``, the chunk's ``rows_pad``
+    separators ``(r, n_cols)`` in the last columns."""
     if device is None:
         device = entry_rows[0].device if entry_rows else None
     row = torch.empty((n_chunks, sort_pad), dtype=INT, device=device)
@@ -338,10 +362,30 @@ def _chunk_pair_streams(
         tables, entry_rows, entry_pos, widths, pads, (row, col),
         rows_pad=rows_pad, n_cols=n_cols,
     )
-    row[:, off : sort_pad - rows_pad] = rows_pad
-    row[:, sort_pad - rows_pad :] = torch.arange(rows_pad, dtype=INT, device=device)
-    col[:, off:] = n_cols
+    end = sort_pad - (rows_pad if seps else 0) - sum(er.shape[1] for er, _ in extra)
+    row[:, off:end] = rows_pad
+    col[:, off:end] = n_cols
+    for er, ec in extra:
+        row[:, end : end + er.shape[1]] = er
+        col[:, end : end + er.shape[1]] = ec
+        end += er.shape[1]
+    if seps:
+        row[:, end:] = torch.arange(rows_pad, dtype=INT, device=device)
+        col[:, end:] = n_cols
     return row, col
+
+
+def _staged_pairs_2d(ptr: torch.Tensor, idx: torch.Tensor, rows_pad: int,
+                     n_cols: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sentinel-masked ``(row, col)`` pairs ``[..., P]`` of staged
+    chunk-local CSR side operands (a mask, a fused-OR D): ``ptr [...,
+    rows_pad + 1]``, ``idx [..., P]``; slots past ``ptr[..., -1]`` become
+    ``(rows_pad, n_cols)``.  Row ids by an owner scan along the last axis.
+    One chunk's row is the JAX package's ``_staged_pairs``."""
+    P = idx.shape[-1]
+    rows = _row_ids(ptr, P)
+    valid = torch.arange(P, dtype=INT, device=idx.device) < ptr[..., -1:]
+    return torch.where(valid, rows, rows_pad), torch.where(valid, idx, n_cols)
 
 
 def _unpack_tables(tables_flat: torch.Tensor, table_shapes) -> tuple:
@@ -374,19 +418,27 @@ def _unpack_entries(er_all, ep_all, row0: int, g: int, pads, ep_spans) -> tuple:
     return tuple(ers), tuple(eps)
 
 
+# The device programs, one dispatch group each.  ``tables``, ``entry_rows``
+# and ``entry_pos`` are the group's unpacked classes; side operands (a mask F,
+# a fused-OR D) arrive as the group's staged ``(ptr, idx)`` rows.
+
+
 def _ell_spgemm_sep(
-    tables, entry_rows, entry_pos, *, n_chunks: int, rows_pad: int,
-    n_cols: int, widths, pads, sort_pad: int, out_pad: int | None = None,
-    device: torch.device | None = None,
+    tables, entry_rows, entry_pos, d_ptr=None, d_idx=None, *, n_chunks: int,
+    rows_pad: int, n_cols: int, widths, pads, sort_pad: int,
+    out_pad: int | None = None, device: torch.device | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The unrolled engine on one dispatch group: every chunk's pair stream
     with its separators (``[n_chunks, sort_pad]``), sorted, deduplicated and
-    compacted row by row.  Returns the compacted column streams (truncated to
-    ``out_pad``) and the per-chunk valid counts."""
+    compacted row by row.  Given D (``run_or``, the JAX package's
+    ``_ell_or_jit``), D's pairs join each stream before the separators and
+    the union is the sort's dedup.  Returns the compacted column streams
+    (truncated to ``out_pad``) and the per-chunk valid counts."""
+    extra = () if d_ptr is None else (_staged_pairs_2d(d_ptr, d_idx, rows_pad, n_cols),)
     row, col = _chunk_pair_streams(
         tables, entry_rows, entry_pos, n_chunks=n_chunks, rows_pad=rows_pad,
         n_cols=n_cols, widths=widths, pads=pads, sort_pad=sort_pad,
-        device=device,
+        extra=extra, device=device,
     )
     idx, nnz = sort_compress_seps_2d(row, col, rows_pad, n_cols)
     if out_pad is not None and out_pad < sort_pad:
@@ -395,37 +447,145 @@ def _ell_spgemm_sep(
 
 
 def _ell_spgemm_sep2d(
-    tables, entry_rows, entry_pos, *, n_chunks: int, rows_pad: int,
-    n_cols: int, widths, pads, sort_pad: int, out_pad: int | None = None,
-    device: torch.device | None = None,
+    tables, entry_rows, entry_pos, d_ptr=None, d_idx=None, *, n_chunks: int,
+    rows_pad: int, n_cols: int, widths, pads, sort_pad: int,
+    out_pad: int | None = None, device: torch.device | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """All bins of one group as ONE ``[n_chunks, sort_pad]`` stream, sorted,
-    deduplicated and compacted along axis -1.  Returns the compacted column
-    stream (truncated to ``out_pad``) and the per-bin valid counts."""
+    deduplicated and compacted along axis -1.  Given D (``run_or``, the JAX
+    package's ``_ell_or2d_jit``), D's pairs join the stream after the class
+    expansions.  Returns the compacted column stream (truncated to
+    ``out_pad``) and the per-bin valid counts."""
     args = (tables, entry_rows, entry_pos, n_chunks, rows_pad, n_cols, widths,
             pads, sort_pad)
+    extra = () if d_ptr is None else (_staged_pairs_2d(d_ptr, d_idx, rows_pad, n_cols),)
     if packable(rows_pad, n_cols):
         key = _assemble_stream_2d(
-            *args, shift=int(n_cols).bit_length(), device=device
+            *args, extra=extra, shift=int(n_cols).bit_length(), device=device
         )
         idx, nnz = sort_compress_seps_2d_keys(key, rows_pad, n_cols)
     else:
-        row, col = _assemble_stream_2d(*args, device=device)
+        row, col = _assemble_stream_2d(*args, extra=extra, device=device)
         idx, nnz = sort_compress_seps_2d(row, col, rows_pad, n_cols)
     if out_pad is not None and out_pad < sort_pad:
         idx = idx[:, :out_pad]
     return idx, nnz
 
 
+def _ell_spgemm_padded2d(
+    tables, entry_rows, entry_pos, *, n_chunks: int, rows_pad: int,
+    n_cols: int, widths, pads, sort_pad: int, device: torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The one-sort form of :func:`_ell_spgemm_sep2d`: it stops after the
+    dedup and demote, returning each bin's sorted packed-key stream with
+    ``INT32_MAX`` holes and the per-bin valid counts; the host compacts
+    (:meth:`EllSpGEMMExecutor.assemble_padded`).  Batched plans keep their
+    keys packed."""
+    if not packable(rows_pad, n_cols):
+        raise ValueError("run_padded requires packed keys")
+    shift = int(n_cols).bit_length()
+    key_s = sort_rows_1key(_assemble_stream_2d(
+        tables, entry_rows, entry_pos, n_chunks, rows_pad, n_cols, widths,
+        pads, sort_pad, shift=shift, device=device,
+    ))
+    keep = (key_s != _prev(key_s, -1)) & (key_s < (rows_pad << shift))
+    return torch.where(keep, key_s, INT32_MAX), keep.sum(1, dtype=INT)
+
+
+def _ell_masked2d(
+    tables, entry_rows, entry_pos, f_ptr, f_idx, *, n_chunks: int,
+    rows_pad: int, n_cols: int, widths, pads, sort_pad: int,
+    device: torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The batched C = F .* (A·B): the sort-fused mask join over the group's
+    stacked ``[k, sort_pad]`` stream (:func:`..spgemm.
+    sort_compress_masked_seps_2d`).  A bin's valid entries never exceed its
+    mask entries plus its separators, so the output is cut to ``f_pad +
+    rows_pad``."""
+    f_row, f_col = _staged_pairs_2d(f_ptr, f_idx, rows_pad, n_cols)
+    args = (tables, entry_rows, entry_pos, n_chunks, rows_pad, n_cols, widths,
+            pads, sort_pad)
+    if packable(rows_pad, 2 * n_cols + 1):
+        key = _assemble_stream_2d(*args, shift=int(n_cols).bit_length(), device=device)
+        idx, nnz = sort_compress_masked_seps_2d_keys(key, f_row, f_col, rows_pad, n_cols)
+    else:
+        row, col = _assemble_stream_2d(*args, device=device)
+        idx, nnz = sort_compress_masked_seps_2d(row, col, f_row, f_col, rows_pad, n_cols)
+    return idx[:, : f_idx.shape[-1] + rows_pad], nnz
+
+
+def _ell_or_masked2d(
+    tables, entry_rows, entry_pos, d_ptr, d_idx, f_ptr, f_idx, *, n_chunks: int,
+    rows_pad: int, n_cols: int, widths, pads, sort_pad: int,
+    device: torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The batched C = D OR (F .* (A·B)): the three-way tagged join (mask <
+    D < candidate) along axis -1 with embedded separators
+    (:func:`..fused._sort_compress_or_masked_seps_2d`); the output is cut to
+    ``d_pad + f_pad + rows_pad``."""
+    d_row, d_col = _staged_pairs_2d(d_ptr, d_idx, rows_pad, n_cols)
+    f_row, f_col = _staged_pairs_2d(f_ptr, f_idx, rows_pad, n_cols)
+    args = (tables, entry_rows, entry_pos, n_chunks, rows_pad, n_cols, widths,
+            pads, sort_pad)
+    if packable(rows_pad, 4 * n_cols + 3):
+        key = _assemble_stream_2d(*args, shift=int(n_cols).bit_length(), device=device)
+        idx, nnz = _sort_compress_or_masked_seps_2d_keys(
+            key, d_row, d_col, f_row, f_col, rows_pad, n_cols)
+    else:
+        row, col = _assemble_stream_2d(*args, device=device)
+        idx, nnz = _sort_compress_or_masked_seps_2d(
+            row, col, d_row, d_col, f_row, f_col, rows_pad, n_cols)
+    return idx[:, : d_idx.shape[-1] + f_idx.shape[-1] + rows_pad], nnz
+
+
+def _ell_masked(
+    tables, entry_rows, entry_pos, f_ptr, f_idx, *, n_chunks: int,
+    rows_pad: int, n_cols: int, widths, pads, sort_pad: int,
+    device: torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The unrolled C = F .* (A·B): each chunk's separator-embedded pair
+    stream joined with its mask pairs (:func:`..spgemm.
+    sort_compress_masked_seps_2d`, a row per chunk).  Returns ``(indices
+    [n_chunks, sort_pad + f_pad], nnz)``."""
+    row, col = _chunk_pair_streams(
+        tables, entry_rows, entry_pos, n_chunks=n_chunks, rows_pad=rows_pad,
+        n_cols=n_cols, widths=widths, pads=pads, sort_pad=sort_pad, device=device,
+    )
+    f_row, f_col = _staged_pairs_2d(f_ptr, f_idx, rows_pad, n_cols)
+    return sort_compress_masked_seps_2d(row, col, f_row, f_col, rows_pad, n_cols)
+
+
+def _ell_or_masked(
+    tables, entry_rows, entry_pos, d_ptr, d_idx, f_ptr, f_idx, *, n_chunks: int,
+    rows_pad: int, n_cols: int, widths, pads, sort_pad: int,
+    device: torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The unrolled C = D OR (F .* (A·B)): each chunk's pair stream without
+    separators (a 2-bit tag leaves no room for them there, as in the JAX
+    package) through the three-way join (:func:`..fused.
+    _sort_compress_or_masked`, a row per chunk).  Returns chunk-local
+    ``(indptr [n_chunks, rows_pad + 1], indices, nnz)``."""
+    row, col = _chunk_pair_streams(
+        tables, entry_rows, entry_pos, n_chunks=n_chunks, rows_pad=rows_pad,
+        n_cols=n_cols, widths=widths, pads=pads, sort_pad=sort_pad, seps=False,
+        device=device,
+    )
+    d_row, d_col = _staged_pairs_2d(d_ptr, d_idx, rows_pad, n_cols)
+    f_row, f_col = _staged_pairs_2d(f_ptr, f_idx, rows_pad, n_cols)
+    return _sort_compress_or_masked(row, col, d_row, d_col, f_row, f_col,
+                                    rows_pad, n_cols)
+
+
 def _make_flat_kernel(inner):
     """A flat group runner around ``inner``: unpack the tables and one
-    group's entries from the three staged arrays, then run ``inner`` on the
+    group's entries from the three staged arrays, slice the group's rows of
+    the staged side operands (``extra_arrays``), then run ``inner`` on the
     staged arrays' device."""
 
     def runner(
-        tables_flat, er_all, ep_all, row0: int, *, table_shapes,
+        tables_flat, er_all, ep_all, row0: int, *extra_arrays, table_shapes,
         n_chunks: int, rows_pad: int, n_cols: int, widths, pads,
-        sort_pad: int, out_pad: int | None = None,
+        sort_pad: int, **kw,
     ):
         tables = _unpack_tables(tables_flat, table_shapes)
         ep_spans = tuple(
@@ -433,10 +593,11 @@ def _make_flat_kernel(inner):
             for shape, w, p in zip(table_shapes, widths, pads)
         )
         er, ep = _unpack_entries(er_all, ep_all, row0, n_chunks, pads, ep_spans)
+        extras = tuple(m[row0 : row0 + n_chunks] for m in extra_arrays)
         return inner(
-            tables, er, ep, n_chunks=n_chunks, rows_pad=rows_pad,
+            tables, er, ep, *extras, n_chunks=n_chunks, rows_pad=rows_pad,
             n_cols=n_cols, widths=widths, pads=pads, sort_pad=sort_pad,
-            out_pad=out_pad, device=er_all.device,
+            device=er_all.device, **kw,
         )
 
     return runner
@@ -444,6 +605,11 @@ def _make_flat_kernel(inner):
 
 _flat_spgemm_sep = _make_flat_kernel(_ell_spgemm_sep)
 _flat_spgemm_sep2d = _make_flat_kernel(_ell_spgemm_sep2d)
+_flat_spgemm_padded2d = _make_flat_kernel(_ell_spgemm_padded2d)
+_flat_masked = _make_flat_kernel(_ell_masked)
+_flat_masked2d = _make_flat_kernel(_ell_masked2d)
+_flat_or_masked = _make_flat_kernel(_ell_or_masked)
+_flat_or_masked2d = _make_flat_kernel(_ell_or_masked2d)
 
 
 def _sort_rate_ns(L: int, packed: bool) -> float:
@@ -486,11 +652,19 @@ def _batched_deal_plan(
     deal_k: int | None,
     key_cols: int,
     merge_widths: tuple[int, ...] | None = None,
+    discount_sorts: bool = True,
 ):
     """Plan the batched 2-D engine: pick the bin count k by the sort-rate
     model, snake-deal rows in dominant-class order, and DP-merge width
     classes so per-bin class pads stop inflating at high k (or group them at
     the caller's ``merge_widths`` levels).
+
+    ``discount_sorts=False`` is how the masked and fused family plans in the
+    JAX package, TPU or not: gathered classes priced at ``_gather_rate_ns``
+    instead of the plain family's fused rate, and no power-of-two cliff
+    refinement of the coarse pick (the family's streams are longer than
+    ``sort_pad``).  Its other effect there, the bitonic discount, needs a
+    TPU and so never applies to this package's plans.
 
     Returns ``None`` when the input is degenerate (no flops), else
     ``(ell, rows_pc, pos_pc, assign, k, pads, slots, rows_pad,
@@ -605,7 +779,12 @@ def _batched_deal_plan(
             slots += s
             rows_g = int(cls_rows_pref[i] - cls_rows_pref[j])
             inl = w <= INLINE_TABLE_W_MAX and rows_g > INLINE_TABLE_ROWS
-            rate = 0.05 if inl else 3.2 / w + 0.05
+            if inl:
+                rate = 0.05
+            elif discount_sorts:
+                rate = 3.2 / w + 0.05  # the plain family's fused rate
+            else:
+                rate = _gather_rate_ns(w)
             gather += s * rate
         return slots, gather
 
@@ -659,6 +838,11 @@ def _batched_deal_plan(
     if len(ks) == 1:
         plans = [eval_k(ks[0])]
         model_ranking = [(plans[0][0], ks[0])]
+    elif not discount_sorts:
+        step = 4 if len(rr) > (1 << 24) else 1
+        evals = sorted((eval_k(k, step) for k in ks), key=lambda t: t[0])
+        model_ranking = [(c, kk) for c, kk, *_ in evals]
+        plans = [evals[0] if step == 1 else eval_k(evals[0][1])]
     else:
         # full resolution up to 2^24 entries, a 1/4 sample beyond
         step = 4 if len(rr) > (1 << 24) else 1
@@ -710,6 +894,12 @@ class EllSpGEMMExecutor:
     key when that does not inflate the padding, or the snake deal when its
     sort cost is below 0.9 of theirs), ``"contig"``, ``"deal"``, ``1`` or a
     chunk count; ``deal_k`` forces a deal into that many bins.
+
+    ``masked=True`` plans for the op family (:meth:`run_masked`,
+    :meth:`run_or`): the mask join packs ``(row, col, tag)``, one more low
+    bit, so the chunk row cap halves and the batched plan is the JAX
+    package's masked one (``discount_sorts=False``).  Every executor serves
+    every ``run_*`` method; the plan only decides which keys stay packed.
     """
 
     def __init__(
@@ -718,6 +908,7 @@ class EllSpGEMMExecutor:
         b: BCSR,
         *,
         row_chunks: int | str = "auto",
+        masked: bool = False,
         deal_k: int | None = None,
         batched: bool = False,
         merge_widths: tuple[int, ...] | None = None,
@@ -731,16 +922,18 @@ class EllSpGEMMExecutor:
         self.shape = (a.n_rows, b.n_cols)
         self.n_rows, self.n_cols = a.n_rows, b.n_cols
         rf = row_flops(a, b)
-        # chunks stay small enough for the packed sort key to fit one int32
-        shift = int(self.n_cols).bit_length()
+        # chunks stay small enough for the packed sort key to fit one int32;
+        # a mask-serving plan packs one more (tag) bit
+        shift = int(self.n_cols).bit_length() + (1 if masked else 0)
         cap = 1 << max(0, 30 - shift)
         n = self.n_rows
-        key_cols = self.n_cols
+        key_cols = 2 * self.n_cols + 1 if masked else self.n_cols
         self.batched = bool(batched)
         dealt = None
         if batched:
             planned = _batched_deal_plan(
-                a, b, rf, cap, deal_k, key_cols, merge_widths=merge_widths
+                a, b, rf, cap, deal_k, key_cols, merge_widths=merge_widths,
+                discount_sorts=not masked,
             )
             if planned is None:
                 self.batched = False  # degenerate input: unrolled is fine
@@ -874,6 +1067,7 @@ class EllSpGEMMExecutor:
             self.row_sets = [
                 order2[starts[i] : starts[i + 1]] for i in range(k)
             ]
+            self._assign = assign  # each row's bin, for staged_nnz_pad
             local_id = np.empty(n, np.int32)
             local_id[order2] = (
                 np.arange(n) - np.repeat(starts[:-1], binsz)
@@ -1012,6 +1206,8 @@ class EllSpGEMMExecutor:
         self.tables_flat = torch.from_numpy(tables_flat).to(self.device)
         self.er_all = torch.from_numpy(er_all).to(self.device)
         self.ep_all = torch.from_numpy(ep_all).to(self.device)
+        # staged side operands (masks, fused-OR D), cached on identity
+        self._mask_cache: dict = {}
 
     def _flat_kw(self):
         return dict(
@@ -1024,26 +1220,151 @@ class EllSpGEMMExecutor:
         for gi in range(self.n_groups):
             yield gi * self.group_size
 
-    def _run_group(self, row0: int):
-        kernel = _flat_spgemm_sep2d if self.batched else _flat_spgemm_sep
-        return kernel(
-            self.tables_flat, self.er_all, self.ep_all, row0,
-            **self._flat_kw(), out_pad=self.out_pad,
-        )
+    def _run_group(self, row0: int, kernel=None, *extra, **kw):
+        """One dispatch group through ``kernel`` (the plain product's by
+        default), ``kw`` overriding the plan's keywords."""
+        if kernel is None:
+            kernel = _flat_spgemm_sep2d if self.batched else _flat_spgemm_sep
+            kw.setdefault("out_pad", self.out_pad)
+        return kernel(self.tables_flat, self.er_all, self.ep_all, row0, *extra,
+                      **{**self._flat_kw(), **kw})
+
+    def _run_groups(self, kernel=None, *extra, **kw):
+        """Every dispatch group, queued on the current stream without a host
+        sync; the group outputs concatenate on the device."""
+        outs = [self._run_group(row0, kernel, *extra, **kw)
+                for row0 in self._row0s()]
+        if len(outs) == 1:
+            return outs[0]
+        return tuple(torch.cat([o[i] for o in outs]) for i in range(len(outs[0])))
 
     def run(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Stacked per-chunk ``(c_indices [k_tot, out_pad], nnz [k_tot])``
         device tensors, row pointers embedded as ``n_cols`` separators.  One
-        dispatch per chunk group, all queued on the current stream without a
-        host sync; the group outputs concatenate on the device.  Trailing
-        dummy chunks (sentinel-only) may follow the real ones."""
-        outs = [self._run_group(row0) for row0 in self._row0s()]
-        if len(outs) == 1:
-            return outs[0]
-        return tuple(torch.cat([o[i] for o in outs]) for i in range(2))
+        dispatch per chunk group.  Trailing dummy chunks (sentinel-only) may
+        follow the real ones."""
+        return self._run_groups()
+
+    def run_padded(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The one-sort device step: stacked ``(keys [k_tot, sort_pad], nnz
+        [k_tot])``, each bin's sorted packed-key stream with ``INT32_MAX``
+        holes (duplicates and sentinels demoted, not compacted), separators
+        embedded.  :meth:`assemble_padded` compacts on the host.  It drops
+        :meth:`run`'s second sort and pulls the whole stream instead of its
+        valid prefixes.  Batched plans only."""
+        if not self.batched:
+            raise ValueError("run_padded requires a batched executor")
+        return self._run_groups(_flat_spgemm_padded2d)
+
+    def assemble_padded(self, outputs) -> BCSR:
+        """Host assembly of :meth:`run_padded`'s outputs: drop the holes,
+        unpack the columns and hand each bin's separator-embedded stream to
+        :meth:`assemble`'s batch assembler, so the CSR equals
+        ``assemble(run())``."""
+        dem_dev, nnz_dev = outputs
+        valid = nnz_dev.cpu().numpy().astype(np.int64)
+        valid[self.n_chunks :] = 0
+        flat = dem_dev[: self.n_chunks].cpu().numpy().ravel()
+        keys = flat[flat != INT32_MAX]
+        cols = (keys & ((1 << int(self.n_cols).bit_length()) - 1)).astype(np.int32)
+        chunk_idx = np.split(cols, np.cumsum(valid[: self.n_chunks])[:-1])
+        return self._assemble_seps_batch(chunk_idx, valid)
+
+    def staged_nnz_pad(self, mat: BCSR) -> int:
+        """The per-chunk padded nnz that :meth:`stage_mask` gives a side
+        operand; on a raw operand it bounds the canonical one's (dedup only
+        shrinks rows), so callers budget ``run_or`` / ``run_masked`` before
+        staging."""
+        if self.row_sets is not None:
+            per_bin = np.bincount(self._assign,
+                                  weights=np.diff(mat.indptr).astype(np.float64),
+                                  minlength=len(self.row_sets))
+            return pad_bucket(max(int(per_bin.max()), 1))
+        return pad_bucket(
+            max(int(mat.indptr[r1] - mat.indptr[r0]) for r0, r1 in self.chunks)
+        )
+
+    def stage_mask(self, f: BCSR) -> tuple[torch.Tensor, torch.Tensor]:
+        """Canonicalise, chunk-slice and stage a side operand (a mask or a
+        fused-OR D) for :meth:`run_masked` / :meth:`run_or`: ``(ptr [k_tot,
+        rows_pad + 1], idx [k_tot, f_pad])`` on the device, empty for the
+        trailing dummy chunks.  Cached on the operand's identity, checked
+        through a weakref (an id is reused once its object is freed)."""
+        hit = self._mask_cache.get(id(f))
+        if hit is not None:
+            wf, staged = hit
+            if wf() is f:
+                return staged
+            del self._mask_cache[id(f)]
+        f_in = f
+        if tuple(f.shape) != self.shape:
+            raise ValueError(f"mask shape {f.shape} != product {self.shape}")
+        f = f.sum_duplicates()
+        f_pad = self.staged_nnz_pad(f)
+        if self.row_sets is not None:
+            ptr_all, idx_all = _pad_rowset_csr_all(
+                f, self.row_sets, self.rows_pad, f_pad, fill=self.n_cols)
+        else:
+            parts = [pad_chunk_csr(f, r0, r1, self.rows_pad, f_pad, fill=self.n_cols)
+                     for r0, r1 in self.chunks]
+            ptr_all = np.stack([p[0] for p in parts])
+            idx_all = np.stack([p[1] for p in parts])
+        pad_n = self.n_groups * self.group_size - self.n_chunks
+        if pad_n:  # trailing dummy group-fill chunks: empty
+            ptr_all = np.concatenate(
+                [ptr_all, np.zeros((pad_n, self.rows_pad + 1), np.int32)])
+            idx_all = np.concatenate(
+                [idx_all, np.full((pad_n, f_pad), self.n_cols, np.int32)])
+        staged = (torch.from_numpy(ptr_all).to(self.device),
+                  torch.from_numpy(idx_all).to(self.device))
+        while len(self._mask_cache) >= 4:
+            self._mask_cache.pop(next(iter(self._mask_cache)))
+        self._mask_cache[id(f_in)] = (weakref.ref(f_in), staged)
+        return staged
+
+    def _staged(self, f):
+        return f if isinstance(f, tuple) else self.stage_mask(f)
+
+    def run_masked(self, f) -> tuple[torch.Tensor, torch.Tensor]:
+        """C = F .* (A·B) with this executor's staged A and B (≡
+        ``SpGEMM_masked``): stacked separator-embedded ``(c_indices, nnz)``,
+        as :meth:`run`.  ``f`` is a :class:`BCSR` (staged here, cached) or
+        :meth:`stage_mask`'s result."""
+        kernel = _flat_masked2d if self.batched else _flat_masked
+        return self._run_groups(kernel, *self._staged(f))
+
+    def run_or(self, d, mask=None):
+        """C = D OR (A·B), or D OR (F .* (A·B)) with ``mask`` (≡ ``SpGEMM_dor``;
+        D unconditional, see :mod:`.fused`), with this executor's staged A
+        and B.  ``d`` and ``mask`` are :class:`BCSR` operands or
+        :meth:`stage_mask` results.  Separator-embedded ``(c_indices, nnz)``
+        as :meth:`run`, except the unrolled masked form, which returns
+        chunk-local ``(c_indptr, c_indices, nnz)``."""
+        d_ptr, d_idx = self._staged(d)
+        if mask is None:
+            # D's pairs lengthen every chunk's sort and bound its output
+            sort_pad = pad_bucket(self.sort_pad + d_idx.shape[-1], div=32)
+            out_pad = min(pad_bucket(self.out_pad + d_idx.shape[-1]), sort_pad)
+            kernel = _flat_spgemm_sep2d if self.batched else _flat_spgemm_sep
+            return self._run_groups(kernel, d_ptr, d_idx, sort_pad=sort_pad,
+                                    out_pad=out_pad)
+        if self.batched:  # the join keeps run()'s separator-embedded stream
+            return self._run_groups(_flat_or_masked2d, d_ptr, d_idx,
+                                    *self._staged(mask))
+        return self._run_groups(_flat_or_masked, d_ptr, d_idx, *self._staged(mask),
+                                sort_pad=self.sort_pad - self.rows_pad)
 
     def assemble(self, outputs) -> BCSR:
-        """Pull :meth:`run`'s outputs and build the host CSR."""
+        """Pull the outputs of :meth:`run`, :meth:`run_masked` or
+        :meth:`run_or` and build the host CSR."""
+        if len(outputs) == 3:  # chunk-local (indptr, indices, nnz)
+            ptr_dev, idx_dev, nnz_dev = outputs
+            c_ptr, nnz_c = ptr_dev.cpu().numpy(), nnz_dev.cpu().numpy()
+            valid = nnz_c.astype(np.int64)
+            valid[self.n_chunks :] = 0
+            chunk_idx = pull_chunk_prefixes(idx_dev, valid)
+            return self._assemble_parts(
+                [(c_ptr[i], chunk_idx[i], nnz_c[i]) for i in range(self.n_chunks)])
         idx_dev, nnz_dev = outputs
         nnz_c = nnz_dev.cpu().numpy()
         valid = nnz_c.astype(np.int64)
@@ -1164,6 +1485,42 @@ def _stitch_sets(row_sets, n_rows: int, shape, parts) -> BCSR:
     return BCSR(indptr, indices, shape)
 
 
+def _pad_rowset_csr_all(
+    mat: BCSR, row_sets, rows_pad: int, nnz_pad: int, fill: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    """``pad_chunk_csr`` for every dealt bin at once: each bin's rows of
+    ``mat`` in the bin's order as a local CSR, stacked as ``(ptr [k, rows_pad
+    + 1], idx [k, nnz_pad])``, padding rows empty and padding indices
+    ``fill`` (a handful of numpy passes over the concatenated row sets)."""
+    k = len(row_sets)
+    rows_concat = (np.concatenate(row_sets) if k else np.zeros(0, np.int64)
+                   ).astype(np.int64)
+    binsz = np.array([len(r) for r in row_sets], np.int64)
+    lens = (mat.indptr[rows_concat + 1] - mat.indptr[rows_concat]).astype(np.int64)
+    cum = np.cumsum(lens)
+    cum0 = np.concatenate([[0], cum])
+    starts_chunk = np.cumsum(binsz) - binsz  # each bin's first row slot
+    chunk_of = np.repeat(np.arange(k, dtype=np.int64), binsz)
+    base = cum0[starts_chunk]  # entries before each bin
+    totals = cum0[starts_chunk + binsz] - base
+    local_end = cum - np.repeat(base, binsz)  # inclusive cumsum within a bin
+    ptr = np.empty((k, rows_pad + 1), np.int32)
+    ptr[:] = totals[:, None].astype(np.int32)
+    ptr[:, 0] = 0
+    within = np.arange(len(rows_concat), dtype=np.int64) - np.repeat(starts_chunk, binsz)
+    ptr[chunk_of, within + 1] = local_end.astype(np.int32)
+    idx = np.full((k, nnz_pad), fill, np.int32)
+    nz = lens > 0
+    if nz.any():
+        src = _segment_sources(mat.indptr, rows_concat[nz], lens[nz])
+        lr = lens[nz]
+        dst = np.repeat(chunk_of[nz] * nnz_pad + local_end[nz] - lr, lr) + (
+            np.arange(int(lr.sum()), dtype=np.int64) - np.repeat(np.cumsum(lr) - lr, lr)
+        )
+        idx.reshape(-1)[dst] = mat.indices[src]
+    return ptr, idx
+
+
 # Per-dispatch expansion-slot budget (verbatim): larger products run as
 # several uniform dispatch groups.
 DISPATCH_SLOT_BUDGET = 1 << 27
@@ -1196,20 +1553,22 @@ def cached_executor(
     a: BCSR,
     b: BCSR,
     *,
+    masked: bool = False,
     allow_bsr: bool = False,
     device: str | torch.device = "cuda",
 ):
     """A staged executor for C = A·B, cached on operand IDENTITY (checked
-    through weakrefs), ``allow_bsr`` and device; FIFO eviction at
+    through weakrefs), ``masked``, ``allow_bsr`` and device; FIFO eviction at
     ``_EXEC_CACHE_MAX`` executors, oversized operands never cached.
 
-    ``allow_bsr=True`` lets block-clustered products route to the staged
-    blocked engine (:func:`..bsr.maybe_bsr_executor`); only callers that need
-    nothing beyond ``assemble(run())`` may pass it, as the one-shot
-    ``spgemm`` does.  Otherwise, and where the screen declines, the
-    sliced-ELL plan of :func:`_auto_ell` serves the product."""
+    ``allow_bsr=True`` lets block-clustered plain products route to the
+    staged blocked engine (:func:`..bsr.maybe_bsr_executor`); only callers
+    that need nothing beyond ``assemble(run())`` may pass it, as the one-shot
+    ``spgemm`` does (the blocked executor serves no op family).  Otherwise,
+    and where the screen declines, the sliced-ELL plan of :func:`_auto_ell`
+    (``masked`` for the op family's plan) serves the product."""
     device = torch.device(device)
-    key = (id(a), id(b), allow_bsr, str(device))
+    key = (id(a), id(b), masked, allow_bsr, str(device))
     hit = _EXEC_CACHE.get(key)
     if hit is not None:
         wa, wb, ex = hit
@@ -1217,12 +1576,12 @@ def cached_executor(
             return ex
         del _EXEC_CACHE[key]
     ex = None
-    if allow_bsr:
+    if allow_bsr and not masked:
         from .bsr import maybe_bsr_executor
 
         ex = maybe_bsr_executor(a, b, device=device)
     if ex is None:
-        ex = _auto_ell(a, b, device=device)
+        ex = _auto_ell(a, b, masked=masked, device=device)
     if a.nnz + b.nnz <= _EXEC_CACHE_MAX_NNZ:
         while len(_EXEC_CACHE) >= _EXEC_CACHE_MAX:
             _EXEC_CACHE.pop(next(iter(_EXEC_CACHE)))
@@ -1239,7 +1598,8 @@ def prefer_batched(a: BCSR, b: BCSR) -> bool:
     return a.n_rows > 160 * cap or a.n_rows >= (1 << 16)
 
 
-def _auto_ell(a: BCSR, b: BCSR, *, device: str | torch.device = "cuda"):
+def _auto_ell(a: BCSR, b: BCSR, *, masked: bool = False,
+              device: str | torch.device = "cuda"):
     """The ELL executor the auto path wants: batched 2-D when the many-rows
     rule says so AND the planned stream passes the skew guard, else the
     unrolled (contiguous or dealt) plan.  Raises ``OverflowError`` only when
@@ -1247,12 +1607,12 @@ def _auto_ell(a: BCSR, b: BCSR, *, device: str | torch.device = "cuda"):
     if prefer_batched(a, b):
         try:
             return EllSpGEMMExecutor(
-                a, b, batched=True, batched_slots_cap=BATCHED_MAX_SLOTS,
-                device=device,
+                a, b, masked=masked, batched=True,
+                batched_slots_cap=BATCHED_MAX_SLOTS, device=device,
             )
         except OverflowError:
             pass
-    return EllSpGEMMExecutor(a, b, device=device)
+    return EllSpGEMMExecutor(a, b, masked=masked, device=device)
 
 
 def tuned_executor(
@@ -1276,24 +1636,20 @@ def tuned_executor(
     a sorted list of ``(seconds, k)``.  Candidates whose plan overflows or
     trips the skew guard are skipped, as are those the card has no memory
     for; any other failure raises.  If no batched plan exists, or no
-    candidate survives, the unrolled plan is returned.  ``masked=True`` (the
-    op family, ROADMAP.md Queue 1 item 4) raises ``NotImplementedError``."""
-    if masked:
-        raise NotImplementedError(
-            "masked plans belong to the op family, which is not ported yet "
-            "(ROADMAP.md, Queue 1 item 4)"
-        )
+    candidate survives, the unrolled plan is returned.  ``masked=True``
+    tunes the op family's plans (each candidate built with ``masked=True``
+    and timed on :meth:`~EllSpGEMMExecutor.run`, as in the JAX package)."""
     device = resolve_device(device)
 
     try:
         ex0 = EllSpGEMMExecutor(
-            a, b, batched=True, batched_slots_cap=BATCHED_MAX_SLOTS,
-            device=device,
+            a, b, masked=masked, batched=True,
+            batched_slots_cap=BATCHED_MAX_SLOTS, device=device,
         )
     except OverflowError:
         ex0 = None
     if ex0 is None or not ex0.batched:
-        return EllSpGEMMExecutor(a, b, device=device)
+        return EllSpGEMMExecutor(a, b, masked=masked, device=device)
     # every k within ``margin`` of the model's best, at most ``top`` of them:
     # the model ranks coarsely where tuning matters, so a cost margin keeps
     # every plausibly best plan
@@ -1319,12 +1675,12 @@ def tuned_executor(
     for k in ks + [0]:
         try:
             if k == 0:
-                ex = EllSpGEMMExecutor(a, b, device=device)
+                ex = EllSpGEMMExecutor(a, b, masked=masked, device=device)
             elif ex0 is not None and k == ex0.n_chunks:
                 ex = ex0
             else:
                 ex = EllSpGEMMExecutor(
-                    a, b, batched=True, deal_k=k,
+                    a, b, masked=masked, batched=True, deal_k=k,
                     batched_slots_cap=BATCHED_MAX_SLOTS, device=device,
                 )
         except OverflowError:  # the plan overflows or trips the skew guard
@@ -1344,7 +1700,7 @@ def tuned_executor(
             ex0 = None  # measured: the seed need not stay resident on a loss
         del ex
     if best is None:
-        return EllSpGEMMExecutor(a, b, device=device)
+        return EllSpGEMMExecutor(a, b, masked=masked, device=device)
     best.tune_report = sorted(report)
     return best
 

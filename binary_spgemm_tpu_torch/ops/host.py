@@ -5,7 +5,8 @@ product whose Gustavson flop count is tiny (the reference's own validity
 fixture, n = 50000 with 25,000 nnz, is the canonical one) costs less on the
 host than one round trip to the card, so :func:`..spgemm.spgemm` diverts
 products of at most :data:`HOST_MAX_FLOPS` flops here, as the JAX package's
-router does.
+router does, and the masked, union and fused-OR families divert their small
+products here the same way (:data:`HOST_OR_MAX_NNZ` for the last two).
 
 The engine is the JAX package's numpy tier: a vectorised expand–sort–compress
 (grouped-arange expansion, then ``np.unique`` over int64 ``row * m + col``
@@ -19,10 +20,20 @@ import numpy as np
 
 from ..formats.bcsr import BCSR
 
-__all__ = ["HOST_MAX_FLOPS", "host_spgemm"]
+__all__ = [
+    "HOST_MAX_FLOPS",
+    "HOST_OR_MAX_NNZ",
+    "host_masked_spgemm",
+    "host_spgemm",
+    "host_spgemm_or",
+    "host_spm_or",
+]
 
 # Router threshold (verbatim): products of at most this many flops run here.
 HOST_MAX_FLOPS = 2_000_000
+
+# Union router threshold on the operands' combined nnz (verbatim).
+HOST_OR_MAX_NNZ = 1 << 18
 
 
 def _expand_numpy(a: BCSR, b: BCSR) -> tuple[np.ndarray, np.ndarray]:
@@ -59,3 +70,31 @@ def host_spgemm(a: BCSR, b: BCSR) -> BCSR:
     rows, cols = _expand_numpy(a, b)
     keys = np.unique(rows * np.int64(m) + cols)
     return _keys_to_csr(keys, n, m)
+
+
+def host_spm_or(a: BCSR, b: BCSR) -> BCSR:
+    """C = A OR B on the host: one ``np.unique`` over both operands' packed
+    ``row * m + col`` keys."""
+    n, m = a.shape
+    ra, ca = a.to_coo()
+    rb, cb = b.to_coo()
+    keys = np.unique(np.concatenate([ra * np.int64(m) + ca, rb * np.int64(m) + cb]))
+    return _keys_to_csr(keys, n, m)
+
+
+def host_masked_spgemm(f: BCSR, a: BCSR, b: BCSR) -> BCSR:
+    """C = F .* (A·B) on the host (mask first; ``f`` canonical)."""
+    n, m = a.n_rows, b.n_cols
+    rows, cols = _expand_numpy(a, b)
+    keys = np.unique(rows * np.int64(m) + cols)
+    f_rows, f_cols = f.to_coo()
+    keys = np.intersect1d(keys, f_rows * np.int64(m) + f_cols, assume_unique=True)
+    return _keys_to_csr(keys, n, m)
+
+
+def host_spgemm_or(d: BCSR, a: BCSR, b: BCSR, mask: BCSR | None = None) -> BCSR:
+    """C = D OR ((mask .*)? (A·B)) on the host, from the host product and the
+    key union.  D is unconditional (``D ∪ (F ∩ A·B)``), as on the device
+    engines (see :mod:`.fused`)."""
+    c = host_spgemm(a, b) if mask is None else host_masked_spgemm(mask, a, b)
+    return host_spm_or(d, c)

@@ -55,11 +55,16 @@ __all__ = [
     "pad_chunk_csr",
     "packable",
     "pull_chunk_prefixes",
+    "pull_padded_tuple",
     "pull_prefix",
     "require_int32_operands",
     "resolve_device",
     "row_flops",
     "sort_compress",
+    "sort_compress_masked",
+    "sort_compress_masked_seps",
+    "sort_compress_masked_seps_2d",
+    "sort_compress_masked_seps_2d_keys",
     "sort_compress_seps",
     "sort_compress_seps_2d",
     "sort_compress_seps_2d_keys",
@@ -102,16 +107,18 @@ def packable(n_rows: int, n_cols: int) -> bool:
 def _scatter_drop(size: int, fill: int, index: torch.Tensor, src: torch.Tensor,
                   reduce: str) -> torch.Tensor:
     """``jnp.full(size, fill).at[index].add(src)`` (``reduce="sum"``) or
-    ``.max(src)`` (``"amax"``) with JAX's ``mode="drop"``: indices outside
-    ``[0, size)`` are dropped.  They scatter into one extra slot that is cut
-    off, since torch's scatters raise on them."""
+    ``.max(src)`` (``"amax"``) along the last axis, with JAX's
+    ``mode="drop"``: indices outside ``[0, size)`` are dropped.  They scatter
+    into one extra slot that is cut off, since torch's scatters raise on
+    them."""
     index = torch.where((index >= 0) & (index < size), index, size).long()
-    buf = torch.full((size + 1,), fill, dtype=src.dtype, device=src.device)
+    buf = torch.full((*index.shape[:-1], size + 1), fill, dtype=src.dtype,
+                     device=src.device)
     if reduce == "sum":
-        buf.scatter_add_(0, index, src)
+        buf.scatter_add_(-1, index, src)
     else:
-        buf.scatter_reduce_(0, index, src, "amax", include_self=True)
-    return buf[:size]
+        buf.scatter_reduce_(-1, index, src, "amax", include_self=True)
+    return buf[..., :size]
 
 
 # torch.cummax scans each row of its input in one thread block, so a 1-D
@@ -122,36 +129,38 @@ _SCAN_ROW = 1024
 
 
 def _running_max(x: torch.Tensor) -> torch.Tensor:
-    """``torch.cummax(x, 0).values`` of a 1-D integer tensor: the running
-    maximum within each row of ``_SCAN_ROW`` slots, then the maximum of all
-    earlier rows carried in (itself a running maximum, over the rows'
-    last slots)."""
-    n = x.shape[0]
+    """``torch.cummax(x, -1).values`` of an integer tensor: the running
+    maximum within each segment of ``_SCAN_ROW`` slots of the last axis,
+    then the maximum of all earlier segments carried in (itself a running
+    maximum, over the segments' last slots)."""
+    n = x.shape[-1]
     if n <= _SCAN_ROW:
-        return torch.cummax(x, 0).values if n else x.clone()
+        return torch.cummax(x, -1).values if n else x.clone()
+    lead = x.shape[:-1]
     low = torch.iinfo(x.dtype).min
     pad = -n % _SCAN_ROW
-    rows = (torch.cat([x, x.new_full((pad,), low)]) if pad else x).view(-1, _SCAN_ROW)
-    local = torch.cummax(rows, 1).values
-    carry = _running_max(local[:, -1].contiguous())
-    carry = torch.cat([carry.new_full((1,), low), carry[:-1]])
-    return torch.maximum(local, carry[:, None]).view(-1)[:n]
+    if pad:
+        x = torch.cat([x, x.new_full((*lead, pad), low)], dim=-1)
+    local = torch.cummax(x.reshape(*lead, -1, _SCAN_ROW), -1).values
+    carry = _running_max(local[..., -1].contiguous())
+    carry = torch.cat([carry.new_full((*lead, 1), low), carry[..., :-1]], dim=-1)
+    return torch.maximum(local, carry[..., None]).reshape(*lead, -1)[..., :n]
 
 
 def _owner_scan(starts: torch.Tensor, lengths: torch.Tensor, size: int) -> torch.Tensor:
     """For ``size`` flat slots partitioned into segments (``starts[k]`` the
     first slot of segment k, ``lengths[k]`` its extent), the owning segment
     id of each slot: a scatter-max of segment ids at their starts, then a
-    running maximum."""
-    k = torch.arange(starts.shape[0], dtype=INT, device=starts.device)
+    running maximum.  Leading axes are a stack of independent scans."""
+    k = torch.arange(starts.shape[-1], dtype=INT, device=starts.device).expand(starts.shape)
     dst = torch.where(lengths > 0, starts, size)  # empty segments own no slots
     return _running_max(_scatter_drop(size, 0, dst, k, "amax"))
 
 
 def _row_ids(indptr: torch.Tensor, nnz_pad: int) -> torch.Tensor:
     """Row id of each CSR entry (the padded tail gets the last row id;
-    callers mask)."""
-    return _owner_scan(indptr[:-1], indptr[1:] - indptr[:-1], nnz_pad)
+    callers mask); a stack of row-pointer arrays gives a stack of row ids."""
+    return _owner_scan(indptr[..., :-1], indptr[..., 1:] - indptr[..., :-1], nnz_pad)
 
 
 def _forward_fill_last(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -261,14 +270,18 @@ def expand_pairs(
 # ---------------------------------------------------------------------------
 
 
+def _prev(x: torch.Tensor, fill: int) -> torch.Tensor:
+    """Each slot's left neighbour along the last axis, ``fill`` at slot 0."""
+    return torch.cat([x.new_full((*x.shape[:-1], 1), fill), x[..., :-1]], dim=-1)
+
+
 def _compact_sorted(key: torch.Tensor, limit: int, demote: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort ``key``, keep the first of each run of equal keys below
     ``limit``, demote the rest to ``demote`` and sort again, so the kept keys
     form the prefix.  Returns ``(compacted keys, kept count)``."""
     key_s = torch.sort(key).values
-    prev = torch.cat([key_s.new_full((1,), -1), key_s[:-1]])[: key_s.shape[0]]
-    keep = (key_s != prev) & (key_s < limit)
+    keep = (key_s != _prev(key_s, -1)) & (key_s < limit)
     nnz_c = keep.sum(dtype=INT)
     return torch.sort(torch.where(keep, key_s, demote)).values, nnz_c
 
@@ -291,13 +304,27 @@ def _histogram_indptr_wins(n_rows: int, n_slots: int) -> bool:
 
 
 def _indptr_from_sorted_rows(rows_sorted: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """Exclusive row pointers from (sorted) per-entry row ids: one
-    scatter-add histogram and a cumsum.  Entries with ``row >= n_rows`` (sort
-    sentinels) land in a tail bucket that is cut off."""
+    """Exclusive row pointers from (sorted) per-entry row ids along the last
+    axis: one scatter-add histogram and a cumsum.  Entries with ``row >=
+    n_rows`` (sort sentinels) land in a tail bucket that is cut off."""
     idx = torch.clamp(rows_sorted, max=n_rows).long() + 1
-    counts = torch.zeros(n_rows + 2, dtype=INT, device=rows_sorted.device)
-    counts.scatter_add_(0, idx, torch.ones_like(idx, dtype=INT))
-    return torch.cumsum(counts, 0, dtype=INT)[: n_rows + 1]
+    counts = torch.zeros((*idx.shape[:-1], n_rows + 2), dtype=INT,
+                         device=rows_sorted.device)
+    counts.scatter_add_(-1, idx, torch.ones_like(idx, dtype=INT))
+    return torch.cumsum(counts, -1, dtype=INT)[..., : n_rows + 1]
+
+
+def _indptr(rows_sorted: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Exclusive row pointers of sorted row ids: a 1-D stream takes the
+    formulation :func:`_histogram_indptr_wins` picks, a stack of streams the
+    histogram (the JAX package's batched choice).  Both give the same
+    pointers."""
+    if rows_sorted.dim() == 1 and not _histogram_indptr_wins(
+            n_rows, rows_sorted.shape[0]):
+        bounds = torch.arange(n_rows + 1, dtype=rows_sorted.dtype,
+                              device=rows_sorted.device)
+        return torch.searchsorted(rows_sorted, bounds, out_int32=True)
+    return _indptr_from_sorted_rows(rows_sorted, n_rows)
 
 
 def sort_compress(
@@ -306,28 +333,14 @@ def sort_compress(
     """Sort candidate (row, col) pairs, deduplicate, and compact into CSR
     form.  Pairs with ``row == n_rows`` are padding sentinels.  Returns
     ``(c_indptr [n_rows+1], c_indices padded [len(row)], nnz_c)``."""
-    n_slots = row.shape[0]
     if packable(n_rows, n_cols):
         shift = int(n_cols).bit_length()
         c_keys, nnz_c = _compact_sorted((row << shift) | col, n_rows << shift,
                                         INT32_MAX)
-        c_indices = c_keys & ((1 << shift) - 1)
-        if _histogram_indptr_wins(n_rows, n_slots):
-            c_indptr = _indptr_from_sorted_rows(c_keys >> shift, n_rows)
-        else:
-            bounds = torch.arange(n_rows + 1, dtype=INT, device=row.device) << shift
-            c_indptr = torch.searchsorted(c_keys, bounds, out_int32=True)
-        return c_indptr, c_indices, nnz_c
+        return _indptr(c_keys >> shift, n_rows), c_keys & ((1 << shift) - 1), nnz_c
     c_keys, nnz_c = _compact_sorted(_pair_key(row, col), n_rows << 32,
                                     (n_rows << 32) | n_cols)
-    c_rows = c_keys >> 32
-    c_indices = (c_keys & 0xFFFFFFFF).to(INT)
-    if _histogram_indptr_wins(n_rows, n_slots):
-        c_indptr = _indptr_from_sorted_rows(c_rows, n_rows)
-    else:
-        bounds = torch.arange(n_rows + 1, dtype=torch.int64, device=row.device)
-        c_indptr = torch.searchsorted(c_rows, bounds, out_int32=True)
-    return c_indptr, c_indices, nnz_c
+    return _indptr(c_keys >> 32, n_rows), (c_keys & 0xFFFFFFFF).to(INT), nnz_c
 
 
 def sort_compress_seps_keys(
@@ -364,15 +377,9 @@ def sort_compress_seps_2d_keys(
     to ``INT32_MAX`` and sorting again.  Returns the column field of the
     compacted keys (separators embedded, so each chunk's row pointers ride in
     the stream) and the per-row valid count ``nnz [k]`` (int32)."""
-    k = key.shape[0]
     shift = int(n_cols).bit_length()
-    limit = n_rows << shift
     key_s = sort_rows_1key(key)
-    prev = torch.cat(
-        [torch.full((k, 1), -1, dtype=INT, device=key.device), key_s[:, :-1]],
-        dim=1,
-    )
-    keep = (key_s != prev) & (key_s < limit)
+    keep = (key_s != _prev(key_s, -1)) & (key_s < (n_rows << shift))
     nnz_c = keep.sum(dim=1, dtype=INT)
     demoted = torch.where(keep, key_s, INT32_MAX)
     c_keys = sort_rows_1key(demoted)
@@ -390,19 +397,155 @@ def sort_compress_seps_2d(
     if packable(n_rows, n_cols):
         shift = int(n_cols).bit_length()
         return sort_compress_seps_2d_keys((row << shift) | col, n_rows, n_cols)
-    k = row.shape[0]
-    key = _pair_key(row, col)
-    key_s = torch.sort(key, dim=1).values
-    prev = torch.cat(
-        [torch.full((k, 1), -1, dtype=torch.int64, device=key.device),
-         key_s[:, :-1]],
-        dim=1,
-    )
-    keep = (key_s != prev) & ((key_s >> 32) < n_rows)
+    key_s = torch.sort(_pair_key(row, col), dim=1).values
+    keep = (key_s != _prev(key_s, -1)) & ((key_s >> 32) < n_rows)
     nnz_c = keep.sum(dim=1, dtype=INT)
     demoted = torch.where(keep, key_s, (n_rows << 32) | n_cols)
     c_keys = torch.sort(demoted, dim=1).values
     return (c_keys & 0xFFFFFFFF).to(INT), nnz_c
+
+
+# ---------------------------------------------------------------------------
+# Tagged joins: the masked and fused-OR compress steps
+# ---------------------------------------------------------------------------
+
+
+def _shr_logical(x: torch.Tensor, s: int) -> torch.Tensor:
+    """``jax.lax.shift_right_logical`` of int32 ``x`` by ``1 <= s < 32``:
+    torch's ``>>`` is arithmetic, so the copies of the sign bit it shifts
+    in are masked off."""
+    return (x >> s) & ((1 << (32 - s)) - 1)
+
+
+def _sort_keys(x: torch.Tensor) -> torch.Tensor:
+    """Ascending sort along the last axis: a stack of int32 rows through
+    :func:`..bitonic.sort_rows` (K1 within its window, ``torch.sort`` past
+    it), as the ELL engines sort; a 1-D stream or int64 keys through
+    ``torch.sort``, as ESC sorts."""
+    if x.dim() == 2 and x.dtype == INT:
+        return sort_rows_1key(x)
+    return torch.sort(x, dim=-1).values
+
+
+def _sort_tagged(blocks, n_rows: int, n_cols: int, tag_bits: int):
+    """The JAX package's three-key ``lax.sort((rows, cols, tags))`` along the
+    last axis over the concatenated ``(row, col, tag)`` blocks (``tag`` an
+    int per block): one int64 key ``(row << (c + t)) | (col << t) | tag``
+    where it fits 63 bits, else two stable sorts, the low fields first.
+    Returns the sorted rows, columns and tags (int32)."""
+    cb = int(n_cols).bit_length() + tag_bits
+    rows = torch.cat([r for r, _, _ in blocks], dim=-1).to(torch.int64)
+    low = torch.cat([(c.to(torch.int64) << tag_bits) | t for _, c, t in blocks],
+                    dim=-1)
+    if int(n_rows).bit_length() + cb <= 63:
+        key = torch.sort((rows << cb) | low, dim=-1).values
+        rows, low = key >> cb, key & ((1 << cb) - 1)
+    else:
+        low, perm = torch.sort(low, dim=-1, stable=True)
+        rows, perm = torch.sort(torch.gather(rows, -1, perm), dim=-1, stable=True)
+        low = torch.gather(low, -1, perm)
+    tag_mask = (1 << tag_bits) - 1
+    return rows.to(INT), (low >> tag_bits).to(INT), (low & tag_mask).to(INT)
+
+
+def _compact_pairs(keep, row_s, col_s, n_rows: int, n_cols: int):
+    """Demote the pairs ``keep`` drops to ``(n_rows, n_cols)`` and sort again
+    (one int64 key), so the kept pairs form the prefix.  Returns ``(columns,
+    row ids, nnz)`` of the compacted stream."""
+    nnz_c = keep.sum(-1, dtype=INT)
+    c_keys = torch.sort(torch.where(keep, _pair_key(row_s, col_s),
+                                    (n_rows << 32) | n_cols), dim=-1).values
+    return (c_keys & 0xFFFFFFFF).to(INT), c_keys >> 32, nnz_c
+
+
+def _masked_compress(row, col, f_row, f_col, n_rows: int, n_cols: int, *,
+                     seps: bool, key=None):
+    """The sort-fused mask join along the last axis: mask pairs join the
+    candidate stream tagged to sort first within an equal (row, col) run, so
+    a candidate survives iff its left neighbour is its own pair's mask
+    entry (later duplicates see a candidate and die).  With ``seps`` the
+    ``(r, n_cols)`` candidates (row separators) survive unconditionally.
+    ``f_row``/``f_col`` are sentinel-masked already.
+
+    Where ``packable(n_rows, 2 * n_cols + 1)`` the join key is the int32
+    ``(plain key << 1) | 1`` (``key`` the plain packed keys ``(row << bl) |
+    col``, else built from the pairs) and the mask's ``(row << bl + 1) |
+    (col << 1)``; otherwise the three-key sort of :func:`_sort_tagged`.
+    Returns ``(columns, row ids, nnz)`` of the compacted stream."""
+    if packable(n_rows, 2 * n_cols + 1):
+        bl = int(n_cols).bit_length()
+        shift, col_mask = bl + 1, (1 << bl) - 1
+        if key is None:
+            key = (row << bl) | col
+        key_s = _sort_keys(torch.cat([(key << 1) | 1,
+                                      (f_row << shift) | (f_col << 1)], dim=-1))
+        is_cand = (key_s & 1) == 1
+        in_range = key_s < ((n_rows << shift) | 1)
+        keep = is_cand & (_prev(key_s, -2) == (key_s & ~1)) & in_range
+        if seps:
+            keep |= is_cand & in_range & (((key_s >> 1) & col_mask) == n_cols)
+        nnz_c = keep.sum(-1, dtype=INT)
+        c_keys = _sort_keys(torch.where(keep, key_s, INT32_MAX))
+        return (c_keys >> 1) & col_mask, c_keys >> shift, nnz_c
+    row_s, col_s, tag_s = _sort_tagged([(row, col, 1), (f_row, f_col, 0)],
+                                       n_rows, n_cols, 1)
+    in_range = row_s < n_rows
+    keep = ((tag_s == 1) & (row_s == _prev(row_s, -1))
+            & (col_s == _prev(col_s, -1)) & (_prev(tag_s, 1) == 0) & in_range)
+    if seps:
+        keep |= (tag_s == 1) & (col_s == n_cols) & in_range
+    return _compact_pairs(keep, row_s, col_s, n_rows, n_cols)
+
+
+def _mask_tail(f_row, f_col, f_nnz, n_rows: int, n_cols: int):
+    """Padded mask pairs with the slots at or past ``f_nnz`` set to the
+    ``(n_rows, n_cols)`` sentinel."""
+    valid = torch.arange(f_row.shape[-1], dtype=INT, device=f_row.device) < f_nnz
+    return torch.where(valid, f_row, n_rows), torch.where(valid, f_col, n_cols)
+
+
+def sort_compress_masked(row, col, f_row, f_col, f_nnz, n_rows: int, n_cols: int
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Masked sort/compress: keep the candidate pairs that appear in mask F
+    (:func:`_masked_compress`).  ``f_row``/``f_col`` are padded mask pairs
+    (slots at or past ``f_nnz`` are ignored); F must be canonical.  Same
+    sentinels and return contract as :func:`sort_compress`, over ``len(row)
+    + len(f_row)`` slots."""
+    f_row, f_col = _mask_tail(f_row, f_col, f_nnz, n_rows, n_cols)
+    cols, rows, nnz_c = _masked_compress(row, col, f_row, f_col, n_rows, n_cols,
+                                         seps=False)
+    return _indptr(rows, n_rows), cols, nnz_c
+
+
+def sort_compress_masked_seps(row, col, f_row, f_col, f_nnz, n_rows: int,
+                              n_cols: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sort_compress_masked` with embedded row separators (callers
+    append one ``(r, n_cols)`` candidate per output row; they survive the
+    join unconditionally).  Returns ``(indices, nnz)``.  The unrolled ELL
+    engine runs the 2-D form over a dispatch group, whose rows are this."""
+    f_row, f_col = _mask_tail(f_row, f_col, f_nnz, n_rows, n_cols)
+    return sort_compress_masked_seps_2d(row, col, f_row, f_col, n_rows, n_cols)
+
+
+def sort_compress_masked_seps_2d(row, col, f_row, f_col, n_rows: int, n_cols: int
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched :func:`sort_compress_masked_seps`: ``[k, Lc]`` candidate
+    streams (separators included) and ``[k, Pf]`` sentinel-masked mask
+    pairs, joined along the last axis.  Returns separator-embedded
+    ``(indices [k, Lc + Pf], nnz [k])``."""
+    cols, _, nnz_c = _masked_compress(row, col, f_row, f_col, n_rows, n_cols,
+                                      seps=True)
+    return cols, nnz_c
+
+
+def sort_compress_masked_seps_2d_keys(key, f_row, f_col, n_rows: int, n_cols: int
+                                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sort_compress_masked_seps_2d` on the pre-packed plain key
+    stream ``(row << bl) | col`` (the caller checks ``packable(n_rows, 2 *
+    n_cols + 1)``); the join key is ``(key << 1) | 1``."""
+    cols, _, nnz_c = _masked_compress(None, None, f_row, f_col, n_rows, n_cols,
+                                      seps=True, key=key)
+    return cols, nnz_c
 
 
 def split_seps(
@@ -733,6 +876,17 @@ class _Prefetch:
 def _host(x) -> np.ndarray:
     """A prefetched copy or a tensor on the host as numpy."""
     return x.numpy() if isinstance(x, _Prefetch) else x.cpu().numpy()
+
+
+def pull_padded_tuple(c_ptr, c_idx, nnz_c) -> tuple[np.ndarray, np.ndarray, int]:
+    """One chunk's ``(indptr, indices, nnz)`` on the host (each a tensor or a
+    :class:`_Prefetch`): the indices' valid prefix in one copy."""
+    nnz_i = int(_host(nnz_c))
+    if isinstance(c_idx, _Prefetch):
+        idx = c_idx.numpy()[:nnz_i]
+    else:
+        idx = pull_prefix(c_idx, nnz_i)
+    return _host(c_ptr), idx, nnz_i
 
 
 # ---------------------------------------------------------------------------

@@ -103,7 +103,23 @@ Phases, each reported on its own lines; any failure exits non-zero:
     launches), equal to phase 11's product; (d) ``tuned_executor`` on the
     bench config, its ``tune_report`` and a bit-exact winner, then again
     with ``times=10``, to show whether the winner holds;
-17. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
+17. the masked, union and fused-OR family and the one-sort step, each
+    product bit-exact against scipy and its expected nnz, with the launch
+    counts set to 0 just before it and read just after: on the bench config
+    ``masked_spgemm(A, A, A)`` (the batched ``masked=True`` plan, K1's
+    shared-memory kernel twice a group, P4 once), again through ESC
+    (``chunk_flops``, no hand kernel), ``spgemm_or(A, A, A)`` with and
+    without ``mask=A``, ``spm_or(A, C)``, and ``run_padded()`` ->
+    ``assemble_padded()`` equal to phase 5's product (K1's register kernel
+    once a group); ``masked_spgemm(A, A, A)`` on rmat-s16 (batched,
+    ``torch.sort``, P4) and random 32k (unrolled, ``torch.sort``, P3); the
+    three ops on validity-class through the host routes (no launch).  Then
+    K1 against its plain version and ``torch.sort`` on the three bench join
+    streams (``[512, 7232]``, ``[1024, 4352]``, ``[512, 7552]``), the
+    ``run_masked`` / ``run_or`` / ``run_padded`` medians beside phase 7's
+    ``run()`` with their assembly and peak memory, and the staged side
+    operands' running maximum along rows;
+18. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -138,6 +154,14 @@ GIANT_BUDGET, GIANT_ROWS = 1 << 17, 17
 RAND32K, RAND32K_NNZ = (32768, 16.0, 7), 8_360_900
 # validity-class, BCSR.random(n, n, d, seed): the host engine
 VALIDITY, VALIDITY_NNZ = (50000, 0.5, 7), 12_596
+# phase 17's op family (scipy's counts): F .* (A·A) with F = A on the bench
+# config, rmat-s16 and random 32k, and A ∪ A·A on the bench config
+BENCH_MASKED_NNZ, BENCH_OR_NNZ = 4_570, 17_746_297
+RMAT16_MASKED_NNZ, RAND32K_MASKED_NNZ = 357_336, 4_535
+# the smem K1 rows the op family sorts on the bench config: the masked join
+# (sort_pad 6912 + mask pad 320), A ∪ A·A (3968 + D pad 160, bucketed) and
+# the masked A ∪ A·A (6912 + 320 + 320)
+OP_SHAPES = {"masked": (512, 7232), "or": (1024, 4352), "or-masked": (512, 7552)}
 GATHER_WIDTHS = (1, 2, 3, 16, 40, 10240)
 NETWORK_LENGTHS = (2, 128, 256, 4096, 32768)  # P1/P2 around K1's variant bounds
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -200,7 +224,7 @@ def sort_bound_ms(numel: int, length: int, sorts: int = 1) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def profile_run(torch, run, reps: int = 3) -> dict | None:
+def profile_run(torch, run, reps: int = 3, label: str = "run()") -> dict | None:
     """Device time of ``run()`` by kernel name (torch.profiler), and the
     device's idle share on the profiler's own device timeline: the time
     between the first recorded kernel's start and the last one's end that no
@@ -226,7 +250,7 @@ def profile_run(torch, run, reps: int = 3) -> dict | None:
         if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start
     )
     if not spans:
-        print("profile of run(): the profiler recorded no device time "
+        print(f"profile of {label}: the profiler recorded no device time "
               "(busy share not measured)")
         return None
     window = max(s[1] for s in spans) - spans[0][0]
@@ -236,7 +260,7 @@ def profile_run(torch, run, reps: int = 3) -> dict | None:
         busy += max(0.0, t1 - max(t0, reach))
         reach = max(reach, t1)
         per_name.setdefault(name, []).append(t1 - t0)
-    print(f"profile of run() (torch.profiler, {reps} runs, {len(spans)} device "
+    print(f"profile of {label} (torch.profiler, {reps} runs, {len(spans)} device "
           f"events recorded): CUDA-event wall {wall:.4f} ms per run; device "
           f"timeline {window / 1e3:.4f} ms from the first kernel's start to the "
           f"last one's end, busy {busy / 1e3:.4f} ms, idle share "
@@ -788,6 +812,241 @@ def esc_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     check(tex.assemble(tex.run()).equals(c), "tuned_executor's times=10 winner differs")
     out["tuned"]["times10"] = {"report_ms_k": report10, "winner_k": report10[0][1],
                                "s": tune_s}
+    return out
+
+
+def capture_sort_inputs(sp, fn) -> dict:
+    """Run ``fn()`` with the ``sort_rows`` the compress steps call spied on:
+    the first input of each distinct shape, cloned (a join's unsorted
+    stream; the demoted one that follows has the same shape)."""
+    seen: dict = {}
+    real = sp.sort_rows_1key
+
+    def spy(x):
+        if tuple(x.shape) not in seen:
+            seen[tuple(x.shape)] = x.clone()
+        return real(x)
+
+    sp.sort_rows_1key = spy
+    try:
+        fn()
+    finally:
+        sp.sort_rows_1key = real
+    return seen
+
+
+def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
+                    k1_by_variant, bench, bench_run_ms: float) -> dict:
+    """The masked, union and fused-OR family and the one-sort step (phase
+    17).  ``bench`` is ``(A, C = A·A)`` from phase 5, C already bit-exact
+    against scipy.  Every product is held against scipy (the oracles of
+    ``utils/oracle.py``, ``A + C`` in scipy) and its expected nnz; the
+    launch counts and sort routes are set to 0 just before each product and
+    read just after.  Then K1 against its plain version and ``torch.sort``
+    on the join streams the bench products sort, and the ``run_*`` times.
+    Returns the numbers for the summary and the kernels line."""
+    sp, ell, bitonic, host = api["spgemm_mod"], api["ell"], api["bitonic"], api["host"]
+    BCSR, masked_oracle = api["BCSR"], api["masked_spgemm_oracle"]
+    a, c = bench
+    sa = a.to_scipy()
+    out: dict = {"products": {}}
+
+    def csr(m):
+        m = m.tocsr()
+        m.eliminate_zeros()
+        m.sort_indices()
+        return BCSR(m.indptr, m.indices, m.shape)
+
+    def peak_above(base: int) -> float:
+        """MiB allocated at the peak beyond what was held before (earlier
+        phases' tensors)."""
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    def drive(label, fn, ref, nnz):
+        reset_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, rts, k1v = read_counts(), dict(routes), dict(k1_by_variant)
+        peak = peak_above(base)
+        print(f"{label}: {secs:.2f} s on the host clock (plan, stage, run, assemble); "
+              f"launches {launches}; K1 by variant {k1v}; sort_rows routes {rts}; "
+              f"peak device memory {peak:.1f} MiB above the {base / 2**20:.1f} MiB "
+              f"held before")
+        check(got.equals(ref), f"{label} differs from scipy")
+        check(got.nnz == nnz, f"{label}: output nnz {got.nnz} != {nnz}")
+        print(f"  bit-exact against scipy: output nnz {got.nnz}")
+        out["products"][label] = {"s": secs, "launches": launches, "k1_by_variant": k1v,
+                                  "routes": rts, "peak_mib": peak, "nnz": got.nnz}
+        return launches, rts, k1v
+
+    # (a) the bench config, every product on the ELL routes
+    masked_ref = masked_oracle(a, a, a)
+    or_ref = csr(sa + c.to_scipy())
+    launches, rts, k1v = drive("bench masked_spgemm(A, A, A)",
+                               lambda: api["masked_spgemm"](a, a, a), masked_ref,
+                               BENCH_MASKED_NNZ)
+    exm = ell.cached_executor(a, a, masked=True)
+    print(f"  masked plan: k={exm.n_chunks} groups={exm.n_groups}x{exm.group_size} "
+          f"rows_pad={exm.rows_pad} sort_pad={exm.sort_pad} mask pad "
+          f"{exm.staged_nnz_pad(a)}")
+    check(exm.batched and k1v == {"reg": 0, "smem": 2 * exm.n_groups}
+          and launches["class_gather_keys"] == exm.n_groups
+          and launches["class_gather"] == 0,
+          "the bench masked product did not sort with K1's smem kernel and P4")
+    launches, rts, k1v = drive("bench spgemm_or(A, A, A)",
+                               lambda: api["spgemm_or"](a, a, a), or_ref, BENCH_OR_NNZ)
+    exo = ell.cached_executor(a, a)
+    check(k1v == {"reg": 0, "smem": 2 * exo.n_groups}
+          and launches["class_gather_keys"] == exo.n_groups,
+          "bench A ∪ A·A did not sort with K1's smem kernel and P4")
+    launches, rts, k1v = drive("bench spgemm_or(A, A, A, mask=A)",
+                               lambda: api["spgemm_or"](a, a, a, mask=a),
+                               a.sum_duplicates(), a.sum_duplicates().nnz)
+    check(k1v == {"reg": 0, "smem": 2 * exm.n_groups}
+          and launches["class_gather_keys"] == exm.n_groups,
+          "the bench masked A ∪ A·A did not sort with K1's smem kernel and P4")
+    drive("bench spm_or(A, C)", lambda: api["spm_or"](a, c), or_ref, BENCH_OR_NNZ)
+    ex = api["auto_executor"](a, a)
+    reset_counts()
+    padded = ex.run_padded()
+    torch.cuda.synchronize()
+    cp = ex.assemble_padded(padded)
+    launches, rts, k1v = read_counts(), dict(routes), dict(k1_by_variant)
+    print(f"bench run_padded() -> assemble_padded(): launches {launches}; K1 by "
+          f"variant {k1v}; sort_rows routes {rts}")
+    check(cp.equals(c), "assemble_padded(run_padded()) differs from phase 5's product")
+    check(k1v == {"reg": ex.n_groups, "smem": 0}
+          and launches["class_gather_keys"] == ex.n_groups,
+          "run_padded did not sort once a group with K1's register kernel")
+    print(f"  equal to phase 5's product (bit-exact against scipy): output nnz {cp.nnz}")
+    out["products"]["bench run_padded"] = {"launches": launches, "k1_by_variant": k1v,
+                                           "routes": rts, "nnz": cp.nnz}
+    del padded, cp
+    launches, rts, _ = drive(
+        "bench masked_spgemm(A, A, A, chunk_flops=DEFAULT_CHUNK_FLOPS) (ESC)",
+        lambda: api["masked_spgemm"](a, a, a, chunk_flops=sp.DEFAULT_CHUNK_FLOPS),
+        masked_ref, BENCH_MASKED_NNZ)
+    check(not any(launches.values()) and not any(rts.values()),
+          "a hand kernel or sort_rows ran on the masked ESC path")
+
+    # (b) the masked product on the other plans
+    for label, make, nnz, expect in (
+            ("rmat-s16", lambda: BCSR.rmat(*RMAT16[:2], seed=RMAT16[2]), RMAT16_MASKED_NNZ,
+             "batched"),
+            ("random 32k", lambda: BCSR.random(RAND32K[0], RAND32K[0], RAND32K[1],
+                                               seed=RAND32K[2]), RAND32K_MASKED_NNZ,
+             "unrolled")):
+        m = make()
+        launches, rts, k1v = drive(f"{label} masked_spgemm(A, A, A)",
+                                   lambda: api["masked_spgemm"](m, m, m),
+                                   masked_oracle(m, m, m), nnz)
+        e = ell.cached_executor(m, m, masked=True)
+        print(f"  masked plan: {'batched' if e.batched else 'unrolled'} k={e.n_chunks} "
+              f"groups={e.n_groups}x{e.group_size} rows_pad={e.rows_pad} "
+              f"sort_pad={e.sort_pad} mask pad {e.staged_nnz_pad(m)}")
+        gathers = launches["class_gather_keys" if e.batched else "class_gather"]
+        check(e.batched == (expect == "batched") and gathers == e.n_groups
+              and rts == {"k1": 0, "torch_sort": 2 * e.n_groups},
+              f"{label}: the masked product did not take the expected plan and kernels")
+        del m, e
+        ell._EXEC_CACHE.clear()
+
+    # (c) validity-class through the host routes (A ∩ A·A is empty there, so
+    # the mask is A·A itself)
+    av = BCSR.random(VALIDITY[0], VALIDITY[0], VALIDITY[1], seed=VALIDITY[2])
+    sv = av.to_scipy()
+    cv = csr(sv @ sv)
+    for label, fn, ref in (
+            ("validity-class masked_spgemm(A·A, A, A)",
+             lambda: api["masked_spgemm"](cv, av, av), masked_oracle(cv, av, av)),
+            ("validity-class spgemm_or", lambda: api["spgemm_or"](av, av, av),
+             csr(sv + sv @ sv)),
+            ("validity-class spm_or", lambda: api["spm_or"](av, av), av.sum_duplicates())):
+        launches, rts, _ = drive(label, fn, ref, ref.nnz)
+        check(not any(launches.values()) and not any(rts.values()),
+              f"{label}: a kernel ran on the host route")
+
+    # (d) K1 on the join streams, against its plain version and torch.sort
+    staged_a = exm.stage_mask(a)
+    staged_o = exo.stage_mask(a)
+    streams = {}
+    for label, fn in (("masked", lambda: exm.run_masked(staged_a)),
+                      ("or", lambda: exo.run_or(staged_o)),
+                      ("or-masked", lambda: exm.run_or(staged_a, mask=staged_a))):
+        got = capture_sort_inputs(sp, fn)
+        check(OP_SHAPES[label] in got, f"{label}: no sort at {OP_SHAPES[label]}, "
+              f"sorted {sorted(got)}")
+        streams[label] = got[OP_SHAPES[label]]
+    k1_rows, err = [], 0
+    for label, x in streams.items():
+        k, L = x.shape
+        variant = bitonic.k1_variant(L)
+        got, want = bitonic.bitonic_sort_rows(x), bitonic.bitonic_sort_rows_plain(x)
+        torch.cuda.synchronize()
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want), f"K1 differs at the {label} join's {[k, L]}")
+        fns = [("k1", lambda: bitonic.bitonic_sort_rows(x)),
+               ("plain", lambda: bitonic.bitonic_sort_rows_plain(x)),
+               ("lib", lambda: torch.sort(x, dim=1))]
+        st: dict[str, list[float]] = {}
+        for name, fn in fns + fns[::-1]:
+            st.setdefault(name, []).append(event_ms(torch, fn, 20))
+        b_ms, b_by = sort_bound_ms(x.numel(), L)
+        row = {"path": label, "shape": [k, L], "variant": variant, "ms": min(st["k1"]),
+               "plain_ms": min(st["plain"]), "library_ms": min(st["lib"]),
+               "bound_ms": b_ms, "bound_by": b_by}
+        k1_rows.append(row)
+        print(f"K1 ({variant}) on the bench {label} join stream {[k, L]}: bit-equal to "
+              f"its plain version; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"torch.sort {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{row['ms'] / b_ms:.1f}x the bound; {card}")
+    out["k1"], out["k1_err"] = k1_rows, err
+    del streams
+
+    # (e) the run_* times beside phase 7's run(), assemble() and peak memory
+    times = {}
+    for label, e, run in (("run_masked", exm, lambda: exm.run_masked(staged_a)),
+                          ("run_or", exo, lambda: exo.run_or(staged_o)),
+                          ("run_or(mask=)", exm, lambda: exm.run_or(staged_a, mask=staged_a)),
+                          ("run_padded", ex, ex.run_padded)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = run()
+        torch.cuda.synchronize()
+        peak = peak_above(base)
+        asm = e.assemble_padded if label == "run_padded" else e.assemble
+        del res
+        run_ms = [event_ms(torch, run, 1) for _ in range(15)]
+        e2e_ms = [event_ms(torch, lambda: asm(run()), 1) for _ in range(3)]
+        prof = profile_run(torch, run, reps=1, label=label)
+        times[label] = {"run_ms": statistics.median(run_ms), "e2e_ms": statistics.median(e2e_ms),
+                        "peak_mib": peak, "busy_ms": None if prof is None else prof["busy_ms"],
+                        "idle": None if prof is None else prof["idle"]}
+        print(f"{label}: median {times[label]['run_ms']:.4f} ms (fastest {min(run_ms):.4f}, "
+              f"slowest {max(run_ms):.4f}, 15 runs); with {asm.__name__}() median "
+              f"{times[label]['e2e_ms']:.2f} ms (3 runs); peak device memory {peak:.1f} "
+              f"MiB above the staged operands; phase 7's run() {bench_run_ms:.4f} ms; {card}")
+    out["times"] = times
+
+    # the staged side operands' running maximum (torch.cummax along rows)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    scans = {}
+    for shape in ((512, 320), (1024, 160)):
+        x = torch.randint(0, 1 << 30, shape, dtype=torch.int32, device="cuda", generator=gen)
+        check(torch.equal(sp._running_max(x), torch.cummax(x, 1).values),
+              "_running_max differs from torch.cummax along rows")
+        scans[str(list(shape))] = min(event_ms(torch, lambda: sp._running_max(x), 50)
+                                      for _ in range(2))
+        print(f"running maximum along the rows of {list(shape)} (torch.cummax(dim=1)): "
+              f"{scans[str(list(shape))]:.4f} ms; {card}")
+    out["cummax_ms"] = scans
+    ell._EXEC_CACHE.clear()
     return out
 
 
@@ -1625,17 +1884,34 @@ def run_smoke() -> dict:
                 "giant_rows": GIANT_ROWS})
     del a18, c18, a16, c16
 
+    phase("17. the masked, union and fused-OR family, and the one-sort step")
+    from binary_spgemm_tpu_torch import masked_spgemm, spgemm_or, spm_or
+    from binary_spgemm_tpu_torch.utils.oracle import masked_spgemm_oracle
+
+    api.update(bitonic=bitonic, BCSR=BCSR, masked_spgemm=masked_spgemm,
+               spgemm_or=spgemm_or, spm_or=spm_or,
+               masked_spgemm_oracle=masked_spgemm_oracle)
+    ops = op_family_phase(
+        torch, f"on {smi}", api=api, reset_counts=reset_counts, read_counts=read_counts,
+        routes=routes, k1_by_variant=k1_by_variant, bench=(a, c),
+        bench_run_ms=statistics.median(run_ms))
+    op_launches = {label: rec["launches"] for label, rec in ops["products"].items()}
+
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
     kernels = [
         {
             "name": "bitonic_sort_rows", "route": "cuda", "source": src,
             "replaces": "binary_spgemm_tpu/ops/bitonic.py:114",
             "launches": launches["bitonic_sort_rows"],
-            "max_abs_err": errs["bitonic_sort_rows"], "ms": t["k1"],
+            "max_abs_err": max(errs["bitonic_sort_rows"], ops["k1_err"]), "ms": t["k1"],
             "plain_ms": t["k1_plain"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": t["k1_lib"], "shape": shape, "on_main_path": True,
             "variant": k1_variant, "previous_ms": t["k1_smem"],
             "launches_by_variant": k1_variants, "other_shapes": k1_shapes,
+            "op_family": ops["k1"],
+            "launches_by_path": {label: {"launches": rec["launches"]["bitonic_sort_rows"],
+                                         "by_variant": rec["k1_by_variant"]}
+                                 for label, rec in ops["products"].items()},
         },
         {
             "name": "fused_sort_compress", "route": "cuda", "source": src,
@@ -1672,7 +1948,8 @@ def run_smoke() -> dict:
             "launches_by_path": {"rmat-s18-e8": launches18["class_gather"],
                                  "random-32k": launches32["class_gather"],
                                  "bench": launches["class_gather"],
-                                 "rmat-s16": launches16["class_gather"]},
+                                 "rmat-s16": launches16["class_gather"],
+                                 **{k: v["class_gather"] for k, v in op_launches.items()}},
             "on_path": {
                 "rmat-s18-e8": gather_row(gather_rmat, "p3", launches18["class_gather"],
                                           "rmat-s18-e8, one group"),
@@ -1701,7 +1978,8 @@ def run_smoke() -> dict:
             "launches_by_path": {"bench": launches["class_gather_keys"],
                                  "rmat-s16": launches16["class_gather_keys"],
                                  "rmat-s18-e8": launches18["class_gather_keys"],
-                                 "random-32k": launches32["class_gather_keys"]},
+                                 "random-32k": launches32["class_gather_keys"],
+                                 **{k: v["class_gather_keys"] for k, v in op_launches.items()}},
             "on_path": {
                 "bench": gather_row(gather_main, "p4", launches["class_gather_keys"],
                                     "bench config, one group"),
@@ -1743,9 +2021,9 @@ def run_smoke() -> dict:
             "on_main_path": False,
         },
     ]
-    phase("17. kernels")
+    phase("18. kernels")
     paths = {"rmat-s16": times16, "rmat-s18-e8": times18, "random-32k": times32,
-             "esc": esc}
+             "esc": esc, "op_family": {k: ops[k] for k in ("times", "cummax_ms")}}
     print(f"paths: {json.dumps(paths)}")
     print(f"drivers (s): {json.dumps({k: v['s'] for k, v in drivers.items()})}")
     print(f"card: {smi}")

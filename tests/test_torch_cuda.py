@@ -490,3 +490,91 @@ def test_k1_unchanged_by_the_first_merge_argument(cuda_device, L):
     assert torch.equal(got, bitonic.bitonic_sort_rows_plain(x))
     if L & (L - 1) == 0:
         assert torch.equal(bitonic.bitonic_network_rows(x, 2), got)
+
+
+def union_oracle(a, b):
+    c = (a.to_scipy() + b.to_scipy()).tocsr()
+    c.sort_indices()
+    return tp.BCSR(c.indptr, c.indices, c.shape)
+
+
+def or_oracle(d, a, b, f=None):
+    from binary_spgemm_tpu_torch.utils.oracle import masked_spgemm_oracle
+
+    return union_oracle(d, spgemm_oracle(a, b) if f is None else masked_spgemm_oracle(f, a, b))
+
+
+def same_outputs(got, want):
+    """Stacked ``run_*`` outputs equal over their valid prefixes (and the
+    chunk-local row pointers, where there are some)."""
+    got = [x.cpu() for x in got]
+    assert [x.shape for x in got] == [x.shape for x in want]
+    assert torch.equal(got[-1], want[-1])
+    if len(got) == 3:
+        assert torch.equal(got[0], want[0])
+    for c in range(got[-1].shape[0]):
+        n = int(got[-1][c])
+        assert torch.equal(got[-2][c, :n], want[-2][c, :n])
+
+
+@pytest.mark.parametrize("form", ["batched", "batched-pair", "unrolled", "dealt"])
+def test_op_family_executor_on_the_card(cuda_device, form):
+    """``run_masked``, ``run_or`` with and without a mask and ``run_padded``
+    on the card equal the same calls on the CPU and scipy, with K1 (or
+    ``torch.sort``) and P3/P4 launched where the plan says."""
+    from binary_spgemm_tpu_torch.ops import gather
+    from binary_spgemm_tpu_torch.ops import spgemm as sp
+    from binary_spgemm_tpu_torch.utils.oracle import masked_spgemm_oracle
+
+    n, m = (8000, 262145) if form == "batched-pair" else (3000, 3000)
+    a = tp.BCSR.random(n, m, 3.0, seed=1)
+    b = tp.BCSR.random(m, m, 0.2 if m > n else 2.0, seed=2)
+    f, d = tp.BCSR.random(n, m, 4.0, seed=3), tp.BCSR.random(n, m, 1.5, seed=4)
+    kw = {"batched": dict(batched=True, deal_k=64), "batched-pair": dict(batched=True, deal_k=6),
+          "unrolled": {}, "dealt": dict(deal_k=16)}[form]
+    ex = tp.EllSpGEMMExecutor(a, b, masked=True, **kw)
+    cpu = tp.EllSpGEMMExecutor(a, b, masked=True, device="cpu", **kw)
+    assert ex.batched == form.startswith("batched") and ex.n_chunks == cpu.n_chunks
+    if form == "batched-pair":
+        assert sp.packable(ex.rows_pad, 2 * m + 1) and not sp.packable(ex.rows_pad, 4 * m + 3)
+    checks = [("masked", lambda e, x: e.run_masked(x(f)), masked_spgemm_oracle(f, a, b)),
+              ("or", lambda e, x: e.run_or(x(d)), or_oracle(d, a, b)),
+              ("or-masked", lambda e, x: e.run_or(x(d), mask=x(f)), or_oracle(d, a, b, f))]
+    for label, run, ref in checks:
+        k1, g = bitonic.bitonic_sort_rows.launches, (gather.class_gather.launches
+                                                     + gather.class_gather_keys.launches)
+        routes = dict(bitonic.sort_rows.routes)
+        got = run(ex, ex.stage_mask)
+        torch.cuda.synchronize()
+        assert gather.class_gather.launches + gather.class_gather_keys.launches == g + ex.n_groups
+        # every int32 join sorts through sort_rows: K1 within its window
+        new = {r: bitonic.sort_rows.routes[r] - routes[r] for r in routes}
+        assert bitonic.bitonic_sort_rows.launches - k1 == new["k1"]
+        assert sum(new.values()) in (0, 2 * ex.n_groups)  # 0: the int64 joins
+        same_outputs(got, run(cpu, cpu.stage_mask))
+        assert ex.assemble(got).equals(ref), label
+    if ex.batched:
+        keys, nnz = ex.run_padded()
+        c_keys, c_nnz = cpu.run_padded()
+        assert torch.equal(keys.cpu(), c_keys) and torch.equal(nnz.cpu(), c_nnz)
+        assert ex.assemble_padded((keys, nnz)).equals(spgemm_oracle(a, b))
+
+
+@pytest.mark.parametrize("chunk_flops", [None, 20_000])
+def test_op_family_one_shot_on_the_card(cuda_device, chunk_flops):
+    """``masked_spgemm``, ``spgemm_or`` (with and without a mask) and
+    ``spm_or`` past their host routes: the ELL routes, or ESC with
+    ``chunk_flops``, equal to the CPU and scipy."""
+    from binary_spgemm_tpu_torch.utils.oracle import masked_spgemm_oracle
+
+    a = tp.BCSR.random(20000, 20000, 12.0, seed=7)
+    f = tp.BCSR.random(20000, 20000, 6.0, seed=8)
+    kw = {} if chunk_flops is None else {"chunk_flops": chunk_flops}
+    c = tp.masked_spgemm(f, a, a, **kw)
+    assert c.equals(masked_spgemm_oracle(f, a, a))
+    assert c.equals(tp.masked_spgemm(f, a, a, device="cpu", **kw))
+    for mask in (None, f):
+        c = tp.spgemm_or(f, a, a, mask=mask, **kw)
+        assert c.equals(or_oracle(f, a, a, mask))
+        assert c.equals(tp.spgemm_or(f, a, a, mask=mask, device="cpu", **kw))
+    assert tp.spm_or(a, f).equals(union_oracle(a, f))

@@ -12,7 +12,7 @@ from binary_spgemm_tpu.ops import ell as jx_ell
 
 import binary_spgemm_tpu_torch as tp
 from binary_spgemm_tpu_torch.ops import ell as tp_ell
-from binary_spgemm_tpu_torch.ops.spgemm import packable
+from binary_spgemm_tpu_torch.ops.spgemm import pad_bucket, packable
 from binary_spgemm_tpu_torch.utils.oracle import spgemm_oracle
 
 PLAN = ("n_chunks", "rows_pad", "widths", "pads", "inline", "sort_pad",
@@ -21,6 +21,11 @@ PLAN = ("n_chunks", "rows_pad", "widths", "pads", "inline", "sort_pad",
 
 def to_port(m):
     return tp.bcsr_from_arrays(m.indptr, m.indices, m.shape)
+
+
+def assert_same(j, t):
+    assert np.array_equal(j.indptr, t.indptr)
+    assert np.array_equal(j.indices, t.indices)
 
 
 def group_streams(mod, ex, tables_flat, er_all, ep_all, to_np):
@@ -208,3 +213,73 @@ def test_expand_class_pair_and_key_forms_agree():
     r, c = tp_ell._expand_class_2d(
         torch.from_numpy(table), torch.from_numpy(er), torch.from_numpy(ep), *args)
     assert np.array_equal(((r << shift) | c).numpy(), t_key)
+
+
+@pytest.mark.parametrize("case", ["square", "many-bins", "groups", "wide", "one-row"])
+def test_run_padded_matches_jax(case):
+    """The one-sort step: the sorted packed-key streams with their INT32_MAX
+    holes element-equal to the JAX package's over the whole padded length,
+    the valid counts equal, and ``assemble_padded`` equal to the JAX
+    package's, to ``assemble(run())`` and to scipy."""
+    n, d, seed, kw = {
+        "square": (3000, 4.0, 1, {}),
+        "many-bins": (20000, 3.0, 3, {"deal_k": 512}),
+        "groups": (1 << 16, 2.0, 31, {"batched_slots_cap": jx_ell.BATCHED_MAX_SLOTS}),
+        "wide": (8000, 3.0, 1, {"deal_k": 4}),
+        "one-row": (1, 16.0, 5, {}),
+    }[case]
+    m = 262145 if case == "wide" else n  # the operands of test_wide_columns
+    ja = jx.BCSR.random(n, m, d, seed=seed)
+    jb = jx.BCSR.random(m, m, 0.2, seed=2) if case == "wide" else ja
+    ta, tb = to_port(ja), to_port(jb)
+    jex = jx_ell.EllSpGEMMExecutor(ja, jb, batched=True, **kw)
+    tex = tp_ell.EllSpGEMMExecutor(ta, tb, batched=True, device="cpu", **kw)
+    assert [getattr(tex, f) for f in PLAN] == [getattr(jex, f) for f in PLAN]
+    j_keys, j_nnz = (np.asarray(x) for x in jex.run_padded())
+    t_out = tex.run_padded()
+    t_keys, t_nnz = (x.numpy() for x in t_out)
+    assert t_keys.shape == (tex.n_groups * tex.group_size, tex.sort_pad)
+    assert np.array_equal(t_keys, j_keys) and np.array_equal(t_nnz, j_nnz)
+    assert ((t_keys != (1 << 31) - 1).sum(1) == t_nnz).all()
+    c = tex.assemble_padded(t_out)
+    assert_same(jex.assemble_padded(jex.run_padded()), c)
+    assert c.equals(tex.assemble(tex.run()))
+    assert c.equals(spgemm_oracle(ta, tb))
+
+
+def test_run_padded_needs_a_batched_plan():
+    a = tp.BCSR.random(500, 500, 2.0, seed=1)
+    ex = tp_ell.EllSpGEMMExecutor(a, a, device="cpu")
+    with pytest.raises(ValueError, match="batched executor"):
+        ex.run_padded()
+
+
+def test_assemble_stream_with_a_d_operand_matches_jax():
+    """``_assemble_stream_2d``'s extra pair block (a fused-OR D) lands after
+    the class expansions and before the separators, as in the JAX package,
+    in the packed and the pair form."""
+    n = 2000
+    ja, jd = jx.BCSR.random(n, n, 3.0, seed=4), jx.BCSR.random(n, n, 2.0, seed=5)
+    jex = jx_ell.EllSpGEMMExecutor(ja, ja, batched=True, deal_k=16)
+    tex = tp_ell.EllSpGEMMExecutor(to_port(ja), to_port(ja), batched=True, deal_k=16,
+                                   device="cpu")
+    j_d, t_d = jex.stage_mask(jd), tex.stage_mask(to_port(jd))
+    sort_pad = pad_bucket(tex.sort_pad + t_d[1].shape[1], div=32)
+    for mod, ex, st, to_np in ((jx_ell, jex, j_d, np.asarray),
+                               (tp_ell, tex, t_d, lambda x: x.numpy())):
+        tables = mod._unpack_tables(ex.tables_flat, ex.table_shapes)
+        spans = tuple(p * w if s is None else p
+                      for s, w, p in zip(ex.table_shapes, ex.widths, ex.pads))
+        er, ep = mod._unpack_entries(ex.er_all, ex.ep_all, 0, ex.group_size, ex.pads, spans)
+        pairs = mod._staged_pairs_2d(st[0][: ex.group_size], st[1][: ex.group_size],
+                                     ex.rows_pad, ex.n_cols)
+        args = (tables, er, ep, ex.group_size, ex.rows_pad, ex.n_cols, ex.widths,
+                ex.pads, sort_pad)
+        key = mod._assemble_stream_2d(*args, extra=(pairs,),
+                                      shift=int(ex.n_cols).bit_length())
+        row, col = mod._assemble_stream_2d(*args, extra=(pairs,))
+        if mod is jx_ell:
+            want = [to_np(x) for x in (key, row, col)]
+        else:
+            got = [to_np(x) for x in (key, row, col)]
+    assert all(np.array_equal(x, y) for x, y in zip(want, got))

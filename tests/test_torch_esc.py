@@ -21,7 +21,7 @@ from binary_spgemm_tpu_torch.formats import bcsr as tp_bcsr
 from binary_spgemm_tpu_torch.ops import bitonic
 from binary_spgemm_tpu_torch.ops import ell as tp_ell
 from binary_spgemm_tpu_torch.ops import spgemm as tp_sp
-from binary_spgemm_tpu_torch.utils.oracle import spgemm_oracle
+from binary_spgemm_tpu_torch.utils.oracle import masked_spgemm_oracle, spgemm_oracle
 
 
 def to_port(m):
@@ -466,14 +466,22 @@ def test_tuned_executor_matches_jax():
 
 
 def test_tuned_executor_degenerate_and_masked():
+    """A degenerate product gets the unrolled plan untuned; ``masked=True``
+    tunes the masked plans (the JAX package's candidates) and returns an
+    executor whose ``run_masked`` is bit-exact."""
     empty = tp.BCSR(np.zeros(101, np.int32), np.zeros(0, np.int32), (100, 100))
     ex = tp.tuned_executor(empty, empty, device="cpu")
     assert isinstance(ex, tp.EllSpGEMMExecutor) and not ex.batched
     assert not hasattr(ex, "tune_report")
     assert ex.assemble(ex.run()).nnz == 0
-    a = tp.BCSR.random(300, 300, 2.0, seed=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tp.tuned_executor(a, a, masked=True, device="cpu")
+    ja, jf = jx.BCSR.random(6000, 6000, 2.0, seed=21), jx.BCSR.random(6000, 6000, 3.0, seed=22)
+    ta, tf = to_port(ja), to_port(jf)
+    jex = jx_ell.tuned_executor(ja, ja, masked=True, top=2, times=1)
+    tex = tp.tuned_executor(ta, ta, masked=True, top=2, times=1, device="cpu")
+    assert sorted(k for _, k in tex.tune_report) == sorted(k for _, k in jex.tune_report)
+    c = tex.assemble(tex.run_masked(tf))
+    assert c.equals(masked_spgemm_oracle(tf, ta, ta))
+    assert_same(jex.assemble(jex.run_masked(jf)), c)
 
 
 def test_tuned_executor_lets_faults_raise(monkeypatch):
@@ -531,3 +539,13 @@ def test_running_max_equals_cummax(n, dtype):
     assert got.dtype == dtype and torch.equal(got, torch.cummax(x, 0).values)
     s = torch.sort(x).values  # already nondecreasing: itself
     assert torch.equal(tp_sp._running_max(s), s)
+
+
+@pytest.mark.parametrize("shape", [(3, 0), (5, 320), (4, 1024), (3, 3000), (2, 5 * 1024 + 3)])
+def test_running_max_along_the_last_axis(shape):
+    """On a stack of rows, each row's running maximum (the staged side
+    operands' owner scan)."""
+    rng = np.random.default_rng(shape[1])
+    x = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, shape)).to(torch.int32)
+    got = tp_sp._running_max(x)
+    assert got.shape == x.shape and torch.equal(got, torch.cummax(x, -1).values)

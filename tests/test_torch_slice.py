@@ -318,3 +318,68 @@ def test_entry_points_default_to_cuda():
         b = tp.BCSR.random_blocked(4096, 128, 2.0, 0.3, seed=2)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tp.auto_executor(b, b)
+
+
+def test_op_family_end_to_end():
+    """The op family at 2^16 rows through its one-shot entry points (the
+    batched ``masked=True`` and plain plans the routers pick) and the
+    one-sort step: each product equal to the JAX package's and scipy's."""
+    ja = jx.BCSR.random(1 << 16, 1 << 16, 6.5, seed=3)
+    ta = to_port(ja)
+    sa = ta.to_scipy()
+    prod = sa @ sa
+
+    def csr(m):
+        m = m.tocsr()
+        m.eliminate_zeros()
+        m.sort_indices()
+        return tp.BCSR(m.indptr, m.indices, m.shape)
+
+    c = tp.masked_spgemm(ta, ta, ta, device="cpu")
+    assert_same(jx.masked_spgemm(ja, ja, ja), c)
+    assert c.equals(csr(prod.multiply(sa)))
+    c = tp.spgemm_or(ta, ta, ta, device="cpu")
+    assert_same(jx.spgemm_or(ja, ja, ja), c)
+    assert c.equals(csr(sa + prod))
+    c = tp.spgemm_or(ta, ta, ta, mask=ta, device="cpu")
+    assert_same(jx.spgemm_or(ja, ja, ja, mask=ja), c)
+    assert c.equals(ta.sum_duplicates())  # D ∪ (A ∩ A·A) = A
+    jc = jx.BCSR.random(1 << 16, 1 << 16, 3.0, seed=4)
+    c = tp.spm_or(ta, to_port(jc), device="cpu")
+    assert_same(jx.spm_or(ja, jc), c)
+    assert c.equals(csr(sa + to_port(jc).to_scipy()))
+    for masked in (False, True):
+        jex = jx_ell.cached_executor(ja, ja, masked=masked)
+        tex = tp_ell.cached_executor(ta, ta, masked=masked, device="cpu")
+        assert tex.batched and (tex.n_chunks, tex.sort_pad) == (jex.n_chunks, jex.sort_pad)
+        c = tex.assemble_padded(tex.run_padded())
+        assert_same(jex.assemble_padded(jex.run_padded()), c)
+        assert c.equals(csr(prod))
+
+
+def test_op_family_defaults_to_cuda():
+    """The op family's entry points run on the card unless told otherwise:
+    past the host routes they raise here, with no quiet switch to the
+    CPU; products the host routes take need no card."""
+    from binary_spgemm_tpu_torch.ops import fused, masked, union
+
+    for fn in (tp.masked_spgemm, tp.spm_or, tp.spgemm_or):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert fused.spgemm_or is tp.spgemm_or and masked.masked_spgemm is tp.masked_spgemm
+    assert union.spm_or is tp.spm_or
+    small = tp.BCSR.random(300, 300, 2.0, seed=1)
+    assert tp.masked_spgemm(small, small, small).equals(
+        tp.masked_spgemm(small, small, small, device="cpu"))
+    assert tp.spgemm_or(small, small, small).equals(
+        tp.spgemm_or(small, small, small, device="cpu"))
+    assert tp.spm_or(small, small).equals(small.sum_duplicates())
+    if torch.cuda.is_available():
+        return
+    a = tp.BCSR.random(20000, 20000, 12.0, seed=2)
+    for run in (lambda: tp.masked_spgemm(a, a, a), lambda: tp.spgemm_or(a, a, a),
+                lambda: tp.spgemm_or(a, a, a, mask=a), lambda: tp.spm_or(a, a),
+                lambda: tp.masked_spgemm(a, a, a, chunk_flops=1 << 20),
+                lambda: tp.spgemm_or(a, a, a, chunk_flops=1 << 20),
+                lambda: tp.tuned_executor(a, a, masked=True)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
