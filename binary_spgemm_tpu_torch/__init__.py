@@ -28,6 +28,15 @@ package.  Ported so far:
   with the executors' ``run_masked`` / ``run_or`` (``masked=True`` plans,
   ``cached_executor(masked=)``, ``tuned_executor(masked=True)``) and the
   one-sort ``run_padded`` / ``assemble_padded``;
+* the counting family on every engine: ``spgemm_counts`` (C = A·B with
+  each entry's multiplicity, the integer product of the 0/1 operands),
+  ``masked_spgemm_counts`` (the same over a mask's support) and
+  ``ops.counts.triangle_count_device``, with the executors' ``run_counts``
+  / ``run_masked_counts`` / ``run_counts_sum`` and ``assemble_counts``;
+* Matrix-Market ingest and egest (``read_pattern``, ``write_pattern``,
+  ``write_integer``; numpy parsing) and the whole ``BCSR`` container
+  (``from_torch`` / ``to_torch``, ``transpose``, ``sort_indices``,
+  ``diff``, ``flops``);
 * the blocked tensor-core route for block-clustered operands
   (``BlockedBCSR``, ``bsr_spgemm``, and ``BsrStagedExecutor`` behind
   ``auto_executor`` / ``spgemm``), with its grouped tile products as a
@@ -35,16 +44,24 @@ package.  Ported so far:
   ``csrc/block_matmul.cu``).
 
 Entry points run on ``device="cuda"`` unless told otherwise.  Not ported
-yet (ROADMAP.md Queue 1): the counting family, the rest of the format and
-Matrix-Market ingest, the native host helpers, the device-resident
-pipelines and graph ops, the CLI and the distributed layer.
+yet (ROADMAP.md Queue 1): the native host helpers (the native Matrix-Market
+parser among them), the device-resident pipelines and graph ops, the CLI
+and the distributed layer.
 """
 from .formats.bbcsr import BlockedBCSR, blocked_from_arrays
 from .formats.bcsr import BCSR, bcsr_from_arrays, coo_to_csr_stable
+from .io.mmio import read_pattern, write_integer, write_pattern
 from .ops.bsr import bsr_spgemm
+from .ops.counts import masked_spgemm_counts, spgemm_counts
 from .ops.ell import EllSpGEMMExecutor, auto_executor, ell_spgemm, tuned_executor
 from .ops.fused import spgemm_or
-from .ops.host import host_masked_spgemm, host_spgemm, host_spgemm_or, host_spm_or
+from .ops.host import (
+    host_masked_spgemm,
+    host_spgemm,
+    host_spgemm_counts,
+    host_spgemm_or,
+    host_spm_or,
+)
 from .ops.masked import masked_spgemm
 from .ops.spgemm import SpGEMMExecutor, spgemm, spgemm_flops
 from .ops.union import spm_or
@@ -62,14 +79,20 @@ __all__ = [
     "ell_spgemm",
     "host_masked_spgemm",
     "host_spgemm",
+    "host_spgemm_counts",
     "host_spgemm_or",
     "host_spm_or",
     "masked_spgemm",
+    "masked_spgemm_counts",
+    "read_pattern",
     "spgemm",
+    "spgemm_counts",
     "spgemm_flops",
     "spgemm_or",
     "spm_or",
     "tuned_executor",
+    "write_integer",
+    "write_pattern",
 ]
 
 __version__ = "0.1.0"

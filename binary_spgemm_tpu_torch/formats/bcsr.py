@@ -85,6 +85,9 @@ class BCSR:
     def n_cols(self) -> int:
         return self.shape[1]
 
+    def row(self, i: int) -> np.ndarray:
+        return self.indices[self.indptr[i] : self.indptr[i + 1]]
+
     @classmethod
     def from_coo(
         cls,
@@ -239,6 +242,42 @@ class BCSR:
             rows, cols = np.concatenate([rows, cols]), np.concatenate([cols, rows])
         return cls.from_coo(rows, cols, (n, n)).sum_duplicates()
 
+    @classmethod
+    def from_torch(cls, t) -> "BCSR":
+        """Build from a torch sparse tensor (CSR, COO or CSC layout) or a dense
+        tensor, on any device (copied to the host first); nonzero values
+        mark the pattern, so explicit zeros are dropped."""
+        import torch
+
+        if t.layout == torch.sparse_csr:
+            vals = t.values().cpu().numpy()
+            indptr = t.crow_indices().cpu().numpy()
+            cols = t.col_indices().cpu().numpy()
+            if np.all(vals != 0):
+                return cls(indptr, cols, tuple(t.shape))
+            rows = np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
+            keep = vals != 0
+            return cls.from_coo(rows[keep], cols[keep], tuple(t.shape))
+        if t.layout in (torch.sparse_coo, torch.sparse_csc):
+            if t.layout == torch.sparse_csc:
+                t = t.to_sparse_coo()
+            t = t.coalesce()
+            idx = t.indices().cpu().numpy()
+            keep = t.values().cpu().numpy() != 0
+            return cls.from_coo(idx[0][keep], idx[1][keep], tuple(t.shape))
+        return cls.from_dense(t.cpu().numpy())
+
+    def to_torch(self):
+        """A host ``torch.sparse_csr_tensor`` with bool ones as values."""
+        import torch
+
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(np.ascontiguousarray(self.indptr)),
+            torch.from_numpy(np.ascontiguousarray(self.indices)),
+            torch.ones(self.nnz, dtype=torch.bool),
+            size=self.shape,
+        )
+
     def to_scipy(self):
         import scipy.sparse as sp
 
@@ -256,6 +295,16 @@ class BCSR:
             np.arange(self.n_rows, dtype=np.int64), np.diff(self.indptr)
         )
         return rows, self.indices.astype(np.int64)
+
+    def transpose(self) -> "BCSR":
+        rows, cols = self.to_coo()
+        return BCSR.from_coo(cols, rows, (self.n_cols, self.n_rows))
+
+    def sort_indices(self) -> "BCSR":
+        """A copy with ascending columns within every row (duplicates kept)."""
+        rows, _ = self.to_coo()
+        order = np.lexsort((self.indices, rows))
+        return BCSR(self.indptr.copy(), self.indices[order], self.shape)
 
     def is_canonical(self) -> bool:
         """True when every row's columns are strictly ascending (sorted and
@@ -284,6 +333,47 @@ class BCSR:
             and np.array_equal(self.indptr, other.indptr)
             and np.array_equal(self.indices, other.indices)
         )
+
+    def diff(self, other: "BCSR", *, max_rows: int = 10) -> str:
+        """Where two matrices diverge, row by row: ``""`` when equal, else a
+        report naming the first ``max_rows`` differing rows with (up to 16
+        of) their columns."""
+        if self.equals(other):
+            return ""
+        if self.shape != tuple(other.shape):
+            return f"shape mismatch: {self.shape} vs {tuple(other.shape)}"
+        lines = []
+        if self.nnz != other.nnz:
+            lines.append(f"nnz mismatch: {self.nnz} vs {other.nnz}")
+        a_len = np.diff(self.indptr)
+        b_len = np.diff(other.indptr)
+        # rows differing in length first, then rows of equal length whose
+        # columns differ
+        bad_rows = list(np.flatnonzero(a_len != b_len)[:max_rows])
+        if len(bad_rows) < max_rows:
+            for i in np.flatnonzero(a_len == b_len):
+                s0, s1 = int(self.indptr[i]), int(self.indptr[i + 1])
+                o0 = int(other.indptr[i])
+                if not np.array_equal(self.indices[s0:s1],
+                                      other.indices[o0 : o0 + (s1 - s0)]):
+                    bad_rows.append(int(i))
+                    if len(bad_rows) >= max_rows:
+                        break
+        bad_rows.sort()
+        n_bad = int((a_len != b_len).sum())
+        lines.append(f"{max(n_bad, len(bad_rows))}+ differing rows; first "
+                     f"{len(bad_rows)}:")
+        for i in bad_rows[:max_rows]:
+            i = int(i)
+            lines.append(f"  row {i}: self({a_len[i]}) {self.row(i)[:16].tolist()}"
+                         f" vs other({b_len[i]}) {other.row(i)[:16].tolist()}")
+        return "\n".join(lines)
+
+    def flops(self, other: "BCSR") -> int:
+        """Gustavson flop count of self @ other: the sum over the entries
+        (i, j) of self of nnz(other row j)."""
+        blen = np.diff(other.indptr).astype(np.int64)
+        return int(blen[self.indices].sum())
 
     def __repr__(self):
         return f"BCSR(shape={self.shape}, nnz={self.nnz})"

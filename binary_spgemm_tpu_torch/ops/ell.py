@@ -20,6 +20,10 @@ scatters each chunk's rows back to their global positions.
   run to millions of slots, which :func:`..bitonic.sort_rows` hands to
   ``torch.sort``.
 
+The same streams feed the op family's joins (``run_masked``, ``run_or``,
+``run_padded``) and the counting family's compress steps (``run_counts``,
+``run_masked_counts``, ``run_counts_sum``, from :mod:`.counts`).
+
 The planners keep the JAX package's rate constants verbatim and take its
 off-TPU form (no Pallas-bitonic discount, no power-of-two ``sort_pad``
 rounding), so for the same input both packages make the same plan, stage the
@@ -37,6 +41,13 @@ import torch
 from ..formats.bcsr import BCSR
 from ..utils.timers import bench_fn, event_seconds
 from .bitonic import sort_rows as sort_rows_1key
+from .counts import (
+    _masked_counts,
+    _masked_counts_sum,
+    sort_compress_counts,
+    sort_compress_counts_seps_2d,
+    sort_compress_counts_seps_2d_keys,
+)
 from .gather import (
     class_gather,
     class_gather_group,
@@ -52,6 +63,7 @@ from .spgemm import (
     INT,
     INT32_MAX,
     _chunk_rows,
+    _indptr,
     _prev,
     _row_ids,
     _stitch,
@@ -576,6 +588,106 @@ def _ell_or_masked(
                                     rows_pad, n_cols)
 
 
+def _ell_counts2d(
+    tables, entry_rows, entry_pos, *, n_chunks: int, rows_pad: int, n_cols: int,
+    widths, pads, sort_pad: int, out_pad: int | None = None,
+    device: torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The batched counting product: the group's ``[k, sort_pad]`` stream
+    through :func:`..counts.sort_compress_counts_seps_2d(_keys)`, the counts
+    riding the compaction sort.  Returns separator-embedded ``(indices,
+    counts, nnz)``, truncated to ``out_pad``; the host drops each
+    separator's count with it."""
+    args = (tables, entry_rows, entry_pos, n_chunks, rows_pad, n_cols, widths,
+            pads, sort_pad)
+    if packable(rows_pad, n_cols):
+        key = _assemble_stream_2d(*args, shift=int(n_cols).bit_length(), device=device)
+        idx, cnt, nnz = sort_compress_counts_seps_2d_keys(key, rows_pad, n_cols)
+    else:
+        row, col = _assemble_stream_2d(*args, device=device)
+        idx, cnt, nnz = sort_compress_counts_seps_2d(row, col, rows_pad, n_cols)
+    if out_pad is not None and out_pad < sort_pad:
+        idx, cnt = idx[:, :out_pad], cnt[:, :out_pad]
+    return idx, cnt, nnz
+
+
+def _masked_stream_2d(tables, entry_rows, entry_pos, f_ptr, f_idx, *, n_chunks: int,
+                      rows_pad: int, n_cols: int, widths, pads, sort_pad: int,
+                      device: torch.device | None = None):
+    """The batched masked plan's inputs to a counting join: ``(row, col, key,
+    f_row, f_col)``, the group's stream as packed plain keys ``key`` where
+    ``packable(rows_pad, 2 * n_cols + 1)`` (``row``/``col`` None), else as
+    the ``(row, col)`` pairs (``key`` None), and the staged mask's pairs."""
+    f_row, f_col = _staged_pairs_2d(f_ptr, f_idx, rows_pad, n_cols)
+    args = (tables, entry_rows, entry_pos, n_chunks, rows_pad, n_cols, widths,
+            pads, sort_pad)
+    if packable(rows_pad, 2 * n_cols + 1):
+        key = _assemble_stream_2d(*args, shift=int(n_cols).bit_length(), device=device)
+        return None, None, key, f_row, f_col
+    row, col = _assemble_stream_2d(*args, device=device)
+    return row, col, None, f_row, f_col
+
+
+def _ell_masked_counts2d(tables, entry_rows, entry_pos, f_ptr, f_idx, **kw):
+    """The batched C = F .* (A·B) with counts
+    (:func:`..counts._masked_counts` with separators over the group's
+    stream); the outputs are cut to ``f_pad + rows_pad``."""
+    row, col, key, f_row, f_col = _masked_stream_2d(
+        tables, entry_rows, entry_pos, f_ptr, f_idx, **kw)
+    idx, _, cnt, nnz = _masked_counts(row, col, f_row, f_col, kw["rows_pad"],
+                                      kw["n_cols"], seps=True, key=key)
+    cut = f_idx.shape[-1] + kw["rows_pad"]
+    return idx[:, :cut], cnt[:, :cut], nnz
+
+
+def _ell_counts_sum2d(tables, entry_rows, entry_pos, f_ptr, f_idx, **kw):
+    """The batched masked counts sum: one int32 per bin
+    (:func:`..counts._masked_counts_sum` over the group's stream, whose
+    separators match no mask pair)."""
+    row, col, key, f_row, f_col = _masked_stream_2d(
+        tables, entry_rows, entry_pos, f_ptr, f_idx, **kw)
+    return _masked_counts_sum(row, col, f_row, f_col, kw["rows_pad"], kw["n_cols"],
+                              key=key)
+
+
+# The unrolled counting programs sort each chunk's stream without
+# separators, as the JAX package's do (the counts payload already pays the
+# extra sort lane): ``_chunk_pair_streams(seps=False)``.
+
+
+def _ell_counts(tables, entry_rows, entry_pos, *, out_pad: int | None = None, **kw):
+    """The unrolled counting product: each chunk's stream through
+    :func:`..counts.sort_compress_counts`, a row per chunk.  Returns
+    chunk-local ``(indptr [n_chunks, rows_pad + 1], indices, counts, nnz)``,
+    the last three cut to ``out_pad``."""
+    row, col = _chunk_pair_streams(tables, entry_rows, entry_pos, seps=False, **kw)
+    ptr, idx, cnt, nnz = sort_compress_counts(row, col, kw["rows_pad"], kw["n_cols"])
+    if out_pad is not None and out_pad < kw["sort_pad"]:
+        idx, cnt = idx[:, :out_pad], cnt[:, :out_pad]
+    return ptr, idx, cnt, nnz
+
+
+def _ell_masked_counts(tables, entry_rows, entry_pos, f_ptr, f_idx, **kw):
+    """The unrolled C = F .* (A·B) with counts: each chunk's stream joined
+    with its mask pairs (:func:`..counts._masked_counts`, a row per chunk).
+    Returns chunk-local ``(indptr, indices, counts, nnz)``, the middle two
+    cut to the mask pad (a chunk keeps at most its mask entries)."""
+    row, col = _chunk_pair_streams(tables, entry_rows, entry_pos, seps=False, **kw)
+    rows_pad, n_cols = kw["rows_pad"], kw["n_cols"]
+    f_row, f_col = _staged_pairs_2d(f_ptr, f_idx, rows_pad, n_cols)
+    idx, rows, cnt, nnz = _masked_counts(row, col, f_row, f_col, rows_pad, n_cols,
+                                         seps=False)
+    f_pad = f_idx.shape[-1]
+    return _indptr(rows, rows_pad), idx[:, :f_pad], cnt[:, :f_pad], nnz
+
+
+def _ell_counts_sum(tables, entry_rows, entry_pos, f_ptr, f_idx, **kw):
+    """The unrolled masked counts sum: one int32 per chunk."""
+    row, col = _chunk_pair_streams(tables, entry_rows, entry_pos, seps=False, **kw)
+    f_row, f_col = _staged_pairs_2d(f_ptr, f_idx, kw["rows_pad"], kw["n_cols"])
+    return _masked_counts_sum(row, col, f_row, f_col, kw["rows_pad"], kw["n_cols"])
+
+
 def _make_flat_kernel(inner):
     """A flat group runner around ``inner``: unpack the tables and one
     group's entries from the three staged arrays, slice the group's rows of
@@ -610,6 +722,12 @@ _flat_masked = _make_flat_kernel(_ell_masked)
 _flat_masked2d = _make_flat_kernel(_ell_masked2d)
 _flat_or_masked = _make_flat_kernel(_ell_or_masked)
 _flat_or_masked2d = _make_flat_kernel(_ell_or_masked2d)
+_flat_counts = _make_flat_kernel(_ell_counts)
+_flat_counts2d = _make_flat_kernel(_ell_counts2d)
+_flat_masked_counts = _make_flat_kernel(_ell_masked_counts)
+_flat_masked_counts2d = _make_flat_kernel(_ell_masked_counts2d)
+_flat_counts_sum = _make_flat_kernel(_ell_counts_sum)
+_flat_counts_sum2d = _make_flat_kernel(_ell_counts_sum2d)
 
 
 def _sort_rate_ns(L: int, packed: bool) -> float:
@@ -1236,6 +1354,8 @@ class EllSpGEMMExecutor:
                 for row0 in self._row0s()]
         if len(outs) == 1:
             return outs[0]
+        if isinstance(outs[0], torch.Tensor):  # one sum per chunk
+            return torch.cat(outs)
         return tuple(torch.cat([o[i] for o in outs]) for i in range(len(outs[0])))
 
     def run(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1354,6 +1474,53 @@ class EllSpGEMMExecutor:
         return self._run_groups(_flat_or_masked, d_ptr, d_idx, *self._staged(mask),
                                 sort_pad=self.sort_pad - self.rows_pad)
 
+    def run_counts(self):
+        """C = A·B with each entry's multiplicity: on a batched plan stacked
+        separator-embedded ``(c_indices, c_counts, nnz)``, on an unrolled one
+        chunk-local ``(c_indptr, c_indices, c_counts, nnz)``.
+        :meth:`assemble_counts` builds the host result.  The operands must
+        be canonical (duplicate entries would inflate the counts)."""
+        kernel = _flat_counts2d if self.batched else _flat_counts
+        return self._run_groups(kernel, out_pad=self.out_pad)
+
+    def run_masked_counts(self, f):
+        """C = F .* (A·B) with each entry's multiplicity (with ``f = a = b``
+        an adjacency, the per-edge common-neighbour counts), in
+        :meth:`run_counts`' forms.  ``f`` is a :class:`BCSR` or
+        :meth:`stage_mask`'s result; a ``masked=True`` plan keeps the join
+        key packed."""
+        kernel = _flat_masked_counts2d if self.batched else _flat_masked_counts
+        return self._run_groups(kernel, *self._staged(f))
+
+    def run_counts_sum(self, f) -> torch.Tensor:
+        """The sum over the entries (i, j) of F of the multiplicity of
+        (A·B)[i, j], one int32 per chunk ``[k_tot]`` (the trailing dummy
+        group-fill chunks give 0).  With ``f`` = A = B a symmetric hollow
+        adjacency, the sum is 6 times the triangle count."""
+        kernel = _flat_counts_sum2d if self.batched else _flat_counts_sum
+        return self._run_groups(kernel, *self._staged(f))
+
+    def assemble_counts(self, outputs) -> tuple[BCSR, np.ndarray]:
+        """Pull the outputs of :meth:`run_counts` or
+        :meth:`run_masked_counts` and build ``(BCSR, counts)``, ``counts[k]``
+        (int64) the multiplicity of ``indices[k]``."""
+        if len(outputs) == 3:  # batched: separator-embedded
+            idx_dev, cnt_dev, nnz_dev = outputs
+            ptr_dev = None
+        else:
+            ptr_dev, idx_dev, cnt_dev, nnz_dev = outputs
+        nnz_c = nnz_dev.cpu().numpy()
+        valid = nnz_c.astype(np.int64)
+        valid[self.n_chunks :] = 0  # trailing dummy group-fill chunks
+        chunk_idx = pull_chunk_prefixes(idx_dev, valid)
+        chunk_cnt = pull_chunk_prefixes(cnt_dev, valid)
+        if ptr_dev is None:
+            return self._assemble_seps_batch(chunk_idx, valid, chunk_cnt)
+        c_ptr = ptr_dev.cpu().numpy()
+        return self._assemble_parts(
+            [(c_ptr[i], chunk_idx[i], chunk_cnt[i], nnz_c[i])
+             for i in range(self.n_chunks)])
+
     def assemble(self, outputs) -> BCSR:
         """Pull the outputs of :meth:`run`, :meth:`run_masked` or
         :meth:`run_or` and build the host CSR."""
@@ -1380,9 +1547,12 @@ class EllSpGEMMExecutor:
         ]
         return self._assemble_parts(parts)
 
-    def _assemble_seps_batch(self, chunk_idx, valid: np.ndarray) -> BCSR:
+    def _assemble_seps_batch(self, chunk_idx, valid: np.ndarray, chunk_cnt=None):
         """Vectorised host assembly of separator-embedded chunk streams: ONE
-        pass over the concatenation instead of per-chunk ``split_seps``."""
+        pass over the concatenation instead of per-chunk ``split_seps``.
+        With ``chunk_cnt`` (the counting family's counts, aligned with the
+        index streams) it returns ``(BCSR, counts int64)``, the separators'
+        count slots dropped with them."""
         k = self.n_chunks
         n_rows = self.shape[0]
         big = (
@@ -1428,9 +1598,16 @@ class EllSpGEMMExecutor:
             np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(lr) - lr, lr)
         )
         indices[dst] = indices_all
-        return BCSR(indptr, indices, self.shape)
+        out = BCSR(indptr, indices, self.shape)
+        if chunk_cnt is None:
+            return out
+        bigc = (np.concatenate([chunk_cnt[i] for i in range(k)]) if k
+                else np.zeros(0, np.int32))
+        counts = np.empty(total, np.int64)
+        counts[dst] = bigc[~sep_mask]
+        return out, counts
 
-    def _assemble_parts(self, parts) -> BCSR:
+    def _assemble_parts(self, parts):
         if self.row_sets is not None:
             return _stitch_sets(self.row_sets, self.shape[0], self.shape, parts)
         it = iter(parts)
@@ -1456,11 +1633,14 @@ class EllSpGEMMExecutor:
         return self._assemble_parts(host_parts[: self.n_chunks])
 
 
-def _stitch_sets(row_sets, n_rows: int, shape, parts) -> BCSR:
+def _stitch_sets(row_sets, n_rows: int, shape, parts):
     """Host assembly for the dealt plan: scatter each bin's row segments back
     to their global rows.  ``parts`` is one ``(c_ptr, c_idx, nnz_c)`` triple
-    per bin; bin-local row ids were assigned in ascending global-row order,
-    so each bin's compacted stream is already segment-ordered."""
+    per bin, or for the counting family ``(c_ptr, c_idx, c_cnt, nnz_c)``,
+    whose counts scatter to the same places and come back as a second
+    (int64) array; bin-local row ids were assigned in ascending global-row
+    order, so each bin's compacted stream is already segment-ordered."""
+    has_counts = bool(parts) and len(parts[0]) == 4
     lengths = np.zeros(n_rows, np.int64)
     for rows, part in zip(row_sets, parts):
         if len(rows):
@@ -1469,6 +1649,7 @@ def _stitch_sets(row_sets, n_rows: int, shape, parts) -> BCSR:
     indptr = np.concatenate([[0], np.cumsum(lengths)])
     total = int(indptr[-1])
     indices = np.empty(total, np.int32)
+    counts = np.empty(total, np.int64) if has_counts else None
     for rows, part in zip(row_sets, parts):
         c_idx = part[1]
         nnz_c = int(part[-1])
@@ -1482,7 +1663,10 @@ def _stitch_sets(row_sets, n_rows: int, shape, parts) -> BCSR:
             - np.repeat(np.cumsum(lens) - lens, lens)
         )
         indices[dst] = np.asarray(c_idx[:nnz_c])
-    return BCSR(indptr, indices, shape)
+        if has_counts:
+            counts[dst] = np.asarray(part[2][:nnz_c])
+    out = BCSR(indptr, indices, shape)
+    return (out, counts) if has_counts else out
 
 
 def _pad_rowset_csr_all(

@@ -6,7 +6,8 @@ fixture, n = 50000 with 25,000 nnz, is the canonical one) costs less on the
 host than one round trip to the card, so :func:`..spgemm.spgemm` diverts
 products of at most :data:`HOST_MAX_FLOPS` flops here, as the JAX package's
 router does, and the masked, union and fused-OR families divert their small
-products here the same way (:data:`HOST_OR_MAX_NNZ` for the last two).
+products here the same way (:data:`HOST_OR_MAX_NNZ` for the last two), and
+so does ``spgemm_counts`` (:func:`host_spgemm_counts`).
 
 The engine is the JAX package's numpy tier: a vectorised expand–sort–compress
 (grouped-arange expansion, then ``np.unique`` over int64 ``row * m + col``
@@ -25,6 +26,7 @@ __all__ = [
     "HOST_OR_MAX_NNZ",
     "host_masked_spgemm",
     "host_spgemm",
+    "host_spgemm_counts",
     "host_spgemm_or",
     "host_spm_or",
 ]
@@ -70,6 +72,16 @@ def host_spgemm(a: BCSR, b: BCSR) -> BCSR:
     rows, cols = _expand_numpy(a, b)
     keys = np.unique(rows * np.int64(m) + cols)
     return _keys_to_csr(keys, n, m)
+
+
+def host_spgemm_counts(a: BCSR, b: BCSR) -> tuple[BCSR, np.ndarray]:
+    """C = A·B on the host with each entry's multiplicity (int64), the
+    integer product of the 0/1 operands; the operands must be canonical
+    (duplicate entries would inflate the counts)."""
+    n, m = a.n_rows, b.n_cols
+    rows, cols = _expand_numpy(a, b)
+    keys, counts = np.unique(rows * np.int64(m) + cols, return_counts=True)
+    return _keys_to_csr(keys, n, m), counts.astype(np.int64)
 
 
 def host_spm_or(a: BCSR, b: BCSR) -> BCSR:

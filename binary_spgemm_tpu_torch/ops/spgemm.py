@@ -427,25 +427,29 @@ def _sort_keys(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, dim=-1).values
 
 
-def _sort_tagged(blocks, n_rows: int, n_cols: int, tag_bits: int):
+def _sort_tagged(blocks, n_rows: int, n_cols: int, tag_bits: int, payload=None):
     """The JAX package's three-key ``lax.sort((rows, cols, tags))`` along the
     last axis over the concatenated ``(row, col, tag)`` blocks (``tag`` an
     int per block): one int64 key ``(row << (c + t)) | (col << t) | tag``
     where it fits 63 bits, else two stable sorts, the low fields first.
-    Returns the sorted rows, columns and tags (int32)."""
+    Returns the sorted rows, columns and tags (int32), and with ``payload``
+    (a tensor laid out as the concatenated blocks) the payload in the
+    sorted order too: the JAX package's ``lax.sort((rows, cols, tags,
+    payload), num_keys=3)``."""
     cb = int(n_cols).bit_length() + tag_bits
     rows = torch.cat([r for r, _, _ in blocks], dim=-1).to(torch.int64)
     low = torch.cat([(c.to(torch.int64) << tag_bits) | t for _, c, t in blocks],
                     dim=-1)
     if int(n_rows).bit_length() + cb <= 63:
-        key = torch.sort((rows << cb) | low, dim=-1).values
+        key, perm = torch.sort((rows << cb) | low, dim=-1)
         rows, low = key >> cb, key & ((1 << cb) - 1)
     else:
         low, perm = torch.sort(low, dim=-1, stable=True)
-        rows, perm = torch.sort(torch.gather(rows, -1, perm), dim=-1, stable=True)
-        low = torch.gather(low, -1, perm)
+        rows, perm2 = torch.sort(torch.gather(rows, -1, perm), dim=-1, stable=True)
+        low, perm = torch.gather(low, -1, perm2), torch.gather(perm, -1, perm2)
     tag_mask = (1 << tag_bits) - 1
-    return rows.to(INT), (low >> tag_bits).to(INT), (low & tag_mask).to(INT)
+    out = rows.to(INT), (low >> tag_bits).to(INT), (low & tag_mask).to(INT)
+    return out if payload is None else (*out, torch.gather(payload, -1, perm))
 
 
 def _compact_pairs(keep, row_s, col_s, n_rows: int, n_cols: int):
@@ -894,18 +898,22 @@ def pull_padded_tuple(c_ptr, c_idx, nnz_c) -> tuple[np.ndarray, np.ndarray, int]
 # ---------------------------------------------------------------------------
 
 
-def _stitch(chunks, rows_total, shape, run_chunk) -> BCSR:
+def _stitch(chunks, rows_total, shape, run_chunk):
     """Run ``run_chunk(r0, r1) -> (c_ptr, c_idx, nnz_c)`` per contiguous row
     chunk and stitch the slices with a row-pointer prefix fix.  Chunk-local
     pointers are int32; the host bases are int64, so the stitched indptr
-    widens once the total passes the int32 domain."""
+    widens once the total passes the int32 domain.  Parts of the counting
+    family, ``(c_ptr, c_idx, c_cnt, nnz_c)``, stitch their counts alongside:
+    the result is then ``(BCSR, counts int64)``."""
     indptr_parts = [np.zeros(1, np.int64)]
-    index_parts = []
+    index_parts, count_parts = [], []
     base = 0
     for r0, r1 in chunks:
-        c_ptr, c_idx, nnz_c = run_chunk(r0, r1)
-        nnz_c = int(nnz_c)
+        part = run_chunk(r0, r1)
+        c_ptr, c_idx, nnz_c = part[0], part[1], int(part[-1])
         index_parts.append(np.asarray(c_idx[:nnz_c]))
+        if len(part) == 4:
+            count_parts.append(np.asarray(part[2][:nnz_c]))
         local = np.asarray(c_ptr[1 : r1 - r0 + 1], dtype=np.int64)
         indptr_parts.append(local + base)
         base += nnz_c
@@ -913,10 +921,13 @@ def _stitch(chunks, rows_total, shape, run_chunk) -> BCSR:
     indices = (
         np.concatenate(index_parts) if index_parts else np.zeros(0, np.int32)
     )
-    return BCSR(indptr, indices, shape)
+    out = BCSR(indptr, indices, shape)
+    if not count_parts:
+        return out
+    return out, np.concatenate(count_parts).astype(np.int64)
 
 
-def _stitch_pipelined(chunks, rows_total, shape, dispatch, finish) -> BCSR:
+def _stitch_pipelined(chunks, rows_total, shape, dispatch, finish):
     """:func:`_stitch` with a one-deep dispatch/finish pipeline:
     ``dispatch(r0, r1)`` queues one chunk's device work and returns its
     output tensors; ``finish(out)`` pulls and splits them (blocking).  Chunk

@@ -119,7 +119,28 @@ Phases, each reported on its own lines; any failure exits non-zero:
     ``run_masked`` / ``run_or`` / ``run_padded`` medians beside phase 7's
     ``run()`` with their assembly and peak memory, and the staged side
     operands' running maximum along rows;
-18. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
+18. the counting family, each product held against scipy's int64 product
+    (indptr, indices, and the counts equal to its data) and its expected nnz,
+    with the launch counts, K1's variant counts and the sort routes set to 0
+    just before it and read just after: on the bench config
+    ``spgemm_counts(A, A)`` (the plain batched plan, K1's register kernel
+    and P4 once a group; the counts sum to the product's flops), again with
+    ``engine="esc"`` (no hand kernel), ``masked_spgemm_counts(A, A, A)``
+    (the masked plan, K1's shared-memory kernel and P4 once a group) and
+    again with ``chunk_flops`` (ESC); ``triangle_count_device`` on the bench
+    config and rmat-s16 made symmetric with an empty diagonal (5,340 and
+    3,895,840 triangles, against scipy's ``G.multiply(G @ G).sum() // 6``),
+    on the ELL plan (one tagged sort a group: K1's shared-memory kernel on
+    the bench graph, ``torch.sort`` on rmat-s16's unrolled plan) and through
+    ESC; ``spgemm_counts`` on random 32k (the unrolled plan's chunk-local
+    four-output form, P3) and on validity-class (the host engine, no
+    launch).  Then K1 against its plain version and ``torch.sort`` on the
+    rows the bench counting paths sort (``[1024, 3968]``, ``[512, 6912]``,
+    ``[2048, 8096]``), and the ``run_counts`` / ``run_masked_counts`` /
+    ``run_counts_sum`` medians beside phase 7's ``run()`` with their
+    assembly, peak memory, idle share and share of the busy time in sort
+    kernels;
+19. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -162,6 +183,18 @@ RMAT16_MASKED_NNZ, RAND32K_MASKED_NNZ = 357_336, 4_535
 # (sort_pad 6912 + mask pad 320), A ∪ A·A (3968 + D pad 160, bucketed) and
 # the masked A ∪ A·A (6912 + 320 + 320)
 OP_SHAPES = {"masked": (512, 7232), "or": (1024, 4352), "or-masked": (512, 7552)}
+# phase 18's counting family (scipy's int64 product): the bench product's
+# flops (its counts' sum), and the symmetric graphs with an empty diagonal
+# made from the bench config and rmat-s16: (nnz, flops, triangles)
+BENCH_COUNTS_FLOPS = 16_735_925
+TRIANGLES = {"bench": (2_094_556, 69_041_936, 5_340),
+             "rmat-s16": (955_194, 401_737_438, 3_895_840)}
+# the K1 rows the counting family sorts on the bench config: the plain plan's
+# stream (phase 7's shape), the masked plan's stage 1 (before the mask
+# joins) and the symmetric bench graph's tagged sort (sort_pad 7936 + mask
+# pad 160)
+COUNT_SHAPES = {"counts": (1024, 3968), "masked counts": (512, 6912),
+                "triangles": (2048, 8096)}
 GATHER_WIDTHS = (1, 2, 3, 16, 40, 10240)
 NETWORK_LENGTHS = (2, 128, 256, 4096, 32768)  # P1/P2 around K1's variant bounds
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -1050,6 +1083,261 @@ def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     return out
 
 
+def counting_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
+                   k1_by_variant, bench, bench_run_ms: float) -> dict:
+    """The counting family (phase 18).  ``bench`` is phase 5's A.  Every
+    product is held against scipy's int64 product (indptr, indices, and the
+    counts equal to its data after ``sort_indices()``) and its expected nnz,
+    every triangle count against scipy's ``G.multiply(G @ G).sum() // 6``;
+    the launch counts, K1's variant counts and the sort routes are set to 0
+    just before each product and read just after.  Then K1 against its
+    plain version and ``torch.sort`` on the rows these paths sort, and the
+    ``run_counts`` / ``run_masked_counts`` / ``run_counts_sum`` times.
+    Returns the numbers for the summary and the kernels line."""
+    sp, ell, bitonic, counts = api["spgemm_mod"], api["ell"], api["bitonic"], api["counts"]
+    BCSR, spgemm_counts = api["BCSR"], api["spgemm_counts"]
+    masked_spgemm_counts = api["masked_spgemm_counts"]
+    a = bench
+    out: dict = {"products": {}}
+
+    def int_product(x, y, f=None):
+        c = x.to_scipy().astype(np.int64) @ y.to_scipy().astype(np.int64)
+        if f is not None:
+            c = c.multiply(f.to_scipy().astype(np.int64)).tocsr()
+            c.eliminate_zeros()
+        c.sort_indices()
+        return c
+
+    def symmetric_hollow(m):
+        s = m.to_scipy()
+        s = ((s + s.T) > 0).astype(np.int64).tolil()
+        s.setdiag(0)
+        s = s.tocsr()
+        s.eliminate_zeros()
+        return BCSR.from_scipy(s)
+
+    def peak_above(base: int) -> float:
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    def drive(label, fn, verify):
+        reset_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, rts, k1v = read_counts(), dict(routes), dict(k1_by_variant)
+        peak = peak_above(base)
+        print(f"{label}: {secs:.2f} s on the host clock (plan, stage, run, assemble); "
+              f"launches {launches}; K1 by variant {k1v}; sort_rows routes {rts}; "
+              f"peak device memory {peak:.1f} MiB above the {base / 2**20:.1f} MiB "
+              f"held before")
+        verify(got)
+        out["products"][label] = {"s": secs, "launches": launches, "k1_by_variant": k1v,
+                                  "routes": rts, "peak_mib": peak}
+        return launches, rts, k1v
+
+    def counts_equal(label, ref, nnz, flops=None):
+        def verify(got):
+            c, cnt = got
+            check(c.nnz == nnz, f"{label}: output nnz {c.nnz} != {nnz}")
+            check(np.array_equal(c.indptr, ref.indptr)
+                  and np.array_equal(c.indices, ref.indices),
+                  f"{label}: structure differs from scipy's")
+            check(cnt.dtype == np.int64 and np.array_equal(cnt, ref.data),
+                  f"{label}: counts differ from scipy's int64 product")
+            if flops is not None:
+                check(int(cnt.sum()) == flops,
+                      f"{label}: counts sum {int(cnt.sum())} != spgemm_flops {flops}")
+            print(f"  bit-exact against scipy's int64 product: output nnz {c.nnz}, "
+                  f"counts sum {int(cnt.sum())}, largest {int(cnt.max())}")
+        return verify
+
+    def triangles_equal(label, want):
+        def verify(got):
+            check(got == want, f"{label}: {got} triangles, scipy {want}")
+            print(f"  {got} triangles, equal to scipy's G.multiply(G @ G).sum() // 6")
+        return verify
+
+    def plan_launches(label, e, launches, rts, k1v, row_len):
+        """The launches a counting product's ELL plan must show: one sort of
+        rows of ``row_len`` a group through sort_rows (K1's kernel for that
+        length, or torch.sort past K1's window) and one P4 (batched, packed)
+        or P3 group launch."""
+        g = e.n_groups
+        gather = "class_gather_keys" if e.batched else "class_gather"
+        if row_len > bitonic.MAX_L:
+            want_k1, want_rts = {"reg": 0, "smem": 0}, {"k1": 0, "torch_sort": g}
+        else:
+            want_k1 = {"reg": 0, "smem": 0}
+            want_k1[bitonic.k1_variant(row_len)] = g
+            want_rts = {"k1": g, "torch_sort": 0}
+        print(f"  plan: {'batched' if e.batched else 'unrolled'} k={e.n_chunks} "
+              f"groups={e.n_groups}x{e.group_size} rows_pad={e.rows_pad} "
+              f"sort_pad={e.sort_pad}; first sort's rows {row_len}")
+        check(k1v == want_k1 and rts == want_rts and launches[gather] == g
+              and launches["class_gather_keys"] + launches["class_gather"] == g
+              and launches["bitonic_sort_rows"] == want_rts["k1"],
+              f"{label}: launches {launches}, K1 {k1v}, routes {rts}; expected K1 "
+              f"{want_k1}, routes {want_rts}, {gather} {g}")
+
+    def no_launches(label, launches, rts):
+        check(not any(launches.values()) and not any(rts.values()),
+              f"{label}: a hand kernel or sort_rows ran ({launches}, {rts})")
+
+    # (a) the bench config
+    flops = sp.spgemm_flops(a, a)
+    check(flops == BENCH_COUNTS_FLOPS, f"bench flops {flops} != {BENCH_COUNTS_FLOPS}")
+    ref = int_product(a, a)
+    label = "bench spgemm_counts(A, A)"
+    res = drive(label, lambda: spgemm_counts(a, a),
+                counts_equal(label, ref, EXPECTED_NNZ, flops))
+    ex = ell.cached_executor(a, a)
+    check(ex.batched, "bench spgemm_counts did not take the batched plan")
+    plan_launches(label, ex, *res, ex.sort_pad)
+    label = "bench spgemm_counts(A, A, engine='esc')"
+    res = drive(label, lambda: spgemm_counts(a, a, engine="esc"),
+                counts_equal(label, ref, EXPECTED_NNZ, flops))
+    no_launches(label, *res[:2])
+    del ref
+    refm = int_product(a, a, a)
+    label = "bench masked_spgemm_counts(A, A, A)"
+    res = drive(label, lambda: masked_spgemm_counts(a, a, a),
+                counts_equal(label, refm, BENCH_MASKED_NNZ))
+    exm = ell.cached_executor(a, a, masked=True)
+    plan_launches(label, exm, *res, exm.sort_pad)
+    label = "bench masked_spgemm_counts(A, A, A, chunk_flops=DEFAULT_CHUNK_FLOPS)"
+    res = drive(label, lambda: masked_spgemm_counts(a, a, a,
+                                                    chunk_flops=sp.DEFAULT_CHUNK_FLOPS),
+                counts_equal(label, refm, BENCH_MASKED_NNZ))
+    no_launches(label, *res[:2])
+
+    # (b) triangles of two symmetric graphs with an empty diagonal
+    graphs = {}
+    for name, make in (("bench", lambda: a),
+                       ("rmat-s16", lambda: BCSR.rmat(*RMAT16[:2], seed=RMAT16[2]))):
+        g = symmetric_hollow(make())
+        nnz, g_flops, tri = TRIANGLES[name]
+        s = g.to_scipy()
+        want = int(s.multiply(s @ s).sum()) // 6
+        check(g.nnz == nnz and sp.spgemm_flops(g, g) == g_flops and want == tri,
+              f"symmetric {name}: nnz {g.nnz}, flops {sp.spgemm_flops(g, g)}, scipy "
+              f"{want} triangles; expected {TRIANGLES[name]}")
+        label = f"{name} symmetric triangle_count_device(G)"
+        res = drive(label, lambda: counts.triangle_count_device(g),
+                    triangles_equal(label, tri))
+        e = ell.cached_executor(g, g, masked=True)
+        plan_launches(label, e, *res, e.sort_pad + e.staged_nnz_pad(g))
+        label = f"{name} symmetric triangle_count_device(G, chunk_flops=DEFAULT_CHUNK_FLOPS)"
+        res = drive(label, lambda: counts.triangle_count_device(
+            g, chunk_flops=sp.DEFAULT_CHUNK_FLOPS), triangles_equal(label, tri))
+        no_launches(label, *res[:2])
+        graphs[name] = (g, e)
+    # the bench plans stay referenced here; the rmat-s16 one is released
+    del graphs["rmat-s16"], g, e, s
+    ell._EXEC_CACHE.clear()
+
+    # (c) random 32k: the unrolled plan's chunk-local four-output form
+    m = BCSR.random(RAND32K[0], RAND32K[0], RAND32K[1], seed=RAND32K[2])
+    label = "random 32k spgemm_counts(A, A)"
+    res = drive(label, lambda: spgemm_counts(m, m),
+                counts_equal(label, int_product(m, m), RAND32K_NNZ, sp.spgemm_flops(m, m)))
+    e = ell.cached_executor(m, m)
+    check(not e.batched, "random 32k spgemm_counts did not take the unrolled plan")
+    plan_launches(label, e, *res, e.sort_pad)
+    del m, e
+
+    # (d) validity-class through the host engine
+    av = BCSR.random(VALIDITY[0], VALIDITY[0], VALIDITY[1], seed=VALIDITY[2])
+    label = "validity-class spgemm_counts(A, A)"
+    res = drive(label, lambda: spgemm_counts(av, av),
+                counts_equal(label, int_product(av, av), VALIDITY_NNZ,
+                             sp.spgemm_flops(av, av)))
+    no_launches(label, *res[:2])
+
+    # (e) K1 on the rows the bench counting paths sort, against its plain
+    # version and torch.sort
+    staged_a = exm.stage_mask(a)
+    g_bench, e_bench = graphs["bench"]
+    staged_g = e_bench.stage_mask(g_bench)
+    streams = {}
+    for label, fn in (("counts", ex.run_counts),
+                      ("masked counts", lambda: exm.run_masked_counts(staged_a)),
+                      ("triangles", lambda: e_bench.run_counts_sum(staged_g))):
+        got = capture_sort_inputs(sp, fn)
+        check(COUNT_SHAPES[label] in got, f"{label}: no sort at {COUNT_SHAPES[label]}, "
+              f"sorted {sorted(got)}")
+        streams[label] = got[COUNT_SHAPES[label]]
+    k1_rows, err = [], 0
+    for label, x in streams.items():
+        k, L = x.shape
+        variant = bitonic.k1_variant(L)
+        got, want = bitonic.bitonic_sort_rows(x), bitonic.bitonic_sort_rows_plain(x)
+        torch.cuda.synchronize()
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want), f"K1 differs at the {label} stream's {[k, L]}")
+        fns = [("k1", lambda: bitonic.bitonic_sort_rows(x)),
+               ("plain", lambda: bitonic.bitonic_sort_rows_plain(x)),
+               ("lib", lambda: torch.sort(x, dim=1))]
+        st: dict[str, list[float]] = {}
+        for name, fn in fns + fns[::-1]:
+            st.setdefault(name, []).append(event_ms(torch, fn, 20))
+        b_ms, b_by = sort_bound_ms(x.numel(), L)
+        row = {"path": label, "shape": [k, L], "variant": variant, "ms": min(st["k1"]),
+               "plain_ms": min(st["plain"]), "library_ms": min(st["lib"]),
+               "bound_ms": b_ms, "bound_by": b_by}
+        k1_rows.append(row)
+        print(f"K1 ({variant}) on the bench {label} stream {[k, L]}: bit-equal to its "
+              f"plain version; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"torch.sort {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{row['ms'] / b_ms:.1f}x the bound; {card}")
+    out["k1"], out["k1_err"] = k1_rows, err
+    del streams
+
+    # (f) the run_* times beside phase 7's run(), with assembly, peak memory
+    # and the share of the busy time in sort kernels
+    def sum_host(e, run):
+        return lambda: int(run().cpu().numpy()[: e.n_chunks].astype(np.int64).sum())
+
+    times = {}
+    for label, e, run, asm in (
+            ("run_counts", ex, ex.run_counts, lambda: ex.assemble_counts(ex.run_counts())),
+            ("run_masked_counts", exm, lambda: exm.run_masked_counts(staged_a),
+             lambda: exm.assemble_counts(exm.run_masked_counts(staged_a))),
+            ("run_counts_sum", exm, lambda: exm.run_counts_sum(staged_a),
+             sum_host(exm, lambda: exm.run_counts_sum(staged_a)))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = run()
+        torch.cuda.synchronize()
+        peak = peak_above(base)
+        del res
+        run_ms = [event_ms(torch, run, 1) for _ in range(15)]
+        e2e_ms = [event_ms(torch, asm, 1) for _ in range(3)]
+        prof = profile_run(torch, run, reps=1, label=label)
+        sort_share = None
+        if prof is not None:
+            sort_ms = sum(v for k, v in prof["per_name_ms"].items() if "sort" in k.lower())
+            sort_share = sort_ms / prof["busy_ms"]
+        times[label] = {"run_ms": statistics.median(run_ms),
+                        "e2e_ms": statistics.median(e2e_ms), "peak_mib": peak,
+                        "busy_ms": None if prof is None else prof["busy_ms"],
+                        "idle": None if prof is None else prof["idle"],
+                        "sort_share": sort_share}
+        share = "not measured" if sort_share is None else f"{sort_share:.3f}"
+        print(f"{label}: median {times[label]['run_ms']:.4f} ms (fastest {min(run_ms):.4f}, "
+              f"slowest {max(run_ms):.4f}, 15 runs); with assembly median "
+              f"{times[label]['e2e_ms']:.2f} ms (3 runs); peak device memory {peak:.1f} MiB "
+              f"above the staged operands; share of busy time in sort kernels {share}; "
+              f"phase 7's run() {bench_run_ms:.4f} ms; {card}")
+    out["times"] = times
+    ell._EXEC_CACHE.clear()
+    return out
+
+
 def run_smoke() -> dict:
     import torch
 
@@ -1897,21 +2185,35 @@ def run_smoke() -> dict:
         bench_run_ms=statistics.median(run_ms))
     op_launches = {label: rec["launches"] for label, rec in ops["products"].items()}
 
+    phase("18. the counting family")
+    from binary_spgemm_tpu_torch import masked_spgemm_counts, spgemm_counts
+    from binary_spgemm_tpu_torch.ops import counts as counts_mod
+
+    api.update(counts=counts_mod, spgemm_counts=spgemm_counts,
+               masked_spgemm_counts=masked_spgemm_counts)
+    cnt = counting_phase(
+        torch, f"on {smi}", api=api, reset_counts=reset_counts, read_counts=read_counts,
+        routes=routes, k1_by_variant=k1_by_variant, bench=a,
+        bench_run_ms=statistics.median(run_ms))
+    op_launches.update({label: rec["launches"] for label, rec in cnt["products"].items()})
+
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
     kernels = [
         {
             "name": "bitonic_sort_rows", "route": "cuda", "source": src,
             "replaces": "binary_spgemm_tpu/ops/bitonic.py:114",
             "launches": launches["bitonic_sort_rows"],
-            "max_abs_err": max(errs["bitonic_sort_rows"], ops["k1_err"]), "ms": t["k1"],
+            "max_abs_err": max(errs["bitonic_sort_rows"], ops["k1_err"], cnt["k1_err"]),
+            "ms": t["k1"],
             "plain_ms": t["k1_plain"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": t["k1_lib"], "shape": shape, "on_main_path": True,
             "variant": k1_variant, "previous_ms": t["k1_smem"],
             "launches_by_variant": k1_variants, "other_shapes": k1_shapes,
-            "op_family": ops["k1"],
+            "op_family": ops["k1"], "counting": cnt["k1"],
             "launches_by_path": {label: {"launches": rec["launches"]["bitonic_sort_rows"],
                                          "by_variant": rec["k1_by_variant"]}
-                                 for label, rec in ops["products"].items()},
+                                 for label, rec in (*ops["products"].items(),
+                                                    *cnt["products"].items())},
         },
         {
             "name": "fused_sort_compress", "route": "cuda", "source": src,
@@ -2021,9 +2323,10 @@ def run_smoke() -> dict:
             "on_main_path": False,
         },
     ]
-    phase("18. kernels")
+    phase("19. kernels")
     paths = {"rmat-s16": times16, "rmat-s18-e8": times18, "random-32k": times32,
-             "esc": esc, "op_family": {k: ops[k] for k in ("times", "cummax_ms")}}
+             "esc": esc, "op_family": {k: ops[k] for k in ("times", "cummax_ms")},
+             "counting": cnt["times"]}
     print(f"paths: {json.dumps(paths)}")
     print(f"drivers (s): {json.dumps({k: v['s'] for k, v in drivers.items()})}")
     print(f"card: {smi}")

@@ -11,7 +11,7 @@ import torch
 
 import binary_spgemm_tpu_torch as tp
 from binary_spgemm_tpu_torch.ops import bitonic
-from binary_spgemm_tpu_torch.utils.oracle import spgemm_oracle
+from binary_spgemm_tpu_torch.utils.oracle import spgemm_oracle, union_oracle
 
 pytestmark = pytest.mark.cuda
 
@@ -492,12 +492,6 @@ def test_k1_unchanged_by_the_first_merge_argument(cuda_device, L):
         assert torch.equal(bitonic.bitonic_network_rows(x, 2), got)
 
 
-def union_oracle(a, b):
-    c = (a.to_scipy() + b.to_scipy()).tocsr()
-    c.sort_indices()
-    return tp.BCSR(c.indptr, c.indices, c.shape)
-
-
 def or_oracle(d, a, b, f=None):
     from binary_spgemm_tpu_torch.utils.oracle import masked_spgemm_oracle
 
@@ -578,3 +572,126 @@ def test_op_family_one_shot_on_the_card(cuda_device, chunk_flops):
         assert c.equals(or_oracle(f, a, a, mask))
         assert c.equals(tp.spgemm_or(f, a, a, mask=mask, device="cpu", **kw))
     assert tp.spm_or(a, f).equals(union_oracle(a, f))
+
+
+def int_product(a, b, f=None):
+    """scipy's int64 product (over F's support with ``f``), indices sorted."""
+    c = a.to_scipy().astype(np.int64) @ b.to_scipy().astype(np.int64)
+    if f is not None:
+        c = c.multiply(f.to_scipy().astype(np.int64)).tocsr()
+        c.eliminate_zeros()
+    c.sort_indices()
+    return c
+
+
+def same_counts(got, ref):
+    c, counts = got
+    return (np.array_equal(c.indptr, ref.indptr) and np.array_equal(c.indices, ref.indices)
+            and np.array_equal(counts, ref.data))
+
+
+def symmetric_hollow(a):
+    s = a.to_scipy()
+    s = ((s + s.T) > 0).astype(np.int64).tolil()
+    s.setdiag(0)
+    return tp.BCSR.from_scipy(s.tocsr())
+
+
+@pytest.mark.parametrize("form", ["batched", "batched-pair", "unrolled", "dealt"])
+def test_counting_executor_on_the_card(cuda_device, form):
+    """``run_counts``, ``run_masked_counts`` and ``run_counts_sum`` on the
+    card equal the same calls on the CPU, their assembly scipy's integer
+    product, with K1 counted wherever ``sort_rows`` took it and P3/P4 once a
+    dispatch group."""
+    from binary_spgemm_tpu_torch.ops import gather
+
+    n, m = (8000, 262145) if form == "batched-pair" else (3000, 3000)
+    a = tp.BCSR.random(n, m, 3.0, seed=1)
+    b = tp.BCSR.random(m, m, 0.2 if m > n else 2.0, seed=2)
+    f = tp.BCSR.random(n, m, 4.0, seed=3)
+    kw = {"batched": dict(batched=True, deal_k=60), "batched-pair": dict(batched=True, deal_k=2),
+          "unrolled": {}, "dealt": dict(deal_k=16)}[form]
+    ex = tp.EllSpGEMMExecutor(a, b, masked=True, **kw)
+    cpu = tp.EllSpGEMMExecutor(a, b, masked=True, device="cpu", **kw)
+    assert ex.batched == form.startswith("batched") and ex.n_chunks == cpu.n_chunks
+    for label, run, ref in (("counts", lambda e: e.run_counts(), int_product(a, b)),
+                            ("masked", lambda e: e.run_masked_counts(e.stage_mask(f)),
+                             int_product(a, b, f))):
+        k1, g = bitonic.bitonic_sort_rows.launches, (gather.class_gather.launches
+                                                     + gather.class_gather_keys.launches)
+        routes = dict(bitonic.sort_rows.routes)
+        got = run(ex)
+        torch.cuda.synchronize()
+        assert gather.class_gather.launches + gather.class_gather_keys.launches == g + ex.n_groups
+        new = {r: bitonic.sort_rows.routes[r] - routes[r] for r in routes}
+        assert bitonic.bitonic_sort_rows.launches - k1 == new["k1"]
+        assert sum(new.values()) in (0, ex.n_groups)  # 0: the int64 pair keys
+        if form == "batched":
+            assert new == {"k1": ex.n_groups, "torch_sort": 0}
+        want = run(cpu)
+        got_c = [x.cpu() for x in got]
+        assert [x.shape for x in got_c] == [x.shape for x in want]
+        assert torch.equal(got_c[-1], want[-1])
+        if len(got_c) == 4:
+            assert torch.equal(got_c[0], want[0])
+        for c in range(got_c[-1].shape[0]):
+            nc = int(got_c[-1][c])
+            for x, y in zip(got_c[-3:-1], want[-3:-1]):
+                assert torch.equal(x[c, :nc], y[c, :nc])
+        assert same_counts(ex.assemble_counts(got), ref), label
+    sums = ex.run_counts_sum(f)
+    assert sums.is_cuda and torch.equal(sums.cpu(), cpu.run_counts_sum(f))
+    assert int(sums.sum()) == int(int_product(a, b, f).sum())
+
+
+@pytest.mark.parametrize("chunk_flops", [None, 20_000])
+def test_counting_entry_points_on_the_card(cuda_device, monkeypatch, chunk_flops):
+    """``spgemm_counts``, ``masked_spgemm_counts`` and
+    ``triangle_count_device`` past the host route on the card equal the CPU
+    path and scipy: the batched ELL plans (forced, as the JAX tests force
+    them at this size) with K1 launched, or ESC with ``chunk_flops``, which
+    launches no hand kernel."""
+    from binary_spgemm_tpu_torch.ops import counts, ell, gather
+
+    if chunk_flops is None:
+        monkeypatch.setattr(ell, "prefer_batched", lambda a, b: True)
+    a = tp.BCSR.random(20000, 20000, 12.0, seed=7)
+    f = tp.BCSR.random(20000, 20000, 6.0, seed=8)
+    g = symmetric_hollow(tp.BCSR.random(20000, 20000, 4.0, seed=9))
+    s = g.to_scipy()
+    kw = {} if chunk_flops is None else {"chunk_flops": chunk_flops}
+    for label, fn, ref in (
+            ("spgemm_counts", lambda **d: tp.spgemm_counts(a, a, **kw, **d), int_product(a, a)),
+            ("masked_spgemm_counts", lambda **d: tp.masked_spgemm_counts(f, a, a, **kw, **d),
+             int_product(a, a, f)),
+            ("triangle_count_device", lambda **d: counts.triangle_count_device(g, **kw, **d),
+             int(s.multiply(s @ s).sum()) // 6)):
+        k1 = bitonic.bitonic_sort_rows.launches
+        gathers = gather.class_gather.launches + gather.class_gather_keys.launches
+        got = fn()
+        torch.cuda.synchronize()
+        launched = (bitonic.bitonic_sort_rows.launches - k1,
+                    gather.class_gather.launches + gather.class_gather_keys.launches - gathers)
+        if chunk_flops is None:
+            assert launched[0] > 0 and launched[1] > 0, label
+        else:
+            assert launched == (0, 0), label
+        cpu = fn(device="cpu")
+        if label == "triangle_count_device":
+            assert got == cpu == ref and got > 0
+        else:
+            assert same_counts(got, ref) and same_counts(cpu, ref), label
+            assert got[1].dtype == np.int64
+    ell._EXEC_CACHE.clear()
+
+
+def test_from_torch_takes_card_tensors(cuda_device):
+    t = tp.BCSR.random(300, 200, 3.0, seed=4)
+    st = t.to_torch()
+    vals = torch.ones(t.nnz)
+    vals[::5] = 0
+    csr = torch.sparse_csr_tensor(st.crow_indices(), st.col_indices(), vals, size=t.shape)
+    for x in (st, csr, csr.to_sparse_coo(), csr.to_dense()):
+        got = tp.BCSR.from_torch(x.to(cuda_device))
+        assert got.equals(tp.BCSR.from_torch(x))
+    assert tp.BCSR.from_torch(st.to(cuda_device)).equals(t)

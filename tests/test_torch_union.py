@@ -14,16 +14,11 @@ from binary_spgemm_tpu.ops import union as jx_union
 import binary_spgemm_tpu_torch as tp
 from binary_spgemm_tpu_torch.ops import host as tp_host
 from binary_spgemm_tpu_torch.ops import union as tp_union
+from binary_spgemm_tpu_torch.utils.oracle import union_oracle
 
 
 def to_port(m):
     return tp.bcsr_from_arrays(m.indptr, m.indices, m.shape)
-
-
-def union_oracle(a, b):
-    c = (a.to_scipy() + b.to_scipy()).tocsr()
-    c.sort_indices()
-    return tp.BCSR(c.indptr, c.indices, c.shape)
 
 
 def assert_same(j, t):
