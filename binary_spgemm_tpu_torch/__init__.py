@@ -41,12 +41,25 @@ package.  Ported so far:
   (``BlockedBCSR``, ``bsr_spgemm``, and ``BsrStagedExecutor`` behind
   ``auto_executor`` / ``spgemm``), with its grouped tile products as a
   hand-written CUDA kernel (``ops/block_matmul.py``,
-  ``csrc/block_matmul.cu``).
+  ``csrc/block_matmul.cu``);
+* the device-resident pipelines: ``DeviceBCSR`` and the ops of
+  ``ops/device_api.py`` on it, and the one-sort streams with holes
+  (``PaddedDeviceBCSR``, ``spgemm_onesort_device``,
+  ``spgemm_or_onesort_device``);
+* the graph ops (``ops/graph.py``): ``k_hop`` and ``transitive_closure``
+  (host, resident compacted and resident one-sort routes), ``bfs_levels``,
+  ``reachable``, ``triangle_structure``, ``triangle_count``,
+  ``clustering_coefficients`` and ``k_truss``;
+* the CLI's ``gen``, ``multiply`` and ``graph`` commands
+  (``python -m binary_spgemm_tpu_torch.cli``).
 
-Entry points run on ``device="cuda"`` unless told otherwise.  Not ported
-yet (ROADMAP.md Queue 1): the native host helpers (the native Matrix-Market
-parser among them), the device-resident pipelines and graph ops, the CLI
-and the distributed layer.
+Entry points run on ``device="cuda"`` unless told otherwise; ``device=`` is
+always the torch device.  The JAX package's boolean ``device=`` flag of
+``k_hop``, ``transitive_closure`` and ``triangle_count`` (keep the matrices
+on the accelerator) is ``resident=`` here, with the same defaults.  Not
+ported yet (ROADMAP.md Queue 1): the native host helpers (the native
+Matrix-Market parser among them), the distributed layer, and the CLI's
+``bench`` and ``validate``, which need it.
 """
 from .formats.bbcsr import BlockedBCSR, blocked_from_arrays
 from .formats.bcsr import BCSR, bcsr_from_arrays, coo_to_csr_stable
@@ -55,6 +68,16 @@ from .ops.bsr import bsr_spgemm
 from .ops.counts import masked_spgemm_counts, spgemm_counts
 from .ops.ell import EllSpGEMMExecutor, auto_executor, ell_spgemm, tuned_executor
 from .ops.fused import spgemm_or
+from .ops.graph import (
+    bfs_levels,
+    clustering_coefficients,
+    k_hop,
+    k_truss,
+    reachable,
+    transitive_closure,
+    triangle_count,
+    triangle_structure,
+)
 from .ops.host import (
     host_masked_spgemm,
     host_spgemm,
@@ -63,18 +86,27 @@ from .ops.host import (
     host_spm_or,
 )
 from .ops.masked import masked_spgemm
-from .ops.spgemm import SpGEMMExecutor, spgemm, spgemm_flops
+from .ops.onesort import (
+    PaddedDeviceBCSR,
+    spgemm_onesort_device,
+    spgemm_or_onesort_device,
+)
+from .ops.spgemm import DeviceBCSR, SpGEMMExecutor, spgemm, spgemm_flops
 from .ops.union import spm_or
 
 __all__ = [
     "BCSR",
     "BlockedBCSR",
+    "DeviceBCSR",
     "EllSpGEMMExecutor",
+    "PaddedDeviceBCSR",
     "SpGEMMExecutor",
     "auto_executor",
     "bcsr_from_arrays",
+    "bfs_levels",
     "blocked_from_arrays",
     "bsr_spgemm",
+    "clustering_coefficients",
     "coo_to_csr_stable",
     "ell_spgemm",
     "host_masked_spgemm",
@@ -82,14 +114,22 @@ __all__ = [
     "host_spgemm_counts",
     "host_spgemm_or",
     "host_spm_or",
+    "k_hop",
+    "k_truss",
     "masked_spgemm",
     "masked_spgemm_counts",
+    "reachable",
     "read_pattern",
     "spgemm",
     "spgemm_counts",
     "spgemm_flops",
+    "spgemm_onesort_device",
     "spgemm_or",
+    "spgemm_or_onesort_device",
     "spm_or",
+    "transitive_closure",
+    "triangle_count",
+    "triangle_structure",
     "tuned_executor",
     "write_integer",
     "write_pattern",

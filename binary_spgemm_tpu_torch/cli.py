@@ -1,0 +1,259 @@
+"""Command-line interface of the port: data generation, one-shot products and
+graph ops.
+
+    python -m binary_spgemm_tpu_torch.cli gen a.mtx -n 4096 -d 4 --seed 1
+    python -m binary_spgemm_tpu_torch.cli multiply a.mtx --out c.mtx
+    python -m binary_spgemm_tpu_torch.cli graph a.mtx closure --resident --out r.mtx
+
+Counterpart of ``binary_spgemm_tpu/cli.py``'s ``gen``, ``multiply`` and
+``graph`` commands, with the same flags, outputs and exit codes, and two
+changes of name: ``--device {cuda,cpu}`` picks the torch device (``cuda``
+unless told otherwise), and ``graph --resident`` is the JAX CLI's ``graph
+--device`` (keep the iterated products' matrices on the device).  ``bench``
+and ``validate`` are not ported yet: they run the row-partitioned
+distributed layer, which the port does not have yet.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .formats.bcsr import BCSR
+from .io.mmio import read_pattern, write_integer, write_pattern
+from .ops.spgemm import DEFAULT_CHUNK_FLOPS, spgemm
+
+
+def _load(path: str, transpose: bool) -> BCSR:
+    return read_pattern(path, transpose=transpose)
+
+
+def _single_device_spgemm(a, args, b=None):
+    b = a if b is None else b
+    if args.engine == "ell":
+        from .ops.ell import ell_spgemm
+
+        return ell_spgemm(a, b, device=args.device)
+    if args.engine == "esc":
+        return spgemm(a, b, chunk_flops=args.chunk_flops or DEFAULT_CHUNK_FLOPS,
+                      device=args.device)
+    return spgemm(a, b, chunk_flops=args.chunk_flops, device=args.device)
+
+
+def cmd_gen(args) -> int:
+    if args.rmat:
+        scale = args.n.bit_length() - 1
+        if (1 << scale) != args.n:
+            raise SystemExit("--rmat requires n to be a power of two")
+        mat = BCSR.rmat(scale, args.d, seed=args.seed)
+        comment = f"rmat pattern n={args.n} edge_factor={args.d} seed={args.seed}"
+    else:
+        mat = BCSR.random(args.n, args.n, args.d, seed=args.seed)
+        comment = f"random pattern n={args.n} d={args.d} seed={args.seed}"
+    write_pattern(args.out, mat, comment=comment)
+    print(f"wrote {args.out}: n={args.n} nnz={mat.nnz}")
+    return 0
+
+
+def cmd_multiply(args) -> int:
+    """One op — C = A·B, F.*(A·B), D OR (A·B) or D OR (F.*(A·B)) — written
+    as a pattern ``.mtx`` with ``--out``; ``--counts`` gives each entry's
+    multiplicity and writes an integer ``.mtx``."""
+    a = _load(args.path, args.transpose)
+    b = _load(args.b, args.transpose) if args.b else a
+    kw = {"chunk_flops": args.chunk_flops, "device": args.device}
+    if args.engine == "esc" and kw["chunk_flops"] is None:
+        kw["chunk_flops"] = DEFAULT_CHUNK_FLOPS
+    mask = _load(args.mask, args.transpose) if args.mask else None
+    source = f"{args.path}" + (f" * {args.b}" if args.b else " squared")
+    if args.counts:
+        if args.fuse_or:
+            print("--counts cannot combine with --fuse-or", file=sys.stderr)
+            return 2
+        from .ops.counts import masked_spgemm_counts, spgemm_counts
+
+        # --engine esc is a forced chunk_flops above; "ell" goes through so
+        # the counts entry points force it or raise
+        ckw = dict(kw, engine="ell") if args.engine == "ell" else kw
+        if mask is not None:
+            c, counts = masked_spgemm_counts(mask, a, b, **ckw)
+        else:
+            c, counts = spgemm_counts(a, b, **ckw)
+        if args.out:
+            write_integer(args.out, c, counts, comment=f"integer product from {source}")
+        total = int(counts.sum()) if counts.size else 0
+        print(f"C: shape={c.shape} nnz={c.nnz} sum(counts)={total}"
+              + (f" -> {args.out}" if args.out else ""))
+        return 0
+    if args.fuse_or:
+        from .ops.fused import spgemm_or
+
+        d = _load(args.fuse_or, args.transpose)
+        c = spgemm_or(d, a, b, mask=mask, **kw)
+    elif mask is not None:
+        from .ops.masked import masked_spgemm
+
+        c = masked_spgemm(mask, a, b, **kw)
+    else:
+        c = _single_device_spgemm(a, args, b)
+    if args.out:
+        write_pattern(args.out, c, comment=f"C from {source}")
+    print(f"C: shape={c.shape} nnz={c.nnz}" + (f" -> {args.out}" if args.out else ""))
+    return 0
+
+
+def _write_csv(args, label: str, values: str) -> None:
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(values + "\n")
+        print(f"{label} -> {args.out}")
+    else:
+        print(values)
+
+
+def cmd_graph(args) -> int:
+    """Graph ops over the SpGEMM core: closure, k-hop, triangles, BFS,
+    k-truss and clustering coefficients."""
+    from .ops import graph
+
+    if args.op in ("triangles", "bfs", "ktruss", "clustering") and args.resident:
+        print(f"{args.op} has no resident form", file=sys.stderr)
+        return 2
+    a = _load(args.path, args.transpose)
+    kw = {"chunk_flops": args.chunk_flops, "device": args.device}
+    if args.op == "bfs":
+        if not args.sources:
+            print("bfs needs --sources", file=sys.stderr)
+            return 2
+        try:
+            sources = [int(s) for s in args.sources.split(",")]
+        except ValueError:
+            print(f"--sources must be comma-separated integers, got {args.sources!r}",
+                  file=sys.stderr)
+            return 2
+        lv = graph.bfs_levels(a, sources, max_hops=args.max_iters, **kw)
+        print(f"bfs: n={a.n_rows} reachable={int((lv >= 0).sum())} "
+              f"max_level={int(lv.max())}")
+        _write_csv(args, "levels", ",".join(str(int(x)) for x in lv))
+        return 0
+    if args.op == "clustering":
+        cc = graph.clustering_coefficients(a, **kw)
+        print(f"clustering: n={a.n_rows} mean={float(cc.mean()):.6g} "
+              f"max={float(cc.max()):.6g}")
+        _write_csv(args, "coefficients", ",".join(f"{x:.6g}" for x in cc))
+        return 0
+    if args.op == "closure":
+        c = graph.transitive_closure(a, max_iters=args.max_iters, resident=args.resident,
+                                     one_sort=not args.two_sort, **kw)
+    elif args.op == "khop":
+        c = graph.k_hop(a, args.k, resident=args.resident, one_sort=not args.two_sort,
+                        **kw)
+    elif args.op == "ktruss":
+        if args.k < 3:
+            print("ktruss needs --k >= 3", file=sys.stderr)
+            return 2
+        c = graph.k_truss(a, args.k, **kw)
+    elif args.count:
+        print(f"triangles: n={a.n_rows} count={graph.triangle_count(a, **kw)}")
+        return 0
+    else:
+        c = graph.triangle_structure(a, **kw)
+    if args.out:
+        write_pattern(args.out, c, comment=f"{args.op} of {args.path}")
+    print(f"{args.op}: shape={c.shape} nnz={c.nnz}"
+          + (f" -> {args.out}" if args.out else ""))
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="binary_spgemm_tpu_torch",
+        description="boolean SpGEMM on a CUDA card: data generation, products "
+        "and graph ops",
+        epilog="bench and validate are not ported yet: they need the "
+        "row-partitioned distributed layer",
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    io_common = argparse.ArgumentParser(add_help=False)
+    io_common.add_argument("path", help="Matrix-Market pattern file")
+    io_common.add_argument(
+        "--no-transpose", dest="transpose", action="store_false",
+        help="read the file as-is instead of the reference's transpose semantics",
+    )
+    io_common.add_argument(
+        "--chunk-flops", type=int, default=None,
+        help="max Gustavson flops per ESC row chunk; setting it forces the ESC "
+        "engine (default: auto engine, sliced-ELL when it fits)",
+    )
+    io_common.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="torch device (cpu runs every kernel's plain torch version)",
+    )
+    engine_common = argparse.ArgumentParser(add_help=False)
+    engine_common.add_argument(
+        "--engine", choices=["auto", "esc", "ell"], default="auto",
+        help="SpGEMM engine (auto = sliced-ELL when its expansion fits)",
+    )
+
+    m = sub.add_parser(
+        "multiply", parents=[io_common, engine_common],
+        help="compute C = A*B (masked / fused-OR variants) and write it",
+    )
+    m.add_argument("b", nargs="?", default=None, help="B operand (default: A)")
+    m.add_argument("--mask", default=None, help="mask F: C = F .* (A*B)")
+    m.add_argument("--fuse-or", default=None, help="D operand: C = D OR (F.*?(A*B))")
+    m.add_argument("--out", default=None, help="write C as a pattern .mtx")
+    m.add_argument(
+        "--counts", action="store_true",
+        help="counting multiply: per-entry multiplicities (the integer product "
+        "of 0/1 matrices); --out writes coordinate integer .mtx",
+    )
+    m.set_defaults(fn=cmd_multiply)
+
+    gr = sub.add_parser("graph", parents=[io_common],
+                        help="closure / k-hop / triangles / bfs / k-truss / clustering")
+    gr.add_argument("op", choices=["closure", "khop", "triangles", "bfs", "ktruss",
+                                   "clustering"])
+    gr.add_argument("--k", type=int, default=2, help="k for khop/ktruss")
+    gr.add_argument("--max-iters", type=int, default=None)
+    gr.add_argument("--sources", default=None,
+                    help="comma-separated source node ids (bfs; levels print as CSV)")
+    gr.add_argument(
+        "--count", action="store_true",
+        help="triangles: print the triangle COUNT (device counting kernel, needs a "
+        "symmetric hollow adjacency) instead of the edge structure",
+    )
+    gr.add_argument(
+        "--resident", action="store_true",
+        help="closure/khop: keep the matrices on the device between products "
+        "(two scalar reads a round)",
+    )
+    gr.add_argument(
+        "--two-sort", action="store_true",
+        help="with --resident: compacted rounds instead of the default one-sort "
+        "streams with holes (ops/onesort.py)",
+    )
+    gr.add_argument("--out", default=None, help="write the result .mtx")
+    gr.set_defaults(fn=cmd_graph)
+
+    g = sub.add_parser("gen", help="generate a random pattern .mtx")
+    g.add_argument("out")
+    g.add_argument("-n", type=int, required=True, help="matrix dimension")
+    g.add_argument("-d", type=float, required=True, help="nnz per row")
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument(
+        "--rmat", action="store_true",
+        help="power-law R-MAT graph instead of uniform Bernoulli (n must be a "
+        "power of two)",
+    )
+    g.set_defaults(fn=cmd_gen)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,10 +19,12 @@ structure of C = A·B in three vectorised steps:
    a histogram or a searchsorted (:func:`_histogram_indptr_wins`), or ride
    in the stream as embedded separators (:func:`sort_compress_seps`).
 
-Around it: the flop-balanced chunk plan (:func:`uniform_chunk_plan`), the
-staged :class:`SpGEMMExecutor`, the pipelined one-shot ESC driver, the
-column-windowed route for giant rows (:func:`_spgemm_giant`), the pulls of
-each chunk's valid prefix, and the 2-D separator step the sliced-ELL engines
+Around it: the device-resident container :class:`DeviceBCSR` (the
+operands and results of ``ops/device_api.py``), the flop-balanced chunk
+plan (:func:`uniform_chunk_plan`), the staged :class:`SpGEMMExecutor`, the
+pipelined one-shot ESC route, the column-windowed route for giant rows
+(:func:`_spgemm_giant`), the pulls of each chunk's valid prefix, and the
+2-D separator step the sliced-ELL engines
 sort with (:func:`sort_compress_seps_2d`, through :func:`..bitonic.sort_rows`:
 K1 up to its longest row, ``torch.sort`` past it).  :func:`spgemm` routes as
 the JAX package's does: the host engine for small products, the staged ELL
@@ -32,6 +34,7 @@ route for rows past :data:`GIANT_ROW_FLOPS`.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -43,6 +46,7 @@ from .bitonic import sort_rows as sort_rows_1key
 __all__ = [
     "COMPACT_PULL_BYTES",
     "DEFAULT_CHUNK_FLOPS",
+    "DeviceBCSR",
     "GIANT_ROW_FLOPS",
     "SpGEMMExecutor",
     "blocked_route",
@@ -97,6 +101,78 @@ def packable(n_rows: int, n_cols: int) -> bool:
     ``(n_rows + 1) * next_pow2(n_cols + 1) <= 2^31`` (sentinel row included)."""
     shift = int(n_cols).bit_length()  # n_cols < 2**shift: the col field holds n_cols
     return (n_rows + 1) << shift <= (1 << 31)
+
+
+# ---------------------------------------------------------------------------
+# Device-resident padded container
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DeviceBCSR:
+    """Boolean CSR on a device with a padded index array.
+
+    ``indptr`` is exact (int32 ``[n_rows+1]``); ``indices`` (int32) is padded
+    to a bucket size with the tail undefined; ``nnz`` is a 0-d int32 tensor
+    counting the valid entries, so ops that produce one need no host sync."""
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    nnz: torch.Tensor
+    shape: tuple[int, int]
+
+    @classmethod
+    def from_host(
+        cls,
+        mat: BCSR,
+        *,
+        pad_to: int | None = None,
+        require_canonical: bool = False,
+        device: str | torch.device = "cuda",
+    ) -> "DeviceBCSR":
+        """Stage a host BCSR on ``device``.
+
+        Pass ``require_canonical=True`` when the matrix feeds the counting
+        family or is used as a mask: duplicate operand entries silently
+        inflate multiplicities there (the boolean ops dedup in their sort)."""
+        if require_canonical and not mat.is_canonical():
+            raise ValueError(
+                "operand is not canonical (per-row sorted, deduplicated); "
+                "call .sum_duplicates() before staging — duplicate entries "
+                "inflate counting-family multiplicities silently"
+            )
+        require_int32_operands(mat)
+        device = resolve_device(device)
+        pad = pad_to if pad_to is not None else pad_bucket(mat.nnz)
+        idx = np.zeros(pad, dtype=np.int32)
+        idx[: mat.nnz] = mat.indices
+        return cls(
+            indptr=torch.from_numpy(mat.indptr.astype(np.int32)).to(device),
+            indices=torch.from_numpy(idx).to(device),
+            nnz=torch.tensor(mat.nnz, dtype=INT, device=device),
+            shape=tuple(mat.shape),
+        )
+
+    def to_host(self) -> BCSR:
+        """Pull the valid prefix into a host BCSR."""
+        ptr, idx, _ = pull_padded_tuple(self.indptr, self.indices, self.nnz)
+        return BCSR(ptr, idx, self.shape)
+
+    def compact(self, pad_to: int | None = None) -> "DeviceBCSR":
+        """Repack into a tighter padded index array, staying on the device.
+
+        Op outputs hold their valid entries in a prefix, so this is one slice
+        (the only host sync reads ``nnz``; the pad is bucketed).  The
+        iterated-product loops call it between rounds, so each round's
+        expansion works on ``O(nnz)`` padding instead of the previous round's
+        flop bound."""
+        nnz = int(self.nnz)
+        pad = pad_to if pad_to is not None else pad_bucket(max(nnz, 1))
+        if pad < nnz:
+            raise ValueError(f"pad_to {pad} would truncate {nnz} valid entries")
+        if pad >= self.indices.shape[0]:
+            return self
+        return DeviceBCSR(self.indptr, self.indices[:pad], self.nnz, self.shape)
 
 
 # ---------------------------------------------------------------------------

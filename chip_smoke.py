@@ -140,7 +140,33 @@ Phases, each reported on its own lines; any failure exits non-zero:
     ``run_counts_sum`` medians beside phase 7's ``run()`` with their
     assembly, peak memory, idle share and share of the busy time in sort
     kernels;
-19. a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}`` line.
+19. the device API, the one-sort pipeline and the graph ops, with the launch
+    counts, K1's variant counts and the sort routes set to 0 just before
+    each op and read just after: (a) ``DeviceBCSR`` and ``ops/device_api.py``
+    on the bench config (``flops_bound_device`` 16,735,925; the products,
+    unions, masked products and counts equal to phases 5, 17 and 18's;
+    ``counts_sum_device`` on phase 18's symmetric bench graph 6 x 5,340),
+    no hand kernel; (b) ``spgemm_onesort_device`` (through ``to_host()``
+    and ``compact()``) and ``spgemm_or_onesort_device`` with and without
+    ``mask=A``, equal to phases 5 and 17's, with the stream length; (c)
+    ``k_hop(A, 2)`` on the host route (phase 5's launches), the resident
+    compacted and the resident one-sort routes, each equal to phase 5's
+    product, and ``k_hop(A, 3, resident=True)`` raising ``OverflowError``
+    on both resident routes; (d) ``transitive_closure`` of
+    ``BCSR.random(65536, 65536, 1.0, seed=7)`` on the three routes, equal
+    to scipy's (1,866,786 nnz, 8 rounds), with each route's wall, rounds,
+    one-sort compactions, peak memory and launches; (e)
+    ``triangle_structure``, ``triangle_count``, ``clustering_coefficients``
+    (``np.array_equal`` to scipy's formula) and ``k_truss(G, 3)`` (scipy's
+    peeling) on phase 18's symmetric bench graph; (f) ``bfs_levels`` and
+    ``reachable`` from three sources on the bench config against scipy's
+    ``shortest_path``; (g) the CLI as subprocesses: ``gen`` writes (d)'s
+    input and the bench config, then ``graph closure`` (its written file
+    equal to (d)'s) and ``graph khop --resident`` (the bench product's nnz)
+    run at once on the card;
+20. a ``{"kernels": [...]}`` line (the graph ops' K1, P3 and P4 launches
+    under ``launches_by_path["graph"]``), then, last, the ``{"ok": true,
+    ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -195,6 +221,13 @@ TRIANGLES = {"bench": (2_094_556, 69_041_936, 5_340),
 # pad 160)
 COUNT_SHAPES = {"counts": (1024, 3968), "masked counts": (512, 6912),
                 "triangles": (2048, 8096)}
+# phase 19's closure input, BCSR.random(n, n, d, seed), its closure's nnz,
+# the doubling rounds and the largest round's flops (scipy); BFS sources
+CLOSURE, CLOSURE_NNZ = (65536, 1.0, 7), 1_866_786
+CLOSURE_ROUNDS, CLOSURE_MAX_FLOPS = 8, 35_338_354
+BFS_SOURCES = [0, 1, 12345]
+GRAPH_ROUTES = {"host": {}, "resident": {"resident": True, "one_sort": False},
+                "one-sort": {"resident": True}}
 GATHER_WIDTHS = (1, 2, 3, 16, 40, 10240)
 NETWORK_LENGTHS = (2, 128, 256, 4096, 32768)  # P1/P2 around K1's variant bounds
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -895,7 +928,7 @@ def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
         phases' tensors)."""
         return (torch.cuda.max_memory_allocated() - base) / 2**20
 
-    def drive(label, fn, ref, nnz):
+    def drive(label, fn, ref, nnz, keep=None):
         reset_counts()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -915,6 +948,8 @@ def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
         print(f"  bit-exact against scipy: output nnz {got.nnz}")
         out["products"][label] = {"s": secs, "launches": launches, "k1_by_variant": k1v,
                                   "routes": rts, "peak_mib": peak, "nnz": got.nnz}
+        if keep:  # a result phase 19 holds its own against
+            out.setdefault("results", {})[keep] = got
         return launches, rts, k1v
 
     # (a) the bench config, every product on the ELL routes
@@ -922,7 +957,7 @@ def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     or_ref = csr(sa + c.to_scipy())
     launches, rts, k1v = drive("bench masked_spgemm(A, A, A)",
                                lambda: api["masked_spgemm"](a, a, a), masked_ref,
-                               BENCH_MASKED_NNZ)
+                               BENCH_MASKED_NNZ, keep="masked")
     exm = ell.cached_executor(a, a, masked=True)
     print(f"  masked plan: k={exm.n_chunks} groups={exm.n_groups}x{exm.group_size} "
           f"rows_pad={exm.rows_pad} sort_pad={exm.sort_pad} mask pad "
@@ -932,14 +967,15 @@ def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
           and launches["class_gather"] == 0,
           "the bench masked product did not sort with K1's smem kernel and P4")
     launches, rts, k1v = drive("bench spgemm_or(A, A, A)",
-                               lambda: api["spgemm_or"](a, a, a), or_ref, BENCH_OR_NNZ)
+                               lambda: api["spgemm_or"](a, a, a), or_ref, BENCH_OR_NNZ,
+                               keep="or")
     exo = ell.cached_executor(a, a)
     check(k1v == {"reg": 0, "smem": 2 * exo.n_groups}
           and launches["class_gather_keys"] == exo.n_groups,
           "bench A ∪ A·A did not sort with K1's smem kernel and P4")
     launches, rts, k1v = drive("bench spgemm_or(A, A, A, mask=A)",
                                lambda: api["spgemm_or"](a, a, a, mask=a),
-                               a.sum_duplicates(), a.sum_duplicates().nnz)
+                               a.sum_duplicates(), a.sum_duplicates().nnz, keep="or-masked")
     check(k1v == {"reg": 0, "smem": 2 * exm.n_groups}
           and launches["class_gather_keys"] == exm.n_groups,
           "the bench masked A ∪ A·A did not sort with K1's smem kernel and P4")
@@ -1119,7 +1155,7 @@ def counting_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     def peak_above(base: int) -> float:
         return (torch.cuda.max_memory_allocated() - base) / 2**20
 
-    def drive(label, fn, verify):
+    def drive(label, fn, verify, keep=None):
         reset_counts()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1137,6 +1173,8 @@ def counting_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
         verify(got)
         out["products"][label] = {"s": secs, "launches": launches, "k1_by_variant": k1v,
                                   "routes": rts, "peak_mib": peak}
+        if keep:  # a result phase 19 holds its own against
+            out.setdefault("results", {})[keep] = got
         return launches, rts, k1v
 
     def counts_equal(label, ref, nnz, flops=None):
@@ -1193,7 +1231,7 @@ def counting_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     ref = int_product(a, a)
     label = "bench spgemm_counts(A, A)"
     res = drive(label, lambda: spgemm_counts(a, a),
-                counts_equal(label, ref, EXPECTED_NNZ, flops))
+                counts_equal(label, ref, EXPECTED_NNZ, flops), keep="counts")
     ex = ell.cached_executor(a, a)
     check(ex.batched, "bench spgemm_counts did not take the batched plan")
     plan_launches(label, ex, *res, ex.sort_pad)
@@ -1205,7 +1243,7 @@ def counting_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     refm = int_product(a, a, a)
     label = "bench masked_spgemm_counts(A, A, A)"
     res = drive(label, lambda: masked_spgemm_counts(a, a, a),
-                counts_equal(label, refm, BENCH_MASKED_NNZ))
+                counts_equal(label, refm, BENCH_MASKED_NNZ), keep="masked counts")
     exm = ell.cached_executor(a, a, masked=True)
     plan_launches(label, exm, *res, exm.sort_pad)
     label = "bench masked_spgemm_counts(A, A, A, chunk_flops=DEFAULT_CHUNK_FLOPS)"
@@ -1221,7 +1259,10 @@ def counting_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
         g = symmetric_hollow(make())
         nnz, g_flops, tri = TRIANGLES[name]
         s = g.to_scipy()
-        want = int(s.multiply(s @ s).sum()) // 6
+        support = s.multiply(s @ s).tocsr()  # each edge's common neighbours
+        want = int(support.sum()) // 6
+        if name == "bench":  # phase 19 runs the graph ops on it
+            out["bench_symmetric"] = (g, support)
         check(g.nnz == nnz and sp.spgemm_flops(g, g) == g_flops and want == tri,
               f"symmetric {name}: nnz {g.nnz}, flops {sp.spgemm_flops(g, g)}, scipy "
               f"{want} triangles; expected {TRIANGLES[name]}")
@@ -1236,7 +1277,7 @@ def counting_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
         no_launches(label, *res[:2])
         graphs[name] = (g, e)
     # the bench plans stay referenced here; the rmat-s16 one is released
-    del graphs["rmat-s16"], g, e, s
+    del graphs["rmat-s16"], g, e, s, support
     ell._EXEC_CACHE.clear()
 
     # (c) random 32k: the unrolled plan's chunk-local four-output form
@@ -1335,6 +1376,315 @@ def counting_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
               f"phase 7's run() {bench_run_ms:.4f} ms; {card}")
     out["times"] = times
     ell._EXEC_CACHE.clear()
+    return out
+
+
+def closure_oracle(s):
+    """R <- R OR R·R to the fixpoint with scipy (``s`` an int64 CSR):
+    ``(closure, rounds, largest round's flops)``, rounds counted as the
+    resident loops count their products."""
+    r = (s > 0).astype(np.int64).tocsr()
+    rounds, most = 0, 0
+    while True:
+        lens = np.diff(r.indptr)
+        most = max(most, int(lens[r.indices].sum()))
+        rounds += 1
+        nxt = ((r + r @ r) > 0).astype(np.int64).tocsr()
+        if nxt.nnz == r.nnz:
+            r.sort_indices()
+            return r, rounds, most
+        r = nxt
+
+
+def graph_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
+                k1_by_variant, bench, main_launches, op_results, count_results,
+                bench_symmetric) -> dict:
+    """The device API, the one-sort pipeline and the graph ops (phase 19).
+    ``bench`` is ``(A, C = A·A)`` from phase 5; ``op_results`` phase 17's
+    ``spgemm_or`` / ``masked_spgemm`` products, ``count_results`` phase 18's
+    bench counts, ``bench_symmetric`` phase 18's symmetric bench graph G and
+    scipy's ``G.multiply(G @ G)``.  Every result is held against those or
+    against scipy; the launch counts, K1's variant counts and the sort
+    routes are set to 0 just before each op and read just after.  Returns
+    the numbers for the summary and the kernels line."""
+    from scipy.sparse.csgraph import shortest_path
+
+    from binary_spgemm_tpu_torch.io.mmio import read_pattern
+    from binary_spgemm_tpu_torch.ops import device_api as dapi
+    from binary_spgemm_tpu_torch.ops import graph, onesort
+
+    sp, ell, BCSR = api["spgemm_mod"], api["ell"], api["BCSR"]
+    DeviceBCSR = sp.DeviceBCSR
+    a, c = bench
+    g, support = bench_symmetric
+    out: dict = {"products": {}, "k_hop_s": {}}
+
+    def peak_above(base: int) -> float:
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    def drive(label, fn):
+        reset_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, rts, k1v = read_counts(), dict(routes), dict(k1_by_variant)
+        peak = peak_above(base)
+        print(f"{label}: {secs:.3f} s on the host clock; launches {launches}; K1 by "
+              f"variant {k1v}; sort_rows routes {rts}; peak device memory {peak:.1f} MiB "
+              f"above the {base / 2**20:.1f} MiB held before")
+        out["products"][label] = {"s": secs, "launches": launches, "k1_by_variant": k1v,
+                                  "routes": rts, "peak_mib": peak}
+        return got, launches, rts
+
+    def no_launches(label, launches, rts):
+        check(not any(launches.values()) and not any(rts.values()),
+              f"{label}: a hand kernel or sort_rows ran ({launches}, {rts})")
+
+    def same(label, got, want):
+        check(got.equals(want), f"{label} differs from {want!r}")
+        print(f"  equal: output nnz {got.nnz}")
+
+    # (a) the device API on the bench config: ESC in torch ops, no hand kernel
+    da = DeviceBCSR.from_host(a, require_canonical=True)
+    fb = dapi.flops_bound_device(da, da)
+    check(int(fb) == BENCH_COUNTS_FLOPS, f"flops_bound_device {int(fb)} != {BENCH_COUNTS_FLOPS}")
+    fp = sp.pad_bucket(int(fb))
+    print(f"flops_bound_device(A, A) = {int(fb)}; flops_pad {fp}")
+    for label, fn, want in (
+            ("spgemm_device(A, A)", lambda: dapi.spgemm_device(da, da, flops_pad=fp), c),
+            ("spgemm_or_device(A, A, A)", lambda: dapi.spgemm_or_device(da, da, da, flops_pad=fp),
+             op_results["or"]),
+            ("spgemm_or_device(A, A, A, mask=A)",
+             lambda: dapi.spgemm_or_device(da, da, da, flops_pad=fp, mask=da),
+             op_results["or-masked"]),
+            ("masked_spgemm_device(A, A, A)",
+             lambda: dapi.masked_spgemm_device(da, da, da, flops_pad=fp), op_results["masked"])):
+        got, launches, rts = drive(label, lambda: fn().to_host())
+        no_launches(label, launches, rts)
+        same(label, got, want)
+    for label, fn, (want, want_cnt) in (
+            ("spgemm_counts_device(A, A)",
+             lambda: dapi.spgemm_counts_device(da, da, flops_pad=fp), count_results["counts"]),
+            ("masked_spgemm_counts_device(A, A, A)",
+             lambda: dapi.masked_spgemm_counts_device(da, da, da, flops_pad=fp),
+             count_results["masked counts"])):
+        (dc, cnt), launches, rts = drive(label, fn)
+        no_launches(label, launches, rts)
+        got = dc.to_host()
+        check(got.equals(want) and np.array_equal(cnt[: got.nnz].cpu().numpy(), want_cnt),
+              f"{label} differs from phase 18's counts")
+        print(f"  equal to phase 18's: output nnz {got.nnz}, counts sum {int(want_cnt.sum())}")
+    dg = DeviceBCSR.from_host(g, require_canonical=True)
+    fbg = int(dapi.flops_bound_device(dg, dg))
+    check(fbg == TRIANGLES["bench"][1], f"symmetric bench flops {fbg}")
+    label = "counts_sum_device(G, G, G) (bench symmetric)"
+    total, launches, rts = drive(label, lambda: int(dapi.counts_sum_device(
+        dg, dg, dg, flops_pad=sp.pad_bucket(fbg))))
+    no_launches(label, launches, rts)
+    check(total == 6 * TRIANGLES["bench"][2], f"{label} = {total}")
+    print(f"  {total} = 6 x {TRIANGLES['bench'][2]} triangles")
+    del dg
+
+    # (b) one-sort on the bench config
+    pa = onesort.PaddedDeviceBCSR.from_device(da)
+    fbo, est = onesort.flops_bound_onesort(pa, pa)
+    check(int(fbo) == BENCH_COUNTS_FLOPS and float(est) == float(BENCH_COUNTS_FLOPS),
+          f"flops_bound_onesort {int(fbo)}, {float(est)}")
+    label = "spgemm_onesort_device(A, A)"
+    s1, launches, rts = drive(label, lambda: onesort.spgemm_onesort_device(pa, pa,
+                                                                          flops_pad=fp))
+    no_launches(label, launches, rts)
+    print(f"  stream length {s1.stream_len} against nnz {int(s1.nnz)} "
+          f"({s1.stream_len / int(s1.nnz):.4f}x)")
+    same(f"{label}.to_host()", s1.to_host(), c)
+    same(f"{label}.compact().to_host()", s1.compact().to_host(), c)
+    out["onesort_stream"] = {"stream_len": s1.stream_len, "nnz": int(s1.nnz)}
+    del s1
+    for label, mask, want in (("spgemm_or_onesort_device(A, A, A)", None, op_results["or"]),
+                              ("spgemm_or_onesort_device(A, A, A, mask=A)", pa,
+                               op_results["or-masked"])):
+        s2, launches, rts = drive(label, lambda: onesort.spgemm_or_onesort_device(
+            pa, pa, pa, flops_pad=fp, mask=mask))
+        no_launches(label, launches, rts)
+        print(f"  stream length {s2.stream_len} against nnz {int(s2.nnz)}")
+        same(label, s2.to_host(), want)
+        del s2
+    del da, pa
+
+    # (c) k-hop on the bench config: A² on the three routes, A³ past the
+    # resident budget
+    for route, kw in GRAPH_ROUTES.items():
+        label = f"k_hop(A, 2), {route} route"
+        got, launches, rts = drive(label, lambda: graph.k_hop(a, 2, **kw))
+        if route == "host":  # phase 5's plan: K1 (registers) and P4
+            check(launches == main_launches,
+                  f"{label}: launches {launches}, phase 5's {main_launches}")
+        else:
+            no_launches(label, launches, rts)
+        same(label, got, c)
+        out["k_hop_s"][route] = out["products"][label]["s"]
+    for route in ("resident", "one-sort"):
+        try:
+            graph.k_hop(a, 3, **GRAPH_ROUTES[route])
+        except OverflowError as err:
+            print(f"k_hop(A, 3), {route} route: OverflowError: {err}")
+        else:
+            raise SmokeError(f"k_hop(A, 3), {route} route did not raise OverflowError")
+    ell._EXEC_CACHE.clear()
+
+    # (d) the transitive closure on the three routes
+    m = BCSR.random(CLOSURE[0], CLOSURE[0], CLOSURE[1], seed=CLOSURE[2])
+    t0 = time.perf_counter()
+    ref, rounds, most = closure_oracle(m.to_scipy())
+    want = BCSR(ref.indptr, ref.indices, ref.shape)
+    check((want.nnz, rounds, most) == (CLOSURE_NNZ, CLOSURE_ROUNDS, CLOSURE_MAX_FLOPS),
+          f"scipy's closure: nnz {want.nnz}, {rounds} rounds, largest {most} flops")
+    print(f"closure of BCSR.random({CLOSURE[0]}, {CLOSURE[0]}, {CLOSURE[1]}, seed={CLOSURE[2]}) "
+          f"({m.nnz} nnz) with scipy: {want.nnz} nnz in {rounds} rounds, the largest "
+          f"{most} flops ({time.perf_counter() - t0:.2f} s)")
+    steps = {"host": "spgemm_or", "resident": "spgemm_or_device",
+             "one-sort": "spgemm_or_onesort_device"}
+    closure = {}
+    for route, kw in GRAPH_ROUTES.items():
+        calls = {"rounds": 0, "regates": 0}
+        step, regate = getattr(graph, steps[route]), graph._onesort_regate
+
+        def counted_step(*args, **kwargs):
+            calls["rounds"] += 1
+            return step(*args, **kwargs)
+
+        def counted_regate(r):
+            res = regate(r)
+            calls["regates"] += res is not r
+            return res
+
+        setattr(graph, steps[route], counted_step)
+        graph._onesort_regate = counted_regate
+        label = f"transitive_closure, {route} route"
+        try:
+            got, launches, rts = drive(label, lambda: graph.transitive_closure(m, **kw))
+        finally:
+            setattr(graph, steps[route], step)
+            graph._onesort_regate = regate
+        if route == "host":  # the late rounds run the ELL executor's run_or
+            check(launches["bitonic_sort_rows"] > 0 and launches["class_gather_keys"] > 0,
+                  f"{label}: K1 or P4 never ran ({launches})")
+        else:
+            no_launches(label, launches, rts)
+        same(label, got, want)
+        rec = out["products"][label]
+        rec.update(calls)
+        closure[route] = {"s": rec["s"], **calls, "peak_mib": rec["peak_mib"],
+                          "k1": launches["bitonic_sort_rows"], "k1_by_variant": rec["k1_by_variant"],
+                          "p3": launches["class_gather"], "p4": launches["class_gather_keys"],
+                          "routes": rts}
+        print(f"  {route}: {rec['s']:.3f} s wall, {calls['rounds']} rounds, "
+              f"{calls['regates']} one-sort compactions, peak {rec['peak_mib']:.1f} MiB, "
+              f"K1 {launches['bitonic_sort_rows']} ({rec['k1_by_variant']}), P3 "
+              f"{launches['class_gather']}, P4 {launches['class_gather_keys']}, "
+              f"sort_rows routes {rts}; {card}")
+    out["closure"] = closure
+    ell._EXEC_CACHE.clear()
+
+    # (e) triangles, clustering and the 3-truss of the symmetric bench graph
+    n = g.n_rows
+    tri_structure = support.copy()
+    tri_structure.eliminate_zeros()
+    tri_structure.sort_indices()
+    label = "triangle_structure(G)"
+    got, launches, _ = drive(label, lambda: graph.triangle_structure(g))
+    check(launches["bitonic_sort_rows"] > 0, f"{label}: K1 never ran")
+    same(label, got, BCSR(tri_structure.indptr, tri_structure.indices, (n, n)))
+    label = "triangle_count(G)"
+    got, launches, _ = drive(label, lambda: graph.triangle_count(g))
+    check(launches["bitonic_sort_rows"] > 0, f"{label}: K1 never ran")
+    check(got == TRIANGLES["bench"][2], f"{label} = {got}")
+    print(f"  {got} triangles")
+    label = "clustering_coefficients(G)"
+    got, launches, _ = drive(label, lambda: graph.clustering_coefficients(g))
+    check(launches["bitonic_sort_rows"] > 0, f"{label}: K1 never ran")
+    tri2 = np.asarray(support.sum(axis=1)).ravel().astype(np.int64)
+    deg = np.diff(g.indptr).astype(np.int64)
+    pairs = deg * (deg - 1)
+    cc = np.zeros(n, np.float64)
+    nz = pairs > 0
+    cc[nz] = tri2[nz] / pairs[nz]
+    check(got.dtype == np.float64 and np.array_equal(got, cc),
+          f"{label} differs from scipy's formula")
+    print(f"  equal to scipy's formula (np.array_equal): mean {got.mean():.6g}, "
+          f"{int((got > 0).sum())} nodes above 0")
+    d, sup = g.to_scipy(), support.copy()
+    while True:  # scipy's peeling: drop edges in no triangle of the subgraph
+        sup.data = (sup.data >= 1).astype(np.int64)
+        sup.eliminate_zeros()
+        if sup.nnz == d.nnz:
+            break
+        d = sup.tocsr()
+        sup = d.multiply(d @ d).tocsr()
+    d = d.tocsr()
+    d.sort_indices()
+    label = "k_truss(G, 3)"
+    got, launches, _ = drive(label, lambda: graph.k_truss(g, 3))
+    check(launches["bitonic_sort_rows"] > 0, f"{label}: K1 never ran")
+    same(label, got, BCSR(d.indptr, d.indices, (n, n)))
+    ell._EXEC_CACHE.clear()
+
+    # (f) BFS from three sources on the bench config
+    label = f"bfs_levels(A, {BFS_SOURCES})"
+    lv, launches, rts = drive(label, lambda: graph.bfs_levels(a, BFS_SOURCES))
+    dist = shortest_path(a.to_scipy(), directed=True, unweighted=True,
+                         indices=BFS_SOURCES).min(axis=0)
+    want_lv = np.where(np.isinf(dist), -1, dist).astype(np.int32)
+    check(np.array_equal(lv, want_lv), f"{label} differs from scipy's shortest_path")
+    check(np.array_equal(graph.reachable(a, BFS_SOURCES), np.flatnonzero(want_lv >= 0)),
+          "reachable differs from scipy's shortest_path")
+    print(f"  equal to scipy's shortest_path: {int((lv >= 0).sum())} reached, "
+          f"{int(lv.max())} levels; the frontier products on the host engine: "
+          f"launches {launches}")
+
+    # (g) the CLI: gen, then graph closure and graph khop --resident, as
+    # subprocesses on the card
+    cli_dir = os.path.join(ROOT, "build", "cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    cli = [sys.executable, "-m", "binary_spgemm_tpu_torch.cli"]
+    paths = {name: os.path.join(cli_dir, f"{name}.mtx") for name in ("closure-in", "bench",
+                                                                     "closure-out")}
+    t0 = time.perf_counter()
+    for path, (n_, d_, seed_) in ((paths["closure-in"], CLOSURE), (paths["bench"], (N, D, SEED))):
+        subprocess.run([*cli, "gen", path, "-n", str(n_), "-d", str(d_), "--seed", str(seed_)],
+                       cwd=ROOT, check=True, capture_output=True, text=True, timeout=300)
+    procs = {
+        "closure": subprocess.Popen([*cli, "graph", paths["closure-in"], "closure",
+                                     "--no-transpose", "--out", paths["closure-out"]],
+                                    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True),
+        "khop": subprocess.Popen([*cli, "graph", paths["bench"], "khop", "--resident",
+                                  "--no-transpose"], cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)}
+    try:
+        res = {k: p.communicate(timeout=600) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for k, p in procs.items():
+        check(p.returncode == 0, f"CLI graph {k} exited {p.returncode}: {res[k][1][-2000:]}")
+    cli_s = time.perf_counter() - t0
+    closure_line = res["closure"][0].strip().splitlines()[-1]
+    khop_line = res["khop"][0].strip().splitlines()[-1]
+    check(read_pattern(paths["closure-out"], transpose=False).equals(want),
+          "the CLI's closure differs from (d)'s")
+    check(khop_line == f"khop: shape=({N}, {N}) nnz={EXPECTED_NNZ}",
+          f"the CLI's k-hop printed {khop_line!r}")
+    print(f"CLI (gen x2, then graph closure and graph khop --resident at once): "
+          f"{cli_s:.2f} s; {closure_line!r}: the written file equals (d)'s closure; "
+          f"{khop_line!r}: (c)'s nnz")
+    out["cli_s"] = cli_s
     return out
 
 
@@ -2197,6 +2547,14 @@ def run_smoke() -> dict:
         bench_run_ms=statistics.median(run_ms))
     op_launches.update({label: rec["launches"] for label, rec in cnt["products"].items()})
 
+    phase("19. the device API, the one-sort pipeline and the graph ops")
+    gr = graph_phase(
+        torch, f"on {smi}", api=api, reset_counts=reset_counts, read_counts=read_counts,
+        routes=routes, k1_by_variant=k1_by_variant, bench=(a, c), main_launches=launches,
+        op_results=ops.pop("results"), count_results=cnt.pop("results"),
+        bench_symmetric=cnt.pop("bench_symmetric"))
+    graph_launches = {label: rec["launches"] for label, rec in gr["products"].items()}
+
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
     kernels = [
         {
@@ -2210,10 +2568,13 @@ def run_smoke() -> dict:
             "variant": k1_variant, "previous_ms": t["k1_smem"],
             "launches_by_variant": k1_variants, "other_shapes": k1_shapes,
             "op_family": ops["k1"], "counting": cnt["k1"],
-            "launches_by_path": {label: {"launches": rec["launches"]["bitonic_sort_rows"],
-                                         "by_variant": rec["k1_by_variant"]}
-                                 for label, rec in (*ops["products"].items(),
-                                                    *cnt["products"].items())},
+            "launches_by_path": {
+                **{label: {"launches": rec["launches"]["bitonic_sort_rows"],
+                           "by_variant": rec["k1_by_variant"]}
+                   for label, rec in (*ops["products"].items(), *cnt["products"].items())},
+                "graph": {label: {"launches": rec["launches"]["bitonic_sort_rows"],
+                                  "by_variant": rec["k1_by_variant"]}
+                          for label, rec in gr["products"].items()}},
         },
         {
             "name": "fused_sort_compress", "route": "cuda", "source": src,
@@ -2251,7 +2612,9 @@ def run_smoke() -> dict:
                                  "random-32k": launches32["class_gather"],
                                  "bench": launches["class_gather"],
                                  "rmat-s16": launches16["class_gather"],
-                                 **{k: v["class_gather"] for k, v in op_launches.items()}},
+                                 **{k: v["class_gather"] for k, v in op_launches.items()},
+                                 "graph": {k: v["class_gather"]
+                                           for k, v in graph_launches.items()}},
             "on_path": {
                 "rmat-s18-e8": gather_row(gather_rmat, "p3", launches18["class_gather"],
                                           "rmat-s18-e8, one group"),
@@ -2281,7 +2644,9 @@ def run_smoke() -> dict:
                                  "rmat-s16": launches16["class_gather_keys"],
                                  "rmat-s18-e8": launches18["class_gather_keys"],
                                  "random-32k": launches32["class_gather_keys"],
-                                 **{k: v["class_gather_keys"] for k, v in op_launches.items()}},
+                                 **{k: v["class_gather_keys"] for k, v in op_launches.items()},
+                                 "graph": {k: v["class_gather_keys"]
+                                           for k, v in graph_launches.items()}},
             "on_path": {
                 "bench": gather_row(gather_main, "p4", launches["class_gather_keys"],
                                     "bench config, one group"),
@@ -2323,10 +2688,11 @@ def run_smoke() -> dict:
             "on_main_path": False,
         },
     ]
-    phase("19. kernels")
+    phase("20. kernels")
     paths = {"rmat-s16": times16, "rmat-s18-e8": times18, "random-32k": times32,
              "esc": esc, "op_family": {k: ops[k] for k in ("times", "cummax_ms")},
-             "counting": cnt["times"]}
+             "counting": cnt["times"],
+             "graph": {k: gr[k] for k in ("k_hop_s", "closure", "onesort_stream", "cli_s")}}
     print(f"paths: {json.dumps(paths)}")
     print(f"drivers (s): {json.dumps({k: v['s'] for k, v in drivers.items()})}")
     print(f"card: {smi}")

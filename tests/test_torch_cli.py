@@ -1,0 +1,211 @@
+"""The port's CLI (``binary_spgemm_tpu_torch.cli``: ``gen``, ``multiply``,
+``graph``) against the JAX package's, on the CPU (``--device cpu``): the same
+commands on the same files write byte-equal output files and print the same
+lines, whatever engine or route the port takes; the error exits (code 2)
+are the JAX CLI's; ``--resident`` is the JAX CLI's ``graph --device``, and
+``bench`` / ``validate`` are not registered yet."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import binary_spgemm_tpu as jx
+from binary_spgemm_tpu import cli as jx_cli
+
+from binary_spgemm_tpu_torch import cli as tp_cli
+from binary_spgemm_tpu_torch.io.mmio import read_pattern
+from binary_spgemm_tpu_torch.utils.oracle import spgemm_oracle
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU = ["--device", "cpu"]
+
+
+@pytest.fixture
+def mtx(tmp_path):
+    p = tmp_path / "a.mtx"
+    jx.write_pattern(p, jx.BCSR.random(200, 200, 2.0, seed=1))
+    return str(p)
+
+
+@pytest.fixture
+def sparse_mtx(tmp_path):
+    # its closure's rounds stay on both packages' host engines
+    p = tmp_path / "s.mtx"
+    jx.write_pattern(p, jx.BCSR.random(200, 200, 1.2, seed=1))
+    return str(p)
+
+
+@pytest.fixture
+def sym_mtx(tmp_path):
+    sp = jx.BCSR.random(80, 80, 3.0, seed=4).to_scipy()
+    sp = ((sp + sp.T) > 0).astype(np.int64).tolil()
+    sp.setdiag(0)
+    p = tmp_path / "g.mtx"
+    jx.write_pattern(p, jx.BCSR.from_scipy(sp.tocsr()))
+    return str(p)
+
+
+def both(capsys, jax_argv, port_argv):
+    """Run the JAX CLI, then the port's; return their stdouts (each call
+    must exit 0)."""
+    assert jx_cli.main(jax_argv) == 0
+    j = capsys.readouterr().out
+    assert tp_cli.main(port_argv) == 0
+    return j, capsys.readouterr().out
+
+
+def same_bytes(p, q):
+    with open(p, "rb") as fp, open(q, "rb") as fq:
+        return fp.read() == fq.read()
+
+
+@pytest.mark.parametrize("rmat", [False, True])
+def test_gen_writes_the_jax_clis_file(tmp_path, capsys, rmat):
+    j_out, t_out = str(tmp_path / "j.mtx"), str(tmp_path / "t.mtx")
+    args = ["-n", "256", "-d", "1.5", "--seed", "9"] + (["--rmat"] if rmat else [])
+    jo, to = both(capsys, ["gen", j_out, *args], ["gen", t_out, *args])
+    assert same_bytes(j_out, t_out)
+    assert jo.replace(j_out, "X") == to.replace(t_out, "X")
+    with pytest.raises(SystemExit):
+        tp_cli.main(["gen", t_out, "-n", "300", "-d", "1.0", "--rmat"])
+
+
+@pytest.mark.parametrize("extra", [[], ["--engine", "esc", "--chunk-flops", "4096"],
+                                   ["--engine", "esc"], ["--engine", "ell"],
+                                   ["--chunk-flops", "2048"]])
+def test_multiply_writes_the_jax_clis_file(mtx, tmp_path, capsys, extra):
+    # the JAX CLI's auto engine (its host engine at this size) against every
+    # engine of the port: one product, byte-equal files
+    j_out, t_out = str(tmp_path / "j.mtx"), str(tmp_path / "t.mtx")
+    jo, to = both(capsys, ["multiply", mtx, "--out", j_out],
+                  ["multiply", mtx, "--out", t_out, *extra, *CPU])
+    assert same_bytes(j_out, t_out)
+    assert jo.replace(j_out, "X") == to.replace(t_out, "X")
+    a = read_pattern(mtx)
+    assert read_pattern(t_out, transpose=False).equals(spgemm_oracle(a, a))
+
+
+@pytest.mark.parametrize("op", ["mask", "fuse-or", "fuse-or mask", "b", "no-transpose"])
+def test_multiply_variants_write_the_jax_clis_file(mtx, tmp_path, capsys, op):
+    f, d, b = (str(tmp_path / x) for x in ("f.mtx", "d.mtx", "b.mtx"))
+    jx.write_pattern(f, jx.BCSR.random(200, 200, 3.0, seed=5))
+    jx.write_pattern(d, jx.BCSR.random(200, 200, 1.0, seed=6))
+    jx.write_pattern(b, jx.BCSR.random(200, 200, 2.5, seed=7))
+    extra = {"mask": ["--mask", f], "fuse-or": ["--fuse-or", d],
+             "fuse-or mask": ["--fuse-or", d, "--mask", f], "b": [b],
+             "no-transpose": ["--no-transpose"]}[op]
+    j_out, t_out = str(tmp_path / "j.mtx"), str(tmp_path / "t.mtx")
+    jo, to = both(capsys, ["multiply", mtx, *extra, "--out", j_out],
+                  ["multiply", mtx, *extra, "--out", t_out, *CPU])
+    assert same_bytes(j_out, t_out)
+    assert jo.replace(j_out, "X") == to.replace(t_out, "X")
+
+
+@pytest.mark.parametrize("extra", [[], ["--engine", "esc"], ["--mask", "F"]])
+def test_multiply_counts_writes_the_jax_clis_file(mtx, tmp_path, capsys, extra):
+    f = str(tmp_path / "f.mtx")
+    jx.write_pattern(f, jx.BCSR.random(200, 200, 3.0, seed=5))
+    extra = [f if x == "F" else x for x in extra]
+    j_out, t_out = str(tmp_path / "j.mtx"), str(tmp_path / "t.mtx")
+    jo, to = both(capsys, ["multiply", mtx, "--counts", *extra, "--out", j_out],
+                  ["multiply", mtx, "--counts", *extra, "--out", t_out, *CPU])
+    assert same_bytes(j_out, t_out)
+    assert "sum(counts)=" in to and jo.replace(j_out, "X") == to.replace(t_out, "X")
+    with open(t_out) as fh:
+        assert fh.readline().strip() == "%%MatrixMarket matrix coordinate integer general"
+
+
+def test_multiply_counts_rejects_fuse_or(mtx):
+    assert tp_cli.main(["multiply", mtx, "--counts", "--fuse-or", mtx, *CPU]) == 2
+
+
+@pytest.mark.parametrize("route", [[], ["--resident"], ["--resident", "--two-sort"],
+                                   ["--chunk-flops", "2048"]])
+@pytest.mark.parametrize("op", [["closure"], ["khop", "--k", "3"], ["khop"],
+                                ["closure", "--max-iters", "2"]])
+def test_graph_closure_and_khop_write_the_jax_clis_file(sparse_mtx, tmp_path, capsys, op,
+                                                       route):
+    # the JAX CLI's host route against every route of the port
+    j_out, t_out = str(tmp_path / "j.mtx"), str(tmp_path / "t.mtx")
+    jo, to = both(capsys, ["graph", sparse_mtx, *op, "--out", j_out],
+                  ["graph", sparse_mtx, *op, *route, "--out", t_out, *CPU])
+    assert same_bytes(j_out, t_out)
+    assert jo.replace(j_out, "X") == to.replace(t_out, "X")
+
+
+@pytest.mark.parametrize("op", [["triangles"], ["ktruss", "--k", "3"],
+                                ["ktruss", "--k", "4"]])
+def test_graph_triangles_and_ktruss_write_the_jax_clis_file(sym_mtx, tmp_path, capsys, op):
+    j_out, t_out = str(tmp_path / "j.mtx"), str(tmp_path / "t.mtx")
+    jo, to = both(capsys, ["graph", sym_mtx, *op, "--out", j_out],
+                  ["graph", sym_mtx, *op, "--out", t_out, *CPU])
+    assert same_bytes(j_out, t_out)
+    assert jo.replace(j_out, "X") == to.replace(t_out, "X")
+
+
+def test_graph_triangle_count_prints_the_jax_clis_line(sym_mtx, tmp_path, capsys):
+    k4 = str(tmp_path / "k4.mtx")
+    jx.write_pattern(k4, jx.BCSR.from_dense(~np.eye(4, dtype=bool)))
+    for path in (sym_mtx, k4):
+        jo, to = both(capsys, ["graph", path, "triangles", "--count", "--no-transpose"],
+                      ["graph", path, "triangles", "--count", "--no-transpose", *CPU])
+        assert jo == to
+    assert "count=4" in to
+
+
+@pytest.mark.parametrize("out", [False, True])
+def test_graph_bfs_and_clustering_write_the_jax_clis_csv(mtx, sym_mtx, tmp_path, capsys, out):
+    for path, op in ((mtx, ["bfs", "--sources", "0,5"]), (mtx, ["bfs", "--sources", "2"]),
+                     (sym_mtx, ["clustering"])):
+        j_out, t_out = str(tmp_path / "j.csv"), str(tmp_path / "t.csv")
+        jo, to = both(capsys, ["graph", path, *op] + (["--out", j_out] if out else []),
+                      ["graph", path, *op, *CPU] + (["--out", t_out] if out else []))
+        assert jo.replace(j_out, "X") == to.replace(t_out, "X")
+        if out:
+            assert same_bytes(j_out, t_out)
+
+
+@pytest.mark.parametrize("argv", [["bfs"], ["bfs", "--sources", "0,x"],
+                                  ["bfs", "--sources", "1", "--resident"],
+                                  ["triangles", "--resident"],
+                                  ["clustering", "--resident"],
+                                  ["ktruss", "--k", "3", "--resident"],
+                                  ["ktruss", "--k", "2"]])
+def test_graph_error_exits_are_the_jax_clis(mtx, argv):
+    jax_argv = ["--device" if x == "--resident" else x for x in argv]
+    assert jx_cli.main(["graph", mtx, *jax_argv]) == 2
+    assert tp_cli.main(["graph", mtx, *argv, *CPU]) == 2
+
+
+def test_parser_names():
+    p = tp_cli.build_parser()
+    args = p.parse_args(["graph", "a.mtx", "closure"])
+    assert args.device == "cuda" and args.resident is False and args.two_sort is False
+    assert p.parse_args(["multiply", "a.mtx"]).device == "cuda"
+    for cmd in ("bench", "validate"):
+        with pytest.raises(SystemExit):
+            p.parse_args([cmd, "a.mtx"])
+    assert "bench and validate are not ported yet" in p.format_help()
+
+
+def test_resident_route_defaults_to_the_card(mtx):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp_cli.main(["graph", mtx, "closure", "--resident"])
+
+
+def test_module_entry_point_and_script(tmp_path):
+    out = str(tmp_path / "g.mtx")
+    res = subprocess.run([sys.executable, "-m", "binary_spgemm_tpu_torch.cli", "gen", out,
+                          "-n", "64", "-d", "2", "--seed", "3"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert f"wrote {out}: n=64 nnz=" in res.stdout
+    assert read_pattern(out, transpose=False).shape == (64, 64)
+    with open(os.path.join(ROOT, "pyproject.toml")) as fh:
+        assert 'binary-spgemm-tpu-torch = "binary_spgemm_tpu_torch.cli:main"' in fh.read()

@@ -695,3 +695,168 @@ def test_from_torch_takes_card_tensors(cuda_device):
         got = tp.BCSR.from_torch(x.to(cuda_device))
         assert got.equals(tp.BCSR.from_torch(x))
     assert tp.BCSR.from_torch(st.to(cuda_device)).equals(t)
+
+
+def same_device(x, y):
+    """Two DeviceBCSR (one on the card) equal field by field, padded tails
+    included."""
+    return (tuple(x.shape) == tuple(y.shape) and int(x.nnz) == int(y.nnz)
+            and torch.equal(x.indptr.cpu(), y.indptr.cpu())
+            and torch.equal(x.indices.cpu(), y.indices.cpu()))
+
+
+def same_stream(x, y):
+    """Two one-sort streams (one on the card) element-equal over their whole
+    length."""
+    return (tuple(x.shape) == tuple(y.shape) and int(x.nnz) == int(y.nnz)
+            and torch.equal(x.cols.cpu(), y.cols.cpu())
+            and torch.equal(x.indptr_pos.cpu(), y.indptr_pos.cpu()))
+
+
+@pytest.mark.parametrize("m", [3000, 1 << 22])
+def test_device_api_on_the_card_equals_the_cpu(cuda_device, m):
+    """Every op of ``ops/device_api.py`` on the card equals the same op on
+    the CPU (whole padded arrays) and scipy, on packed keys and on a column
+    count past them; no hand kernel runs."""
+    from binary_spgemm_tpu_torch.ops import device_api as api, gather
+    from binary_spgemm_tpu_torch.ops.spgemm import DeviceBCSR, pad_bucket, spgemm_flops
+    from binary_spgemm_tpu_torch.utils.oracle import masked_spgemm_oracle
+
+    a = tp.BCSR.random(3000, 3000, 6.0, seed=1).sum_duplicates()
+    b = tp.BCSR.random(3000, m, 6.0, seed=2).sum_duplicates()
+    f = tp.BCSR.random(3000, m, 4.0, seed=3).sum_duplicates()
+    d = tp.BCSR.random(3000, m, 2.0, seed=4).sum_duplicates()
+    fp = pad_bucket(spgemm_flops(a, b))
+    on = {dev: [DeviceBCSR.from_host(x, require_canonical=True, device=dev)
+                for x in (a, b, f, d)] for dev in ("cpu", cuda_device)}
+    ops = {
+        "spgemm": lambda a_, b_, f_, d_: api.spgemm_device(a_, b_, flops_pad=fp),
+        "spm_or": lambda a_, b_, f_, d_: api.spm_or_device(f_, d_),
+        "spgemm_or": lambda a_, b_, f_, d_: api.spgemm_or_device(d_, a_, b_, flops_pad=fp),
+        "spgemm_or mask": lambda a_, b_, f_, d_: api.spgemm_or_device(d_, a_, b_, flops_pad=fp,
+                                                                      mask=f_),
+        "masked": lambda a_, b_, f_, d_: api.masked_spgemm_device(f_, a_, b_, flops_pad=fp),
+    }
+    launches = (bitonic.bitonic_sort_rows.launches, gather.class_gather.launches,
+                gather.class_gather_keys.launches)
+    for label, op in ops.items():
+        got, cpu = op(*on[cuda_device]), op(*on["cpu"])
+        assert got.indices.is_cuda and same_device(got, cpu), label
+    assert got.to_host().equals(masked_spgemm_oracle(f, a, b))
+    (gc, gn), (cc, cn) = (api.spgemm_counts_device(x[0], x[1], flops_pad=fp)
+                          for x in (on[cuda_device], on["cpu"]))
+    nnz = int(cc.nnz)
+    assert same_device(gc, cc) and torch.equal(gn.cpu()[:nnz], cn[:nnz])
+    assert np.array_equal(cn[:nnz].numpy(), int_product(a, b).data)
+    (gc, gn), (cc, cn) = (api.masked_spgemm_counts_device(x[2], x[0], x[1], flops_pad=fp)
+                          for x in (on[cuda_device], on["cpu"]))
+    nnz = int(cc.nnz)
+    assert same_device(gc, cc) and torch.equal(gn.cpu()[:nnz], cn[:nnz])
+    assert int(api.counts_sum_device(on[cuda_device][2], on[cuda_device][0],
+                                     on[cuda_device][1], flops_pad=fp)) == int(cn.sum())
+    assert int(api.flops_bound_device(on[cuda_device][0], on[cuda_device][1])) == \
+        spgemm_flops(a, b)
+    assert launches == (bitonic.bitonic_sort_rows.launches, gather.class_gather.launches,
+                        gather.class_gather_keys.launches)
+
+
+@pytest.mark.parametrize("m", [3000, 1 << 20, 1 << 22])
+def test_onesort_on_the_card_equals_the_cpu(cuda_device, m):
+    """One-sort streams on the card element-equal to the CPU's over their
+    whole length: the product, a hole-y chain, the fused OR with a hole-y
+    seed, the masked join (packed, packed plain but unpacked join, pair
+    key), and ``compact``."""
+    from binary_spgemm_tpu_torch.ops import onesort as os_
+    from binary_spgemm_tpu_torch.ops.spgemm import pad_bucket
+
+    a = tp.BCSR.random(3000, 3000, 5.0, seed=5).sum_duplicates()
+    b = tp.BCSR.random(3000, m, 5.0, seed=6).sum_duplicates()
+    f = tp.BCSR.random(3000, m, 4.0, seed=7).sum_duplicates()
+    res = {}
+    for dev in ("cpu", cuda_device):
+        pa, pb, pf = (os_.PaddedDeviceBCSR.from_host(x, device=dev) for x in (a, b, f))
+
+        def pad(x, y):
+            return pad_bucket(int(os_.flops_bound_onesort(x, y)[0]))
+
+        p2 = os_.spgemm_onesort_device(pa, pa, flops_pad=pad(pa, pa))
+        p3 = os_.spgemm_onesort_device(p2, pb, flops_pad=pad(p2, pb))
+        seed = os_.spgemm_onesort_device(pa, pb, flops_pad=pad(pa, pb))
+        fused = os_.spgemm_or_onesort_device(seed, pa, pb, flops_pad=pad(pa, pb))
+        masked = os_.spgemm_or_onesort_device(seed, pa, pb, flops_pad=pad(pa, pb), mask=pf)
+        res[str(dev)] = (p2, p3, fused, masked, p3.compact())
+    for got, cpu in zip(res["cuda"][:4], res["cpu"][:4]):
+        assert got.cols.is_cuda and same_stream(got, cpu)
+    assert same_device(res["cuda"][4], res["cpu"][4])
+    a2 = spgemm_oracle(a, a)
+    assert res["cuda"][1].to_host().equals(spgemm_oracle(a2, b))
+
+
+@pytest.fixture
+def no_host_engine(monkeypatch):
+    """Send every product of the host routes to the card's engines at test
+    size (the host engine takes products up to HOST_MAX_FLOPS)."""
+    from binary_spgemm_tpu_torch.ops import ell, host
+
+    monkeypatch.setattr(host, "HOST_MAX_FLOPS", 0)
+    monkeypatch.setattr(host, "HOST_OR_MAX_NNZ", 0)
+    yield
+    ell._EXEC_CACHE.clear()
+
+
+def closure_oracle(a):
+    r = (a.to_scipy() > 0).astype(np.int64)
+    while True:
+        nxt = ((r + r @ r) > 0).astype(np.int64)
+        if nxt.nnz == r.nnz:
+            return tp.BCSR.from_scipy(r.tocsr())
+        r = nxt
+
+
+def test_graph_routes_on_the_card(cuda_device, no_host_engine):
+    """``k_hop`` and ``transitive_closure`` on the card: the host route with
+    K1 and the gathers counted (every product through the ELL executors),
+    the resident compacted and one-sort routes with none, each equal to the
+    CPU and scipy."""
+    from binary_spgemm_tpu_torch.ops import gather, graph
+
+    a = tp.BCSR.random(3000, 3000, 0.9, seed=8)
+    want = {"k_hop": spgemm_oracle(spgemm_oracle(a, a), a), "closure": closure_oracle(a)}
+    for route, kw in (("host", {}), ("resident", {"resident": True, "one_sort": False}),
+                      ("one-sort", {"resident": True})):
+        for name, fn in (("k_hop", lambda **d: graph.k_hop(a, 3, **kw, **d)),
+                         ("closure", lambda **d: graph.transitive_closure(a, **kw, **d))):
+            k1 = bitonic.bitonic_sort_rows.launches + bitonic.sort_rows.routes["torch_sort"]
+            g = gather.class_gather.launches + gather.class_gather_keys.launches
+            got = fn()
+            torch.cuda.synchronize()
+            sorted_ = bitonic.bitonic_sort_rows.launches + bitonic.sort_rows.routes["torch_sort"] - k1
+            gathered = gather.class_gather.launches + gather.class_gather_keys.launches - g
+            if route == "host":
+                assert sorted_ > 0 and gathered > 0, (route, name)
+            else:
+                assert (sorted_, gathered) == (0, 0), (route, name)
+            assert got.equals(want[name]) and fn(device="cpu").equals(want[name]), (route, name)
+
+
+def test_graph_ops_on_the_card(cuda_device, no_host_engine):
+    """Triangles, clustering, the k-truss and BFS on the card equal the CPU
+    and scipy; the masked products launch K1."""
+    from binary_spgemm_tpu_torch.ops import graph
+
+    g = symmetric_hollow(tp.BCSR.random(3000, 3000, 8.0, seed=9))
+    s = g.to_scipy()
+    support = s.multiply(s @ s).tocsr()
+    k1 = bitonic.bitonic_sort_rows.launches + bitonic.sort_rows.routes["torch_sort"]
+    ts = graph.triangle_structure(g)
+    assert bitonic.bitonic_sort_rows.launches + bitonic.sort_rows.routes["torch_sort"] > k1
+    support.eliminate_zeros()
+    support.sort_indices()
+    assert ts.equals(tp.BCSR(support.indptr, support.indices, g.shape))
+    assert graph.triangle_count(g) == graph.triangle_count(g, device="cpu") == \
+        int(support.sum()) // 6 > 0
+    cc = graph.clustering_coefficients(g)
+    assert np.array_equal(cc, graph.clustering_coefficients(g, device="cpu"))
+    assert graph.k_truss(g, 3).equals(graph.k_truss(g, 3, device="cpu"))
+    a = tp.BCSR.random(3000, 3000, 2.0, seed=10)
+    assert np.array_equal(graph.bfs_levels(a, [0, 7]), graph.bfs_levels(a, [0, 7], device="cpu"))
