@@ -1,10 +1,15 @@
 // Row-wise bitonic sorts for Hopper (sm_90a), with a plain C interface for ctypes.
 //
 // K1  bitonic_sort_rows(x)            replaces binary_spgemm_tpu/ops/bitonic.py::bitonic_sort_rows
-//     Each row of an int32 [k, L] array sorted ascending (signed compares).  Two kernels,
-//     chosen by L alone (ops/bitonic.py::k1_variant):
-//       "reg"   sort_rows_reg_kernel   129 <= L <= 4096   registers and warp shuffles
-//       "smem"  sort_rows_kernel       any other L         the whole network in shared memory
+//     Each row of an int32 [k, L] array sorted ascending (signed compares).  Three
+//     kernels, chosen by L alone (ops/bitonic.py::k1_variant):
+//       "reg"   sort_rows_reg_kernel    129 <= L <= 4096     registers and warp shuffles
+//       "wide"  sort_rows_wide_kernel   4097 <= L <= 32768   one row a block: registers,
+//                                                            shuffles, shared memory
+//                                                            across warps
+//       "smem"  sort_rows_kernel        L <= 128             the whole network in shared
+//                                                            memory
+//     The TPU kernel takes L = 4096 only; the JAX package sorts longer rows with lax.sort.
 // K2  fused_sort_compress(x, limit)   replaces binary_spgemm_tpu/ops/bitonic.py::fused_sort_compress
 //     Sort the row; keep an entry if it differs from its left neighbour (position 0
 //     always) and is below `limit`; set the rest to INT32_MAX; sort again.
@@ -13,10 +18,10 @@
 //     The same network over rows of a power-of-two length L, run only from the merge of
 //     size 2^lk0 on: lk0 = 1 is the whole network (a sort); lk0 = log2(2w) skips the
 //     merges that w-aligned sorted runs of alternating direction already satisfy.  K1's
-//     two kernels run it, chosen by L as K1 chooses (bitonic_network_rows and
-//     bitonic_network_rows_reg); K1 and K2 pass lk0 = 1.  A merge is skipped whole by a
-//     test that is the same for every thread of the block, so the guard adds no
-//     divergence and no template instantiation.
+//     kernels run it, chosen by L as K1 chooses (bitonic_network_rows,
+//     bitonic_network_rows_reg and bitonic_network_rows_wide); K1 and K2 pass
+//     lk0 = 1.  A merge is skipped whole by a test that is the same for every thread
+//     of the block, so the guard adds no divergence and no template instantiation.
 //
 // Design.  The TPU kernel held [B, L] row blocks in VMEM and found bitonic partners
 // with two lane rotations per stage.  Here a thread block owns whole rows.  It loads
@@ -24,7 +29,8 @@
 // runs the ascending bitonic network, and writes back the first L entries of each row:
 // the padding is the largest value, so those are the sorted row.
 //
-// sort_rows_kernel (K1 "smem", and K2) runs every step of the network in shared memory
+// sort_rows_kernel (K1 "smem", K2, and the yardstick the other two are timed against
+// at their lengths) runs every step of the network in shared memory
 // with __syncthreads between steps: one block owns R rows (R = 1 from L = 2049 up), L
 // may be anything from 1 up to 32768 (P * 4 bytes = 128 KB of shared memory).  K2 runs
 // the network twice in the same block with the keep/demote pass between them, so the
@@ -40,10 +46,31 @@
 // shared-memory steps in sort_rows_kernel.  The network is unrolled at compile time
 // (template recursion over the steps), so every register index is a constant.
 //
+// sort_rows_wide_kernel (K1 "wide", P = 2^13 ... 2^15) carries the register kernel's
+// placement to one row a block: thread t holds N contiguous slots, partner distances
+// below N run inside the thread, the next five bits by __shfl_xor_sync, the warp bits in
+// shared memory, entered once per merge that reaches them.  Steps by place, for each
+// block shape (threads x slots a thread) built (launch_wide; ops/bitonic.py::wide_block
+// picks one by L):
+//   P = 8192: 512 x 16, 46 register, 35 shuffle, 10 shared-memory steps in 4 phases
+//   P = 8192: 256 x 32, 55 register, 30 shuffle, 6 shared-memory steps in 3 phases
+//   P = 16384: 512 x 32, 60 register, 35 shuffle, 10 shared-memory steps in 4 phases
+//   P = 16384: 1024 x 16, 50 register, 40 shuffle, 15 shared-memory steps in 5 phases
+//   P = 32768: 1024 x 32, 65 register, 40 shuffle, 15 shared-memory steps in 5 phases
+//   P = 32768: 512 x 64, 75 register, 35 shuffle, 10 shared-memory steps in 4 phases
+// against 91, 105 and 120 shared-memory steps in sort_rows_kernel.  It runs the
+// all-ascending form of the network (each merge opens by comparing a slot with its
+// mirror), in which the INT32_MAX padding never moves, so it neither loads, stores nor
+// sorts the padding: a warp whose slots all lie at or past L skips every register and
+// shuffle step, and a shared step skips a pair whose upper slot does.  Rows of 4352
+// slots cost about 4352 / 8192 of a full row's register and shuffle work.  A 16-byte
+// word swizzle keeps the round trips and the shared steps free of bank conflicts.
+//
 // Bound on this card.  The least work is one read and one write of the array:
-// 2 * 4 * k * L bytes over 3.35 TB/s.  Both kernels do log2(P) * (log2(P) + 1) / 2 steps
-// of P / 2 compare-exchanges per row, so they are bound by that work (shuffles, compares
-// and, in sort_rows_kernel, shared-memory traffic and barriers), not by device memory.
+// 2 * 4 * k * L bytes over 3.35 TB/s.  The kernels do log2(P) * (log2(P) + 1) / 2 steps
+// of P / 2 compare-exchanges per row, so they are bound by that work (shuffles and
+// shared-memory accesses, which share one pipe, integer compares and barriers), not by
+// device memory.
 //
 // Every entry point returns cudaGetLastError() after its launch; 0 means launched.
 
@@ -55,6 +82,14 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kBlockSlots = 4096;  // a block holds at least this many slots when rows are short
 constexpr int kMaxPow2 = 32768;    // longest padded row: 128 KB of shared memory
+
+// A launch above 48 KB of dynamic shared memory must first raise the kernel's limit
+// (an attribute of the current device).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
 __device__ __forceinline__ void load_rows(const int* __restrict__ x, int* s, long long k,
                                           int L, int log_p, int n, long long row0) {
@@ -290,6 +325,254 @@ cudaError_t launch_reg(const int* x, int* out, long long k, int L, int lk0,
   return cudaGetLastError();
 }
 
+// ---- K1 "wide": one row a block, registers, shuffles and shared memory ---------------
+//
+// Rows of 4097 <= L <= 32768 slots, padded to P = 2^13 ... 2^15.  One block of T =
+// P / N threads sorts one row; thread t holds the N contiguous slots i = N t + e in
+// registers (the caller picks N).  A step with partner distance 2^LJ runs on
+// slot bits: LJ < LOG_N inside the thread, LOG_N <= LJ < LOG_N + 5 (the lane) by
+// __shfl_xor_sync, LJ >= LOG_N + 5 (the warp) in shared memory, entered once per merge
+// that has such steps.
+//
+// kSort (K1) runs the all-ascending form of the network: the merge of size 2^LK first
+// compares slot i with its mirror i ^ (2^LK - 1), then i with i ^ 2^LJ, and every
+// compare-exchange keeps the minimum in the lower slot.  A slot at or past L then holds
+// INT32_MAX from load to store and every compare-exchange that touches it is a no-op,
+// so the kernel neither loads nor stores the padding: a warp whose slots all lie at or
+// past L skips every register and shuffle step (the test is the same for all its
+// lanes), a shared-memory pair whose upper slot lies at or past L is neither read nor
+// written, and a thread takes INT32_MAX for a slot past L without reading it.
+// !kSort (P1/P2) runs the alternating form over rows of exactly P slots (no padding)
+// from the merge of size 2^lk0 on, as the other two kernels do.
+
+constexpr int kWideMinLogP = 13;  // L from 4097
+constexpr int kWideMaxLogP = 15;  // L up to 32768
+
+// Shared-memory word of slot i: bits 2-4 of i XOR-ed with three bits at or above bit 5
+// (bit max(5, LOG_N) up).  It permutes the 16-byte words inside each aligned run of 32
+// slots, so a warp's 32 consecutive slots still fill the 32 banks once, and the 8
+// threads of a 16-byte access phase that each take word c of their own N slots reach 8
+// distinct 16-byte bank groups.
+template <int LOG_N>
+__device__ __forceinline__ int swz(int i) {
+  constexpr int kShift = LOG_N > 5 ? LOG_N : 5;
+  return i ^ (((i >> kShift) & 7) << 2);
+}
+
+template <int LOG_N>
+__device__ __forceinline__ void wide_to_shared(const int (&r)[1 << LOG_N], int* s, int t) {
+#pragma unroll
+  for (int c = 0; c < (1 << LOG_N) / 4; ++c) {
+    *reinterpret_cast<int4*>(s + swz<LOG_N>((t << LOG_N) + 4 * c)) =
+        make_int4(r[4 * c], r[4 * c + 1], r[4 * c + 2], r[4 * c + 3]);
+  }
+}
+
+template <int LOG_N>
+__device__ __forceinline__ void wide_from_shared(int (&r)[1 << LOG_N], const int* s, int t) {
+#pragma unroll
+  for (int c = 0; c < (1 << LOG_N) / 4; ++c) {
+    const int4 w = *reinterpret_cast<const int4*>(s + swz<LOG_N>((t << LOG_N) + 4 * c));
+    r[4 * c] = w.x, r[4 * c + 1] = w.y, r[4 * c + 2] = w.z, r[4 * c + 3] = w.w;
+  }
+}
+
+__device__ __forceinline__ void keep_min_low(int& a, int& b) {
+  const int lo = min(a, b);
+  b = max(a, b);
+  a = lo;
+}
+
+// LJ < LOG_N: both slots in this thread's registers.  The first step of a kSort merge
+// pairs e with its mirror e ^ (2^LK - 1) inside the thread (LK <= LOG_N).
+template <int LOG_P, int LOG_N, bool kSort, int LK, int LJ>
+__device__ __forceinline__ void wide_register_step(int (&r)[1 << LOG_N], int t) {
+  constexpr int j = 1 << LJ;
+  constexpr bool kMirror = kSort && LJ == LK - 1;
+#pragma unroll
+  for (int e = 0; e < (1 << LOG_N); ++e) {
+    if ((e & j) != 0) continue;
+    if constexpr (kMirror) {
+      keep_min_low(r[e], r[e ^ ((1 << LK) - 1)]);
+    } else if constexpr (kSort) {
+      keep_min_low(r[e], r[e | j]);
+    } else {
+      order(r[e], r[e | j], ascending<LOG_P, LK>((t << LOG_N) + e));
+    }
+  }
+}
+
+// LOG_N <= LJ < LOG_N + 5: slot bit LJ is lane bit LJ - LOG_N.  The lower lane of a
+// pair keeps the min when the merge ascends at its slots, the upper lane the max.  The
+// first step of a kSort merge pairs slot e of a lane with slot N - 1 - e of the lane
+// whose bits below LK - LOG_N are flipped, so both of a pair's shuffles go out before
+// either register changes.
+template <int LOG_P, int LOG_N, bool kSort, int LK, int LJ>
+__device__ __forceinline__ void wide_shuffle_step(int (&r)[1 << LOG_N], int t) {
+  constexpr int N = 1 << LOG_N;
+  const bool lower = (t & (1 << (LJ - LOG_N))) == 0;
+  if constexpr (kSort && LJ == LK - 1) {
+    constexpr int m = (1 << (LK - LOG_N)) - 1;
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) {
+      const int a = __shfl_xor_sync(0xffffffffu, r[N - 1 - e], m);
+      const int b = __shfl_xor_sync(0xffffffffu, r[e], m);
+      r[e] = lower ? min(r[e], a) : max(r[e], a);
+      r[N - 1 - e] = lower ? min(r[N - 1 - e], b) : max(r[N - 1 - e], b);
+    }
+  } else {
+    constexpr int m = 1 << (LJ - LOG_N);
+    const bool keep_min = kSort ? lower : lower == ascending<LOG_P, LK>(t << LOG_N);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const int o = __shfl_xor_sync(0xffffffffu, r[e], m);
+      r[e] = keep_min ? min(r[e], o) : max(r[e], o);
+    }
+  }
+}
+
+// LJ >= LOG_N + 5: across warps, in shared memory; P / 2 pairs, N / 2 a thread,
+// consecutive threads on consecutive lower slots.  kSort skips a pair whose upper slot
+// lies at or past L (a no-op), reading and writing neither slot.
+template <int LOG_P, int LOG_N, bool kSort, int LK, int LJ>
+__device__ __forceinline__ void wide_shared_step(int* s, int t, int L) {
+  constexpr int T = 1 << (LOG_P - LOG_N);
+  constexpr int j = 1 << LJ;
+  constexpr bool kMirror = kSort && LJ == LK - 1;
+#pragma unroll
+  for (int q = 0; q < (1 << LOG_N) / 2; ++q) {
+    const int p = q * T + t;
+    const int i = 2 * p - (p & (j - 1));  // lower slot of the pair: bit LJ clear
+    const int u = kMirror ? i ^ ((1 << LK) - 1) : i + j;
+    if (kSort && u >= L) continue;
+    int a = s[swz<LOG_N>(i)], b = s[swz<LOG_N>(u)];
+    if constexpr (kSort) {
+      keep_min_low(a, b);
+    } else {
+      order(a, b, ascending<LOG_P, LK>(i));
+    }
+    s[swz<LOG_N>(i)] = a;
+    s[swz<LOG_N>(u)] = b;
+  }
+  __syncthreads();
+}
+
+template <int LOG_P, int LOG_N, bool kSort, int LK, int LJ>
+__device__ __forceinline__ void wide_shared_steps(int* s, int t, int L) {
+  wide_shared_step<LOG_P, LOG_N, kSort, LK, LJ>(s, t, L);
+  if constexpr (LJ > LOG_N + 5) wide_shared_steps<LOG_P, LOG_N, kSort, LK, LJ - 1>(s, t, L);
+}
+
+template <int LOG_P, int LOG_N, bool kSort, int LK, int LJ>
+__device__ __forceinline__ void wide_lane_steps(int (&r)[1 << LOG_N], int t) {
+  if constexpr (LJ >= LOG_N) {
+    wide_shuffle_step<LOG_P, LOG_N, kSort, LK, LJ>(r, t);
+  } else {
+    wide_register_step<LOG_P, LOG_N, kSort, LK, LJ>(r, t);
+  }
+  if constexpr (LJ > 0) wide_lane_steps<LOG_P, LOG_N, kSort, LK, LJ - 1>(r, t);
+}
+
+// The merge of size 2^LK.  `active`: this warp holds a slot below L (always, for
+// !kSort); an idle warp still reaches every barrier.
+template <int LOG_P, int LOG_N, bool kSort, int LK>
+__device__ __forceinline__ void wide_merge(int (&r)[1 << LOG_N], int* s, int t, int L,
+                                           bool active) {
+  constexpr int kLane = LOG_N + 5;  // first warp bit of the slot
+  if constexpr (LK - 1 >= kLane) {
+    // Each thread writes its own slots and reads back only its own, so the barrier
+    // before the shared steps is the only one the round trip needs.
+    if (active) wide_to_shared<LOG_N>(r, s, t);
+    __syncthreads();
+    wide_shared_steps<LOG_P, LOG_N, kSort, LK, LK - 1>(s, t, L);
+    if (active) wide_from_shared<LOG_N>(r, s, t);
+  }
+  if (active) wide_lane_steps<LOG_P, LOG_N, kSort, LK, (LK - 1 < kLane ? LK - 1 : kLane - 1)>(r, t);
+}
+
+template <int LOG_P, int LOG_N, bool kSort, int LK>
+__device__ __forceinline__ void wide_network(int (&r)[1 << LOG_N], int* s, int t, int L,
+                                             bool active, int lk0) {
+  if (LK >= lk0) wide_merge<LOG_P, LOG_N, kSort, LK>(r, s, t, L, active);
+  if constexpr (LK < LOG_P) wide_network<LOG_P, LOG_N, kSort, LK + 1>(r, s, t, L, active, lk0);
+}
+
+template <int LOG_P, int LOG_N, bool kSort>
+__global__ void __launch_bounds__(1 << (LOG_P - LOG_N))
+    sort_rows_wide_kernel(const int* __restrict__ x, int* __restrict__ out, int L, int lk0) {
+  constexpr int N = 1 << LOG_N, T = 1 << (LOG_P - LOG_N);
+  extern __shared__ __align__(16) int ws[];
+  const int t = threadIdx.x;
+  const long long base = (long long)blockIdx.x * L;
+  for (int c = t; c < L; c += T) ws[swz<LOG_N>(c)] = x[base + c];  // slots below L only
+  __syncthreads();
+  const bool active = kSort ? ((t & ~31) << LOG_N) < L : true;  // the warp's first slot
+  int r[N];
+  if (active) {
+    wide_from_shared<LOG_N>(r, ws, t);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      if ((t << LOG_N) + e >= L) r[e] = INT_MAX;  // the padding, never read
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) r[e] = INT_MAX;
+  }
+  wide_network<LOG_P, LOG_N, kSort, 1>(r, ws, t, L, active, lk0);
+  if (active) wide_to_shared<LOG_N>(r, ws, t);
+  __syncthreads();
+  for (int c = t; c < L; c += T) out[base + c] = ws[swz<LOG_N>(c)];
+}
+
+template <int LOG_P, int LOG_N, bool kSort>
+cudaError_t launch_wide_shape(const int* x, int* out, long long k, int L, int lk0,
+                              cudaStream_t stream) {
+  constexpr size_t smem = sizeof(int) << LOG_P;
+  const auto kernel = sort_rows_wide_kernel<LOG_P, LOG_N, kSort>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)k, 1 << (LOG_P - LOG_N), smem, stream>>>(x, out, L, lk0);
+  return cudaGetLastError();
+}
+
+// K1 "wide" (kSort) for 4097 <= L <= 32768, or the network (!kSort) over rows of
+// L = 8192, 16384 or 32768 from the merge of size 2^lk0 on, with thread blocks of
+// P / 2^log_n threads holding 2^log_n slots each.  The caller picks log_n
+// (ops/bitonic.py::wide_block, from the times of benchmarks/k1_wide_shapes.py); the
+// switches below are the block shapes built, and any other is refused.  The network
+// form's direction selects take more registers: it spills at 512 x 32 (P = 16384)
+// and 1024 x 32 (P = 32768), so it is built at 1024 x 16 and 512 x 64 there.
+template <bool kSort>
+cudaError_t launch_wide(const void* x, void* out, long long k, int L, int lk0, int log_n,
+                        void* stream) {
+  if (k <= 0 || k > INT_MAX || L <= (1 << (kWideMinLogP - 1)) || L > (1 << kWideMaxLogP) ||
+      log_n < 0 || log_n > 7)
+    return cudaErrorInvalidValue;
+  int log_p = 0;
+  while ((1 << log_p) < L) ++log_p;
+  if (!kSort && L != (1 << log_p)) return cudaErrorInvalidValue;
+  const int* xi = (const int*)x;
+  int* o = (int*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (kSort) {
+    switch (log_p * 8 + log_n) {
+      case 13 * 8 + 4: return launch_wide_shape<13, 4, true>(xi, o, k, L, lk0, st);
+      case 13 * 8 + 5: return launch_wide_shape<13, 5, true>(xi, o, k, L, lk0, st);
+      case 14 * 8 + 4: return launch_wide_shape<14, 4, true>(xi, o, k, L, lk0, st);
+      case 14 * 8 + 5: return launch_wide_shape<14, 5, true>(xi, o, k, L, lk0, st);
+      case 15 * 8 + 5: return launch_wide_shape<15, 5, true>(xi, o, k, L, lk0, st);
+      case 15 * 8 + 6: return launch_wide_shape<15, 6, true>(xi, o, k, L, lk0, st);
+    }
+  } else {
+    switch (log_p * 8 + log_n) {
+      case 13 * 8 + 5: return launch_wide_shape<13, 5, false>(xi, o, k, L, lk0, st);
+      case 14 * 8 + 4: return launch_wide_shape<14, 4, false>(xi, o, k, L, lk0, st);
+      case 15 * 8 + 6: return launch_wide_shape<15, 6, false>(xi, o, k, L, lk0, st);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
 struct Launch {
   int log_p;
   int rows_per_block;
@@ -318,12 +601,6 @@ bool plan_launch(long long k, int L, Launch* p) {
   p->block = dim3(threads);
   p->smem = (size_t)n * sizeof(int);
   return true;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 // K1 "smem" over rows of any L up to kMaxPow2, from the merge of size 2^log_kk0 on.
@@ -397,4 +674,16 @@ extern "C" int bitonic_network_rows_reg(const void* x, void* out, long long k, i
                                         int log_kk0, void* stream) {
   if (!network_args(L, log_kk0)) return (int)cudaErrorInvalidValue;
   return (int)launch_reg_any(x, out, k, L, log_kk0, stream);
+}
+
+extern "C" int bitonic_sort_rows_wide(const void* x, void* out, long long k, int L,
+                                      int log_n, void* stream) {
+  return (int)launch_wide<true>(x, out, k, L, 1, log_n, stream);
+}
+
+// P1/P2 through K1's wide kernel, in the alternating form (L = 8192, 16384, 32768).
+extern "C" int bitonic_network_rows_wide(const void* x, void* out, long long k, int L,
+                                         int log_kk0, int log_n, void* stream) {
+  if (!network_args(L, log_kk0)) return (int)cudaErrorInvalidValue;
+  return (int)launch_wide<false>(x, out, k, L, log_kk0, log_n, stream);
 }

@@ -3,10 +3,12 @@
 Two kernels written by hand for Hopper live in ``csrc/bitonic.cu``:
 
 * K1 :func:`bitonic_sort_rows` — each row sorted ascending (replaces
-  ``binary_spgemm_tpu/ops/bitonic.py::bitonic_sort_rows``), by one of two
+  ``binary_spgemm_tpu/ops/bitonic.py::bitonic_sort_rows``), by one of three
   kernels that :func:`k1_variant` picks from the row length alone: ``"reg"``
-  (registers and warp shuffles, 129 <= L <= 4096) or ``"smem"`` (the whole
-  network in shared memory, every other L);
+  (registers and warp shuffles, 129 <= L <= 4096), ``"wide"`` (one row a
+  block in registers, shuffles and shared memory across warps, the padding
+  left untouched, 4097 <= L <= 32768) or ``"smem"`` (the whole network in
+  shared memory, L <= 128);
 * K2 :func:`fused_sort_compress` — sort, left-neighbour dedup with
   demote-to-``INT32_MAX`` of everything at or above ``limit``, sort again, in
   one pass over each row (replaces ``fused_sort_compress`` there);
@@ -14,7 +16,7 @@ Two kernels written by hand for Hopper live in ``csrc/bitonic.cu``:
   power-of-two length, run from a given merge size on: from the first, a
   sort (replaces ``benchmarks/pallas_sort.py::make_bitonic``); from merge
   ``2w``, the shortcut for streams of w-aligned sorted runs of alternating
-  direction (replaces ``benchmarks/ab_wruns.py::make_kernel``).  K1's two
+  direction (replaces ``benchmarks/ab_wruns.py::make_kernel``).  K1's
   kernels run it, chosen by the row length as :func:`k1_variant` chooses.
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in
@@ -41,6 +43,7 @@ __all__ = [
     "fused_sort_compress_plain",
     "k1_variant",
     "sort_rows",
+    "wide_block",
 ]
 
 INT32_MAX = (1 << 31) - 1
@@ -53,10 +56,19 @@ MAX_L = 1 << 15
 # Row lengths K1's register kernel takes: rows padded to P = 2^8 ... 2^12, one
 # block of 512 threads holding 8 slots each.
 REG_MIN_L, REG_MAX_L = (1 << 7) + 1, 1 << 12
+# Row lengths K1's wide kernel takes: rows padded to P = 2^13 ... 2^15, one row a
+# block.
+WIDE_MIN_L, WIDE_MAX_L = REG_MAX_L + 1, MAX_L
+_VARIANT_L = {"reg": (REG_MIN_L, REG_MAX_L), "wide": (WIDE_MIN_L, WIDE_MAX_L)}
+# rows up to this length take the wide kernel's 512 x 16 block at P = 8192
+# (its idle warps then cover more of the padding), longer ones 256 x 32
+WIDE_SHORT_L = 4608
 
 # K1's C entry point for each variant, and the network's (P1/P2)
-_K1_ENTRY = {"reg": "bitonic_sort_rows_reg", "smem": "bitonic_sort_rows"}
-_NETWORK_ENTRY = {"reg": "bitonic_network_rows_reg", "smem": "bitonic_network_rows"}
+_K1_ENTRY = {"reg": "bitonic_sort_rows_reg", "wide": "bitonic_sort_rows_wide",
+             "smem": "bitonic_sort_rows"}
+_NETWORK_ENTRY = {"reg": "bitonic_network_rows_reg", "wide": "bitonic_network_rows_wide",
+                  "smem": "bitonic_network_rows"}
 
 _SORT_SIG = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -69,8 +81,10 @@ _NETWORK_SIG = [
 _SIG = {
     "bitonic_sort_rows": _SORT_SIG,
     "bitonic_sort_rows_reg": _SORT_SIG,
+    "bitonic_sort_rows_wide": _NETWORK_SIG,  # its int: log2 of the slots a thread holds
     "bitonic_network_rows": _NETWORK_SIG,
     "bitonic_network_rows_reg": _NETWORK_SIG,
+    "bitonic_network_rows_wide": [*_NETWORK_SIG[:5], ctypes.c_int, ctypes.c_void_p],
     "fused_sort_compress": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p,
@@ -123,8 +137,32 @@ def bitonic_sort_rows_plain(x: torch.Tensor) -> torch.Tensor:
 
 def k1_variant(L: int) -> str:
     """The K1 kernel that sorts rows of length ``L``: ``"reg"`` for
-    ``REG_MIN_L <= L <= REG_MAX_L``, else ``"smem"``."""
-    return "reg" if REG_MIN_L <= L <= REG_MAX_L else "smem"
+    ``REG_MIN_L <= L <= REG_MAX_L``, ``"wide"`` for ``WIDE_MIN_L <= L <=
+    WIDE_MAX_L``, else ``"smem"``."""
+    for variant, (lo, hi) in _VARIANT_L.items():
+        if lo <= L <= hi:
+            return variant
+    return "smem"
+
+
+def wide_block(L: int, sort: bool = True) -> tuple[int, int]:
+    """(threads, slots a thread) of K1's wide kernel for rows of ``L``: the
+    one place that picks them, from the times of
+    ``benchmarks/k1_wide_shapes.py``; the wrappers pass the choice to
+    ``csrc/bitonic.cu::launch_wide``, which refuses a shape it does not
+    build.  ``sort=False`` for the network form (P1/P2)."""
+    if not WIDE_MIN_L <= L <= WIDE_MAX_L:
+        raise ValueError(
+            f"K1's wide kernel takes rows of {WIDE_MIN_L} to {WIDE_MAX_L}, got {L}"
+        )
+    P = 1 << (L - 1).bit_length()
+    n = {8192: 16 if sort and L <= WIDE_SHORT_L else 32, 16384: 32 if sort else 16,
+         32768: 32 if sort else 64}[P]
+    return P // n, n
+
+
+def _log2(n: int) -> int:
+    return n.bit_length() - 1
 
 
 def bitonic_sort_rows(x: torch.Tensor) -> torch.Tensor:
@@ -135,18 +173,19 @@ def bitonic_sort_rows(x: torch.Tensor) -> torch.Tensor:
 
 def _sort_rows_variant(x: torch.Tensor, variant: str) -> torch.Tensor:
     """K1 through the named kernel: what :func:`bitonic_sort_rows` runs, and
-    a way to time one variant at a length the other one takes."""
+    a way to time one variant at a length another one takes (``"smem"``
+    takes every length)."""
     _check(x, "bitonic_sort_rows")
     if variant not in _K1_ENTRY:
         raise ValueError(f"unknown K1 variant {variant!r}")
     L = x.shape[1]
-    if variant == "reg" and not REG_MIN_L <= L <= REG_MAX_L:
-        raise ValueError(
-            f"K1 variant 'reg' takes rows of {REG_MIN_L} to {REG_MAX_L}, got {L}"
-        )
+    lo, hi = _VARIANT_L.get(variant, (0, MAX_L))
+    if not lo <= L <= hi:
+        raise ValueError(f"K1 variant {variant!r} takes rows of {lo} to {hi}, got {L}")
     if x.device.type == "cpu":
         return bitonic_sort_rows_plain(x)
-    out = _launch(_K1_ENTRY[variant], x)
+    extra = (_log2(wide_block(L)[1]),) if variant == "wide" else ()
+    out = _launch(_K1_ENTRY[variant], x, *extra)
     if x.numel():
         bitonic_sort_rows.launches += 1
         bitonic_sort_rows.launches_by_variant[variant] += 1
@@ -154,7 +193,7 @@ def _sort_rows_variant(x: torch.Tensor, variant: str) -> torch.Tensor:
 
 
 bitonic_sort_rows.launches = 0
-bitonic_sort_rows.launches_by_variant = {"reg": 0, "smem": 0}
+bitonic_sort_rows.launches_by_variant = {"reg": 0, "wide": 0, "smem": 0}
 
 
 def fused_sort_compress_plain(x: torch.Tensor, limit: int) -> torch.Tensor:
@@ -248,7 +287,9 @@ def bitonic_network_rows(x: torch.Tensor, min_kk: int = 2) -> torch.Tensor:
         raise ValueError(f"bitonic_network_rows: row length {L} is not a power of two")
     if x.device.type == "cpu":
         return bitonic_network_rows_plain(x, min_kk)
-    out = _launch(_NETWORK_ENTRY[k1_variant(L)], x, _first_merge(min_kk, L))
+    variant = k1_variant(L)
+    extra = (_log2(wide_block(L, sort=False)[1]),) if variant == "wide" else ()
+    out = _launch(_NETWORK_ENTRY[variant], x, _first_merge(min_kk, L), *extra)
     if x.numel():
         bitonic_network_rows.launches += 1
     return out

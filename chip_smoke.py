@@ -7,12 +7,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. the build of every kernel source (``csrc/*.cu``): seconds and ptxas report;
-   K1's register kernel, K3's pipe kernel and the P3/P4 group kernel must
-   show no stack frame and no spills in any instantiation;
+   K1's register and wide kernels, K3's pipe kernel and the P3/P4 group
+   kernel must show no stack frame and no spills in any instantiation;
 3. K1 (bitonic_sort_rows) and K2 (fused_sort_compress) bit-equal to their
    plain PyTorch versions at the main path's shape, a power-of-two length,
    a short odd length, the longest length the kernels take, and the lengths
-   on both sides of each bound of K1's register variant (129 ... 4096);
+   on both sides of each bound of K1's register variant (129 ... 4096) and
+   of its wide variant (4097 ... 32768, with its block shapes' bounds at
+   4608, 8192 and 16384), and the wide kernel at every block shape built;
 4. P3 (class_gather) and P4 (class_gather_keys) ``torch.equal`` to their
    plain PyTorch versions at widths 1, 2, 3, 16, 40 and 10240, with
    out-of-range and negative positions, sentinel and out-of-range row ids,
@@ -88,7 +90,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
     with the launch counts set to 0 just before each and read just after; P1
     and P2 times beside ``torch.sort``, K1, their plain versions and their
     bound; P3/P4 at the ``pallas_gather`` driver's prototype shape as in
-    phase 7;
+    phase 7; P1 at L = 8192 also through K1's shared-memory kernel, its
+    route before K1's wide kernel;
 16. ESC, giant rows and ``tuned_executor``: (a) the bench config through
     ``SpGEMMExecutor`` (one chunk, two-key int64 sort), equal to phase 5's
     product, no hand kernel and no ``sort_rows`` call, its times, profile and
@@ -107,15 +110,16 @@ Phases, each reported on its own lines; any failure exits non-zero:
     product bit-exact against scipy and its expected nnz, with the launch
     counts set to 0 just before it and read just after: on the bench config
     ``masked_spgemm(A, A, A)`` (the batched ``masked=True`` plan, K1's
-    shared-memory kernel twice a group, P4 once), again through ESC
+    wide kernel twice a group, P4 once), again through ESC
     (``chunk_flops``, no hand kernel), ``spgemm_or(A, A, A)`` with and
     without ``mask=A``, ``spm_or(A, C)``, and ``run_padded()`` ->
     ``assemble_padded()`` equal to phase 5's product (K1's register kernel
     once a group); ``masked_spgemm(A, A, A)`` on rmat-s16 (batched,
     ``torch.sort``, P4) and random 32k (unrolled, ``torch.sort``, P3); the
     three ops on validity-class through the host routes (no launch).  Then
-    K1 against its plain version and ``torch.sort`` on the three bench join
-    streams (``[512, 7232]``, ``[1024, 4352]``, ``[512, 7552]``), the
+    K1 (its wide kernel) against K1's shared-memory kernel, its plain
+    version and ``torch.sort``, in turns, on the three bench join streams
+    (``[512, 7232]``, ``[1024, 4352]``, ``[512, 7552]``), the
     ``run_masked`` / ``run_or`` / ``run_padded`` medians beside phase 7's
     ``run()`` with their assembly and peak memory, and the staged side
     operands' running maximum along rows;
@@ -126,16 +130,17 @@ Phases, each reported on its own lines; any failure exits non-zero:
     ``spgemm_counts(A, A)`` (the plain batched plan, K1's register kernel
     and P4 once a group; the counts sum to the product's flops), again with
     ``engine="esc"`` (no hand kernel), ``masked_spgemm_counts(A, A, A)``
-    (the masked plan, K1's shared-memory kernel and P4 once a group) and
+    (the masked plan, K1's wide kernel and P4 once a group) and
     again with ``chunk_flops`` (ESC); ``triangle_count_device`` on the bench
     config and rmat-s16 made symmetric with an empty diagonal (5,340 and
     3,895,840 triangles, against scipy's ``G.multiply(G @ G).sum() // 6``),
-    on the ELL plan (one tagged sort a group: K1's shared-memory kernel on
+    on the ELL plan (one tagged sort a group: K1's wide kernel on
     the bench graph, ``torch.sort`` on rmat-s16's unrolled plan) and through
     ESC; ``spgemm_counts`` on random 32k (the unrolled plan's chunk-local
     four-output form, P3) and on validity-class (the host engine, no
-    launch).  Then K1 against its plain version and ``torch.sort`` on the
-    rows the bench counting paths sort (``[1024, 3968]``, ``[512, 6912]``,
+    launch).  Then K1 against K1's shared-memory kernel (where K1 takes
+    another), its plain version and ``torch.sort`` on the rows the bench
+    counting paths sort (``[1024, 3968]``, ``[512, 6912]``,
     ``[2048, 8096]``), and the ``run_counts`` / ``run_masked_counts`` /
     ``run_counts_sum`` medians beside phase 7's ``run()`` with their
     assembly, peak memory, idle share and share of the busy time in sort
@@ -155,18 +160,22 @@ Phases, each reported on its own lines; any failure exits non-zero:
     on both resident routes; (d) ``transitive_closure`` of
     ``BCSR.random(65536, 65536, 1.0, seed=7)`` on the three routes, equal
     to scipy's (1,866,786 nnz, 8 rounds), with each route's wall, rounds,
-    one-sort compactions, peak memory and launches; (e)
+    one-sort compactions, peak memory and launches (K1 on the host route
+    its wide kernel only), then the host route's K1 rows (rounds 2-4,
+    captured in one more host-route closure) timed as in phase 17; (e)
     ``triangle_structure``, ``triangle_count``, ``clustering_coefficients``
     (``np.array_equal`` to scipy's formula) and ``k_truss(G, 3)`` (scipy's
-    peeling) on phase 18's symmetric bench graph; (f) ``bfs_levels`` and
+    peeling) on phase 18's symmetric bench graph, K1 there never its
+    shared-memory kernel; (f) ``bfs_levels`` and
     ``reachable`` from three sources on the bench config against scipy's
     ``shortest_path``; (g) the CLI as subprocesses: ``gen`` writes (d)'s
     input and the bench config, then ``graph closure`` (its written file
     equal to (d)'s) and ``graph khop --resident`` (the bench product's nnz)
     run at once on the card;
 20. a ``{"kernels": [...]}`` line (the graph ops' K1, P3 and P4 launches
-    under ``launches_by_path["graph"]``), then, last, the ``{"ok": true,
-    ...}`` line.
+    under ``launches_by_path["graph"]``; K1's wide kernel as an entry of its
+    own, launched on the op family's ``run_or``, with every captured stream
+    it sorts), then, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -205,7 +214,7 @@ VALIDITY, VALIDITY_NNZ = (50000, 0.5, 7), 12_596
 # config, rmat-s16 and random 32k, and A ∪ A·A on the bench config
 BENCH_MASKED_NNZ, BENCH_OR_NNZ = 4_570, 17_746_297
 RMAT16_MASKED_NNZ, RAND32K_MASKED_NNZ = 357_336, 4_535
-# the smem K1 rows the op family sorts on the bench config: the masked join
+# the wide K1 rows the op family sorts on the bench config: the masked join
 # (sort_pad 6912 + mask pad 320), A ∪ A·A (3968 + D pad 160, bucketed) and
 # the masked A ∪ A·A (6912 + 320 + 320)
 OP_SHAPES = {"masked": (512, 7232), "or": (1024, 4352), "or-masked": (512, 7552)}
@@ -221,6 +230,9 @@ TRIANGLES = {"bench": (2_094_556, 69_041_936, 5_340),
 # pad 160)
 COUNT_SHAPES = {"counts": (1024, 3968), "masked counts": (512, 6912),
                 "triangles": (2048, 8096)}
+# the row lengths K1 sorts on the closure's host route (rounds 2-4; rounds 5-8
+# sort past K1's window, through torch.sort)
+CLOSURE_K1_ROWS = (4608, 4864, 17408)
 # phase 19's closure input, BCSR.random(n, n, d, seed), its closure's nnz,
 # the doubling rounds and the largest round's flops (scipy); BFS sources
 CLOSURE, CLOSURE_NNZ = (65536, 1.0, 7), 1_866_786
@@ -881,15 +893,16 @@ def esc_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     return out
 
 
-def capture_sort_inputs(sp, fn) -> dict:
+def capture_sort_inputs(sp, fn, max_len: int | None = None) -> dict:
     """Run ``fn()`` with the ``sort_rows`` the compress steps call spied on:
-    the first input of each distinct shape, cloned (a join's unsorted
-    stream; the demoted one that follows has the same shape)."""
+    the first input of each distinct shape (rows up to ``max_len`` slots
+    where given), cloned (a join's unsorted stream; the demoted one that
+    follows has the same shape)."""
     seen: dict = {}
     real = sp.sort_rows_1key
 
     def spy(x):
-        if tuple(x.shape) not in seen:
+        if tuple(x.shape) not in seen and (max_len is None or x.shape[1] <= max_len):
             seen[tuple(x.shape)] = x.clone()
         return real(x)
 
@@ -899,6 +912,44 @@ def capture_sort_inputs(sp, fn) -> dict:
     finally:
         sp.sort_rows_1key = real
     return seen
+
+
+def time_k1_stream(torch, bitonic, x, label: str, card: str) -> dict:
+    """K1 on a captured stream ``x``: bit-equal to its plain version (and PR
+    1's shared-memory kernel, where K1 takes another kernel at this length,
+    bit-equal too), then K1, that kernel, the plain version and
+    ``torch.sort`` timed in turns (forward, then back), each beside the
+    bound.  Returns the row for the kernels line."""
+    k, L = x.shape
+    variant = bitonic.k1_variant(L)
+    got, want = bitonic.bitonic_sort_rows(x), bitonic.bitonic_sort_rows_plain(x)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    check(torch.equal(got, want), f"K1 differs at the {label} {[k, L]}")
+    fns = [("k1", lambda: bitonic.bitonic_sort_rows(x))]
+    if variant != "smem":
+        check(torch.equal(bitonic._sort_rows_variant(x, "smem"), want),
+              f"K1's shared-memory kernel differs at the {label} {[k, L]}")
+        fns.append(("smem", lambda: bitonic._sort_rows_variant(x, "smem")))
+    fns += [("plain", lambda: bitonic.bitonic_sort_rows_plain(x)),
+            ("lib", lambda: torch.sort(x, dim=1))]
+    st: dict[str, list[float]] = {}
+    for name, fn in fns + fns[::-1]:
+        st.setdefault(name, []).append(event_ms(torch, fn, 20))
+    b_ms, b_by = sort_bound_ms(x.numel(), L)
+    row = {"path": label, "shape": [k, L], "variant": variant, "ms": min(st["k1"]),
+           "previous_ms": min(st["smem"]) if "smem" in st else None,
+           "plain_ms": min(st["plain"]), "library_ms": min(st["lib"]),
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    if variant == "wide":
+        row["block"] = list(bitonic.wide_block(L))
+    prev = ("" if row["previous_ms"] is None
+            else f", K1's smem kernel {row['previous_ms']:.4f} ms")
+    print(f"K1 ({variant}) on the {label} {[k, L]}: bit-equal to its plain version; "
+          f"{row['ms']:.4f} ms{prev}, plain {row['plain_ms']:.4f} ms, torch.sort "
+          f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"{row['ms'] / b_ms:.1f}x the bound; {card}")
+    return row
 
 
 def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
@@ -962,23 +1013,23 @@ def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     print(f"  masked plan: k={exm.n_chunks} groups={exm.n_groups}x{exm.group_size} "
           f"rows_pad={exm.rows_pad} sort_pad={exm.sort_pad} mask pad "
           f"{exm.staged_nnz_pad(a)}")
-    check(exm.batched and k1v == {"reg": 0, "smem": 2 * exm.n_groups}
+    check(exm.batched and k1v == {"reg": 0, "wide": 2 * exm.n_groups, "smem": 0}
           and launches["class_gather_keys"] == exm.n_groups
           and launches["class_gather"] == 0,
-          "the bench masked product did not sort with K1's smem kernel and P4")
+          "the bench masked product did not sort with K1's wide kernel and P4")
     launches, rts, k1v = drive("bench spgemm_or(A, A, A)",
                                lambda: api["spgemm_or"](a, a, a), or_ref, BENCH_OR_NNZ,
                                keep="or")
     exo = ell.cached_executor(a, a)
-    check(k1v == {"reg": 0, "smem": 2 * exo.n_groups}
+    check(k1v == {"reg": 0, "wide": 2 * exo.n_groups, "smem": 0}
           and launches["class_gather_keys"] == exo.n_groups,
-          "bench A ∪ A·A did not sort with K1's smem kernel and P4")
+          "bench A ∪ A·A did not sort with K1's wide kernel and P4")
     launches, rts, k1v = drive("bench spgemm_or(A, A, A, mask=A)",
                                lambda: api["spgemm_or"](a, a, a, mask=a),
                                a.sum_duplicates(), a.sum_duplicates().nnz, keep="or-masked")
-    check(k1v == {"reg": 0, "smem": 2 * exm.n_groups}
+    check(k1v == {"reg": 0, "wide": 2 * exm.n_groups, "smem": 0}
           and launches["class_gather_keys"] == exm.n_groups,
-          "the bench masked A ∪ A·A did not sort with K1's smem kernel and P4")
+          "the bench masked A ∪ A·A did not sort with K1's wide kernel and P4")
     drive("bench spm_or(A, C)", lambda: api["spm_or"](a, c), or_ref, BENCH_OR_NNZ)
     ex = api["auto_executor"](a, a)
     reset_counts()
@@ -989,7 +1040,7 @@ def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     print(f"bench run_padded() -> assemble_padded(): launches {launches}; K1 by "
           f"variant {k1v}; sort_rows routes {rts}")
     check(cp.equals(c), "assemble_padded(run_padded()) differs from phase 5's product")
-    check(k1v == {"reg": ex.n_groups, "smem": 0}
+    check(k1v == {"reg": ex.n_groups, "wide": 0, "smem": 0}
           and launches["class_gather_keys"] == ex.n_groups,
           "run_padded did not sort once a group with K1's register kernel")
     print(f"  equal to phase 5's product (bit-exact against scipy): output nnz {cp.nnz}")
@@ -1051,30 +1102,9 @@ def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
         check(OP_SHAPES[label] in got, f"{label}: no sort at {OP_SHAPES[label]}, "
               f"sorted {sorted(got)}")
         streams[label] = got[OP_SHAPES[label]]
-    k1_rows, err = [], 0
-    for label, x in streams.items():
-        k, L = x.shape
-        variant = bitonic.k1_variant(L)
-        got, want = bitonic.bitonic_sort_rows(x), bitonic.bitonic_sort_rows_plain(x)
-        torch.cuda.synchronize()
-        err = max(err, int((got.long() - want.long()).abs().max()))
-        check(torch.equal(got, want), f"K1 differs at the {label} join's {[k, L]}")
-        fns = [("k1", lambda: bitonic.bitonic_sort_rows(x)),
-               ("plain", lambda: bitonic.bitonic_sort_rows_plain(x)),
-               ("lib", lambda: torch.sort(x, dim=1))]
-        st: dict[str, list[float]] = {}
-        for name, fn in fns + fns[::-1]:
-            st.setdefault(name, []).append(event_ms(torch, fn, 20))
-        b_ms, b_by = sort_bound_ms(x.numel(), L)
-        row = {"path": label, "shape": [k, L], "variant": variant, "ms": min(st["k1"]),
-               "plain_ms": min(st["plain"]), "library_ms": min(st["lib"]),
-               "bound_ms": b_ms, "bound_by": b_by}
-        k1_rows.append(row)
-        print(f"K1 ({variant}) on the bench {label} join stream {[k, L]}: bit-equal to "
-              f"its plain version; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"torch.sort {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"{row['ms'] / b_ms:.1f}x the bound; {card}")
-    out["k1"], out["k1_err"] = k1_rows, err
+    k1_rows = [time_k1_stream(torch, bitonic, x, f"bench {label} join stream", card)
+               for label, x in streams.items()]
+    out["k1"], out["k1_err"] = k1_rows, max(r["max_abs_err"] for r in k1_rows)
     del streams
 
     # (e) the run_* times beside phase 7's run(), assemble() and peak memory
@@ -1207,9 +1237,9 @@ def counting_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
         g = e.n_groups
         gather = "class_gather_keys" if e.batched else "class_gather"
         if row_len > bitonic.MAX_L:
-            want_k1, want_rts = {"reg": 0, "smem": 0}, {"k1": 0, "torch_sort": g}
+            want_k1, want_rts = {"reg": 0, "wide": 0, "smem": 0}, {"k1": 0, "torch_sort": g}
         else:
-            want_k1 = {"reg": 0, "smem": 0}
+            want_k1 = {"reg": 0, "wide": 0, "smem": 0}
             want_k1[bitonic.k1_variant(row_len)] = g
             want_rts = {"k1": g, "torch_sort": 0}
         print(f"  plan: {'batched' if e.batched else 'unrolled'} k={e.n_chunks} "
@@ -1311,30 +1341,9 @@ def counting_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
         check(COUNT_SHAPES[label] in got, f"{label}: no sort at {COUNT_SHAPES[label]}, "
               f"sorted {sorted(got)}")
         streams[label] = got[COUNT_SHAPES[label]]
-    k1_rows, err = [], 0
-    for label, x in streams.items():
-        k, L = x.shape
-        variant = bitonic.k1_variant(L)
-        got, want = bitonic.bitonic_sort_rows(x), bitonic.bitonic_sort_rows_plain(x)
-        torch.cuda.synchronize()
-        err = max(err, int((got.long() - want.long()).abs().max()))
-        check(torch.equal(got, want), f"K1 differs at the {label} stream's {[k, L]}")
-        fns = [("k1", lambda: bitonic.bitonic_sort_rows(x)),
-               ("plain", lambda: bitonic.bitonic_sort_rows_plain(x)),
-               ("lib", lambda: torch.sort(x, dim=1))]
-        st: dict[str, list[float]] = {}
-        for name, fn in fns + fns[::-1]:
-            st.setdefault(name, []).append(event_ms(torch, fn, 20))
-        b_ms, b_by = sort_bound_ms(x.numel(), L)
-        row = {"path": label, "shape": [k, L], "variant": variant, "ms": min(st["k1"]),
-               "plain_ms": min(st["plain"]), "library_ms": min(st["lib"]),
-               "bound_ms": b_ms, "bound_by": b_by}
-        k1_rows.append(row)
-        print(f"K1 ({variant}) on the bench {label} stream {[k, L]}: bit-equal to its "
-              f"plain version; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"torch.sort {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"{row['ms'] / b_ms:.1f}x the bound; {card}")
-    out["k1"], out["k1_err"] = k1_rows, err
+    k1_rows = [time_k1_stream(torch, bitonic, x, f"bench {label} stream", card)
+               for label, x in streams.items()]
+    out["k1"], out["k1_err"] = k1_rows, max(r["max_abs_err"] for r in k1_rows)
     del streams
 
     # (f) the run_* times beside phase 7's run(), with assembly, peak memory
@@ -1413,7 +1422,7 @@ def graph_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     from binary_spgemm_tpu_torch.ops import device_api as dapi
     from binary_spgemm_tpu_torch.ops import graph, onesort
 
-    sp, ell, BCSR = api["spgemm_mod"], api["ell"], api["BCSR"]
+    sp, ell, BCSR, bitonic = api["spgemm_mod"], api["ell"], api["BCSR"], api["bitonic"]
     DeviceBCSR = sp.DeviceBCSR
     a, c = bench
     g, support = bench_symmetric
@@ -1447,6 +1456,14 @@ def graph_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     def same(label, got, want):
         check(got.equals(want), f"{label} differs from {want!r}")
         print(f"  equal: output nnz {got.nnz}")
+
+    def wide_k1(label, launches):
+        """K1's launches on a graph op whose joins sort rows past 4096 slots:
+        the wide kernel, never the shared-memory one."""
+        k1v = out["products"][label]["k1_by_variant"]
+        check(k1v["wide"] > 0 and k1v["smem"] == 0
+              and sum(k1v.values()) == launches["bitonic_sort_rows"],
+              f"{label}: K1 by variant {k1v}, expected the wide kernel")
 
     # (a) the device API on the bench config: ESC in torch ops, no hand kernel
     da = DeviceBCSR.from_host(a, require_canonical=True)
@@ -1573,6 +1590,7 @@ def graph_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
         if route == "host":  # the late rounds run the ELL executor's run_or
             check(launches["bitonic_sort_rows"] > 0 and launches["class_gather_keys"] > 0,
                   f"{label}: K1 or P4 never ran ({launches})")
+            wide_k1(label, launches)
         else:
             no_launches(label, launches, rts)
         same(label, got, want)
@@ -1589,6 +1607,19 @@ def graph_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
               f"sort_rows routes {rts}; {card}")
     out["closure"] = closure
     ell._EXEC_CACHE.clear()
+    # the rows K1 sorts on the closure's host route (rounds 2-4), captured in
+    # one more host-route closure, against K1's shared-memory kernel and
+    # torch.sort
+    streams = capture_sort_inputs(sp, lambda: graph.transitive_closure(m),
+                                  max_len=bitonic.MAX_L)
+    check(sorted(L for _, L in streams) == list(CLOSURE_K1_ROWS),
+          f"the closure's host route sorted K1 rows {sorted(streams)}, expected lengths "
+          f"{CLOSURE_K1_ROWS}")
+    out["k1"] = [time_k1_stream(torch, bitonic, streams[shape],
+                                "closure host-route round stream", card)
+                 for shape in sorted(streams, key=lambda kl: kl[1])]
+    del streams
+    ell._EXEC_CACHE.clear()
 
     # (e) triangles, clustering and the 3-truss of the symmetric bench graph
     n = g.n_rows
@@ -1597,16 +1628,16 @@ def graph_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     tri_structure.sort_indices()
     label = "triangle_structure(G)"
     got, launches, _ = drive(label, lambda: graph.triangle_structure(g))
-    check(launches["bitonic_sort_rows"] > 0, f"{label}: K1 never ran")
+    wide_k1(label, launches)
     same(label, got, BCSR(tri_structure.indptr, tri_structure.indices, (n, n)))
     label = "triangle_count(G)"
     got, launches, _ = drive(label, lambda: graph.triangle_count(g))
-    check(launches["bitonic_sort_rows"] > 0, f"{label}: K1 never ran")
+    wide_k1(label, launches)
     check(got == TRIANGLES["bench"][2], f"{label} = {got}")
     print(f"  {got} triangles")
     label = "clustering_coefficients(G)"
     got, launches, _ = drive(label, lambda: graph.clustering_coefficients(g))
-    check(launches["bitonic_sort_rows"] > 0, f"{label}: K1 never ran")
+    wide_k1(label, launches)
     tri2 = np.asarray(support.sum(axis=1)).ravel().astype(np.int64)
     deg = np.diff(g.indptr).astype(np.int64)
     pairs = deg * (deg - 1)
@@ -1629,7 +1660,7 @@ def graph_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     d.sort_indices()
     label = "k_truss(G, 3)"
     got, launches, _ = drive(label, lambda: graph.k_truss(g, 3))
-    check(launches["bitonic_sort_rows"] > 0, f"{label}: K1 never ran")
+    wide_k1(label, launches)
     same(label, got, BCSR(d.indptr, d.indices, (n, n)))
     ell._EXEC_CACHE.clear()
 
@@ -1704,6 +1735,7 @@ def run_smoke() -> dict:
 
     sys.path.insert(0, ROOT)
     from binary_spgemm_tpu_torch import BCSR, _build, auto_executor, spgemm
+    from binary_spgemm_tpu_torch.benchmarks import k1_wide_shapes
     from binary_spgemm_tpu_torch.ops import (
         bitonic, block_matmul, bsr, ell, gather, host)
     from binary_spgemm_tpu_torch.ops.spgemm import pull_chunk_prefixes
@@ -1722,6 +1754,7 @@ def run_smoke() -> dict:
         print("libraries were already built from the same sources")
     # kernels that must keep everything in registers: (source, name, count)
     for stem, kernel, count in (("bitonic", "sort_rows_reg_kernel", 5),
+                                ("bitonic", "sort_rows_wide_kernel", 9),
                                 ("block_matmul", "grouped_block_matmul_pipe_kernel", 8),
                                 ("gather", "class_gather_group_kernel", 2)):
         if stem not in _build.build_log:
@@ -1745,7 +1778,9 @@ def run_smoke() -> dict:
     phase("3. kernels against their plain versions")
     for k, L in [(1024, 3968), (512, 4096), (333, 37), (16, bitonic.MAX_L), (7, 1),
                  (64, 128), (64, 129), (64, 255), (64, 256), (64, 257), (32, 2048),
-                 (16, 4095), (16, 4097)]:
+                 (16, 4095), (16, 4097), (16, bitonic.WIDE_SHORT_L),
+                 (16, bitonic.WIDE_SHORT_L + 1), (16, 8192), (16, 8193), (16, 16384),
+                 (16, 16385), (8, 32767)]:
         x = rng.integers(0, max(L // 2, 2), (k, L)).astype(np.int32)  # duplicates
         x[0, : min(3, L)] = INT32_MAX
         x[min(1, k - 1), : min(2, L)] = INT32_MIN
@@ -1764,6 +1799,22 @@ def run_smoke() -> dict:
             variant = (f" ({bitonic.k1_variant(L)})"
                        if name == "bitonic_sort_rows" else "")
             print(f"{name}{variant} [{k}, {L}]: bit-equal")
+    # K1's wide kernel at every block shape built, the ones wide_block does
+    # not pick for this L too (benchmarks/k1_wide_shapes.py times them)
+    for log_p, log_ns in k1_wide_shapes.LOG_N.items():
+        for log_n in log_ns:
+            L = (1 << log_p) - 3
+            xt = torch.from_numpy(rng.integers(INT32_MIN, INT32_MAX, (8, L), dtype=np.int64,
+                                               endpoint=True).astype(np.int32)).to(dev)
+            got = k1_wide_shapes.wide_shape(xt, log_n)
+            want = bitonic.bitonic_sort_rows_plain(xt)
+            torch.cuda.synchronize()
+            errs["bitonic_sort_rows"] = max(errs["bitonic_sort_rows"],
+                                            int((got.long() - want.long()).abs().max()))
+            check(torch.equal(got, want), f"K1's wide kernel at 2^{log_n} slots a thread "
+                                          f"differs at [8, {L}]")
+            print(f"bitonic_sort_rows (wide, {(1 << log_p) >> log_n} x {1 << log_n}) "
+                  f"[8, {L}]: bit-equal")
 
     phase("4. P3 and P4 against their plain versions")
     for w in GATHER_WIDTHS:
@@ -1902,7 +1953,7 @@ def run_smoke() -> dict:
     check(launches["bitonic_sort_rows"] == 2 * ex.n_groups,
           f"K1 launched {launches['bitonic_sort_rows']} times, "
           f"expected {2 * ex.n_groups}")
-    check(k1_variants == {"reg": 2 * ex.n_groups, "smem": 0},
+    check(k1_variants == {"reg": 2 * ex.n_groups, "wide": 0, "smem": 0},
           f"K1 variants {k1_variants}: expected the register kernel every time")
     check(launches["grouped_block_matmul"] == 0, "K3 ran on the ELL path")
     gathered_main = sum(s is not None for s in ex.table_shapes)
@@ -2061,7 +2112,7 @@ def run_smoke() -> dict:
     cb = bex.assemble(counts)
     launches_b = read_counts()
     k3_variants = dict(k3_by_variant)
-    check(k1_by_variant == {"reg": 0, "smem": 0},
+    check(k1_by_variant == {"reg": 0, "wide": 0, "smem": 0},
           f"K1 ran on the blocked path: {k1_by_variant}")
     check(isinstance(bex, bsr.BsrStagedExecutor),
           f"auto_executor took {type(bex).__name__}, not the blocked route")
@@ -2471,8 +2522,15 @@ def run_smoke() -> dict:
                "k1_ms": drv("pallas_sort", variant="k1", k=k, L=L)["t"] * 1e3,
                "library_ms": drv("pallas_sort", variant="torch.sort", k=k, L=L)["t"] * 1e3,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        prev = ""
+        if row["variant"] == "wide":  # also on K1's shared-memory kernel, its earlier route
+            old = lambda: bitonic._launch("bitonic_network_rows", x, 1)
+            check(torch.equal(old(), torch.sort(x, dim=1).values),
+                  f"the shared-memory network differs from torch.sort at [{k}, {L}]")
+            row["previous_ms"] = min(event_ms(torch, old, 5) for _ in range(2))
+            prev = f", on K1's shared-memory kernel {row['previous_ms']:.4f} ms"
         p1_shapes.append(row)
-        print(f"P1 at [{k}, {L}] ({row['variant']}): network {row['ms']:.4f} ms, K1 "
+        print(f"P1 at [{k}, {L}] ({row['variant']}): network {row['ms']:.4f} ms{prev}, K1 "
               f"{row['k1_ms']:.4f} ms, torch.sort {row['library_ms']:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         del x
@@ -2556,18 +2614,26 @@ def run_smoke() -> dict:
     graph_launches = {label: rec["launches"] for label, rec in gr["products"].items()}
 
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
+    # K1's wide kernel: its own path is the op family's A ∪ A·A (run_or), the
+    # op that sorts the most with it; every captured stream it sorts is a row
+    wide_path = ops["products"]["bench spgemm_or(A, A, A)"]
+    wide_rows = [r for r in (*ops["k1"], *cnt["k1"], *gr["k1"]) if r["variant"] == "wide"]
+    wide_main = next(r for r in ops["k1"] if r["shape"] == list(OP_SHAPES["or"]))
+    check(wide_main["variant"] == "wide" and wide_path["k1_by_variant"]["wide"] > 0,
+          f"K1's wide kernel did not run on run_or: {wide_path['k1_by_variant']}")
     kernels = [
         {
             "name": "bitonic_sort_rows", "route": "cuda", "source": src,
             "replaces": "binary_spgemm_tpu/ops/bitonic.py:114",
             "launches": launches["bitonic_sort_rows"],
-            "max_abs_err": max(errs["bitonic_sort_rows"], ops["k1_err"], cnt["k1_err"]),
+            "max_abs_err": max(errs["bitonic_sort_rows"], ops["k1_err"], cnt["k1_err"],
+                               *(r["max_abs_err"] for r in gr["k1"])),
             "ms": t["k1"],
             "plain_ms": t["k1_plain"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": t["k1_lib"], "shape": shape, "on_main_path": True,
             "variant": k1_variant, "previous_ms": t["k1_smem"],
             "launches_by_variant": k1_variants, "other_shapes": k1_shapes,
-            "op_family": ops["k1"], "counting": cnt["k1"],
+            "op_family": ops["k1"], "counting": cnt["k1"], "closure": gr["k1"],
             "launches_by_path": {
                 **{label: {"launches": rec["launches"]["bitonic_sort_rows"],
                            "by_variant": rec["k1_by_variant"]}
@@ -2575,6 +2641,21 @@ def run_smoke() -> dict:
                 "graph": {label: {"launches": rec["launches"]["bitonic_sort_rows"],
                                   "by_variant": rec["k1_by_variant"]}
                           for label, rec in gr["products"].items()}},
+        },
+        {
+            "name": "bitonic_sort_rows (wide)", "route": "cuda", "source": src,
+            "replaces": "binary_spgemm_tpu/ops/bitonic.py:114",
+            "launches": wide_path["k1_by_variant"]["wide"],
+            "launches_path": "bench spgemm_or(A, A, A) (run_or), phase 17",
+            "max_abs_err": max(r["max_abs_err"] for r in wide_rows),
+            **{key: wide_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms", "previous_ms", "shape",
+                                               "block")},
+            "on_main_path": False, "variant": "wide", "on_path": wide_rows,
+            "launches_by_path": {
+                label: rec["k1_by_variant"]["wide"]
+                for label, rec in (*ops["products"].items(), *cnt["products"].items(),
+                                   *gr["products"].items())},
         },
         {
             "name": "fused_sort_compress", "route": "cuda", "source": src,

@@ -2,8 +2,9 @@
 against the JAX package's Pallas kernels in interpret mode and its
 ``sort_rows`` fallback, the wrappers' contract (no launch and no count on
 a CPU tensor, raise on what the kernels do not take), K1's choice of kernel,
-and a numpy model of K1's register kernel (``csrc/bitonic.cu``,
-``sort_rows_reg_kernel``) that runs its schedule step by step."""
+and numpy models of K1's register kernel and wide kernel (``csrc/bitonic.cu``,
+``sort_rows_reg_kernel`` and ``sort_rows_wide_kernel``) that run their
+schedules step by step."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -143,7 +144,8 @@ def test_sort_rows_route_is_a_function_of_the_row_length(L, route):
     "L,variant",
     [(1, "smem"), (2, "smem"), (128, "smem"), (129, "reg"), (255, "reg"),
      (256, "reg"), (257, "reg"), (3968, "reg"), (4095, "reg"), (4096, "reg"),
-     (4097, "smem"), (32768, "smem")],
+     (4097, "wide"), (32768, "wide"), (4352, "wide"), (8192, "wide"), (8193, "wide"),
+     (16384, "wide"), (16385, "wide"), (32767, "wide"), (32769, "smem")],
 )
 def test_k1_variant_is_a_function_of_the_row_length(L, variant):
     assert bitonic.k1_variant(L) == variant
@@ -151,13 +153,21 @@ def test_k1_variant_is_a_function_of_the_row_length(L, variant):
 
 def test_k1_variants_on_the_cpu_are_the_plain_version():
     bitonic.bitonic_sort_rows.launches = 0
+    by_variant = dict(bitonic.bitonic_sort_rows.launches_by_variant)
     x = torch.from_numpy(stream(5, 300, 2))
-    for variant in ("reg", "smem"):
-        assert torch.equal(bitonic._sort_rows_variant(x, variant),
-                           torch.sort(x, dim=1).values)
+    xw = torch.from_numpy(stream(3, 5000, 2, hi=1 << 20))
+    for variant, xs in (("reg", x), ("smem", x), ("wide", xw), ("smem", xw)):
+        assert torch.equal(bitonic._sort_rows_variant(xs, variant),
+                           torch.sort(xs, dim=1).values)
     assert bitonic.bitonic_sort_rows.launches == 0
+    assert bitonic.bitonic_sort_rows.launches_by_variant == by_variant
+    assert set(by_variant) == {"reg", "wide", "smem"}
     with pytest.raises(ValueError, match="'reg' takes rows"):
         bitonic._sort_rows_variant(torch.from_numpy(stream(4, 128, 2)), "reg")
+    with pytest.raises(ValueError, match="'wide' takes rows"):
+        bitonic._sort_rows_variant(torch.from_numpy(stream(4, 4096, 2)), "wide")
+    with pytest.raises(ValueError, match="'reg' takes rows"):
+        bitonic._sort_rows_variant(xw, "reg")
     with pytest.raises(ValueError, match="unknown K1 variant"):
         bitonic._sort_rows_variant(x, "cub")
 
@@ -291,3 +301,294 @@ def test_reg_kernel_model_step_placement(log_p):
     if log_p == 12:  # the main path's padded length
         assert (steps["register"], steps["shuffle"], steps["shared"],
                 steps["shared phases"]) == (33, 35, 10, 4)
+
+
+# --- numpy model of sort_rows_wide_kernel ------------------------------------
+# One block a row: T = P / N threads, thread t holding the N contiguous slots
+# N t ... N t + N - 1 (bitonic.wide_block gives T and N, and the wrappers pass
+# them to the source's launch_wide).  Steps run inside the thread (partner bit below log2 N), by
+# shuffle (the 5 lane bits above) or in shared memory (the warp bits), slot i at
+# shared word wide_swz(i).  sort=True is K1's all-ascending form with the
+# padding skip; sort=False the alternating form from merge 2^lk0 (P1/P2).
+
+# steps by place for each block shape (P, T, N), as the note at the top of
+# csrc/bitonic.cu states them: (register, shuffle, shared, shared phases), and
+# a row length and form that takes the shape
+WIDE_STEPS = {(8192, 512, 16): ((46, 35, 10, 4), 4600, True),
+              (8192, 256, 32): ((55, 30, 6, 3), 8190, True),
+              (16384, 512, 32): ((60, 35, 10, 4), 16380, True),
+              (16384, 1024, 16): ((50, 40, 15, 5), 16384, False),
+              (32768, 1024, 32): ((65, 40, 15, 5), 32760, True),
+              (32768, 512, 64): ((75, 35, 10, 4), 32768, False)}
+
+
+def wide_swz(i, log_n):
+    return i ^ (((i >> max(5, log_n)) & 7) << 2)
+
+
+def _reference_step(v, P, lk, lj, sort):
+    """One step of the whole network over padded rows ``v`` [k, P]: every
+    pair, no skip."""
+    i = np.arange(P)
+    i = i[(i & (1 << lj)) == 0]
+    u = i ^ ((1 << lk) - 1) if sort and lj == lk - 1 else i + (1 << lj)
+    a, b = v[:, i], v[:, u]
+    up = np.ones(i.shape, bool) if sort or lk == P.bit_length() - 1 else (i & (1 << lk)) == 0
+    v[:, i] = np.where(up, np.minimum(a, b), np.maximum(a, b))
+    v[:, u] = np.where(up, np.maximum(a, b), np.minimum(a, b))
+
+
+def wide_kernel_model(x, sort=True, lk0=1):
+    """Run sort_rows_wide_kernel's schedule on int32 ``[k, L]`` ``x``, one
+    block a row, holding every step against the whole network on the padded
+    rows.  Returns the output, the steps run in each place, and what the
+    padding saw."""
+    k, L = x.shape
+    log_p = (L - 1).bit_length()
+    assert 13 <= log_p <= 15 and (sort or L == 1 << log_p)
+    T, N = bitonic.wide_block(L, sort)
+    log_n = N.bit_length() - 1
+    P = 1 << log_p
+    assert T * N == P
+    lane = log_n + 5
+    t = np.arange(T)
+    tl = t[:, None]
+    slot = (tl << log_n) + np.arange(N)[None]  # [T, N]: thread t's slots
+    active = ((t & ~31) << log_n) < L if sort else np.ones(T, bool)
+    word = lambda c: wide_swz((tl << log_n) + 4 * c, log_n) + np.arange(4)[None]
+    sm = np.zeros((k, P), np.int32)
+    written = np.zeros(P, bool)  # shared words written so far
+    seen = {"device_columns": [], "shared_slots": [], "skipped_warp_steps": 0,
+            "steps": {"register": 0, "shuffle": 0, "shared": 0, "shared phases": 0}}
+
+    # load: columns below L only, coalesced, into their swizzled words
+    c = np.arange(L)
+    seen["device_columns"].append(c)
+    sm[:, wide_swz(c, log_n)] = x
+    written[wide_swz(c, log_n)] = True
+    r = np.full((k, T, N), I32_MAX, np.int32)
+
+    def from_shared(first=False):
+        for cw in range(N // 4):
+            w = word(cw)[active]
+            assert first or written[w].all()
+            r[:, active, 4 * cw : 4 * cw + 4] = sm[:, w]
+        if first:  # a slot past L is never read: INT32_MAX in its register
+            r[:, slot >= L] = I32_MAX
+
+    def to_shared():
+        for cw in range(N // 4):
+            w = word(cw)[active]
+            sm[:, w] = r[:, active, 4 * cw : 4 * cw + 4]
+            written[w] = True
+
+    from_shared(first=True)
+    ref = np.full((k, P), I32_MAX, np.int32)
+    ref[:, :L] = x
+
+    def held(place):
+        """The kernel's rows as the step left them, against the whole network."""
+        if place == "shared":
+            got = np.full((k, P), I32_MAX, np.int32)
+            got[:, :L] = sm[:, wide_swz(np.arange(L), log_n)]
+        else:
+            got = np.empty((k, P), np.int32)
+            got[:, slot.ravel()] = r.reshape(k, -1)
+        assert np.array_equal(got, ref), place
+        assert (got[:, L:] == I32_MAX).all()
+
+    def ascending(i, lk):
+        return np.ones(np.shape(i), bool) if sort or lk == log_p else (i & (1 << lk)) == 0
+
+    for lk in range(lk0, log_p + 1):
+        if lk - 1 >= lane:
+            to_shared()
+            seen["steps"]["shared phases"] += 1
+            for lj in range(lk - 1, lane - 1, -1):
+                j, mirror = 1 << lj, sort and lj == lk - 1
+                p = (np.arange(N // 2)[:, None] * T + t[None]).ravel()
+                i = 2 * p - (p & (j - 1))
+                u = i ^ ((1 << lk) - 1) if mirror else i + j
+                go = u < L if sort else np.ones(i.shape, bool)
+                i, u = i[go], u[go]
+                wi, wu = wide_swz(i, log_n), wide_swz(u, log_n)
+                assert written[wi].all() and written[wu].all()
+                seen["shared_slots"] += [i, u]
+                a, b = sm[:, wi], sm[:, wu]
+                up = ascending(i, lk)
+                sm[:, wi] = np.where(up, np.minimum(a, b), np.maximum(a, b))
+                sm[:, wu] = np.where(up, np.maximum(a, b), np.minimum(a, b))
+                seen["steps"]["shared"] += 1
+                _reference_step(ref, P, lk, lj, sort)
+                held("shared")
+            from_shared()
+        for lj in range(min(lk - 1, lane - 1), -1, -1):
+            mirror = sort and lj == lk - 1
+            new = r.copy()
+            if lj >= log_n:
+                m = (1 << (lk - log_n)) - 1 if mirror else 1 << (lj - log_n)
+                partner = (t & ~31) | ((t & 31) ^ m)  # __shfl_xor_sync(..., m)
+                o = r[:, partner, ::-1] if mirror else r[:, partner]
+                lower = (t & (1 << (lj - log_n))) == 0
+                keep_min = lower == ascending(t << log_n, lk)
+                new = np.where(keep_min[None, :, None], np.minimum(r, o), np.maximum(r, o))
+                seen["steps"]["shuffle"] += 1
+            else:
+                j = 1 << lj
+                for e in range(N):
+                    if e & j:
+                        continue
+                    f = e ^ ((1 << lk) - 1) if mirror else e | j
+                    a, b = r[:, :, e], r[:, :, f]
+                    up = ascending(slot[:, e], lk)[None]
+                    new[:, :, e] = np.where(up, np.minimum(a, b), np.maximum(a, b))
+                    new[:, :, f] = np.where(up, np.maximum(a, b), np.minimum(a, b))
+                seen["steps"]["register"] += 1
+            r[:, active] = new[:, active]  # an idle warp skips the step
+            seen["skipped_warp_steps"] += int((~active[::32]).sum())
+            _reference_step(ref, P, lk, lj, sort)
+            held("registers")
+    to_shared()
+    # store: columns below L only
+    out = np.empty_like(x)
+    out[:] = sm[:, wide_swz(np.arange(L), log_n)]
+    seen["device_columns"].append(np.arange(L))
+    return out, seen
+
+
+WIDE_LENGTHS = [4097, 4352, 4608, 4864, 6912, 7232, 7552, 8096, 8192, 8193, 16384,
+                16385, 17408, 32768]
+
+
+@pytest.mark.parametrize("L", WIDE_LENGTHS)
+def test_wide_kernel_model_sorts_like_np_sort_and_jax(L):
+    rng = np.random.default_rng(L)
+    k = 3
+    x = rng.integers(I32_MIN, I32_MAX, (k, L), dtype=np.int64, endpoint=True)
+    x = x.astype(np.int32)
+    x[0, :3] = I32_MAX
+    x[0, -2:] = I32_MIN
+    x[1] = x[1, 0]  # a row of a single value
+    x[2, : L // 2] = x[2, 7]  # duplicates
+    assert bitonic.k1_variant(L) == "wide"
+    got, seen = wide_kernel_model(x)
+    want = np.sort(x, axis=1)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, np.asarray(jx_bitonic.sort_rows(jnp.asarray(x))))
+    assert np.array_equal(bitonic.sort_rows(torch.from_numpy(x)).numpy(), want)
+    # the padding: never loaded or stored, never touched by a shared step (and
+    # INT32_MAX in every step, which wide_kernel_model holds)
+    assert all(c.max() < L for c in seen["device_columns"])
+    if seen["shared_slots"]:
+        assert max(int(s.max()) for s in seen["shared_slots"]) < L
+    P = 1 << (L - 1).bit_length()
+    warps_idle = (P - L) // (32 * bitonic.wide_block(L)[1])
+    lane_steps = seen["steps"]["register"] + seen["steps"]["shuffle"]
+    assert seen["skipped_warp_steps"] == warps_idle * lane_steps
+
+
+@pytest.mark.parametrize("shape", sorted(WIDE_STEPS))
+def test_wide_kernel_model_step_placement(shape):
+    steps, L, sort = WIDE_STEPS[shape]
+    assert (1 << (L - 1).bit_length(), *bitonic.wide_block(L, sort)) == shape
+    _, seen = wide_kernel_model(stream(2, L, L, hi=1 << 20), sort=sort)
+    st = seen["steps"]
+    assert (st["register"], st["shuffle"], st["shared"], st["shared phases"]) == steps
+    log_p, log_n = (L - 1).bit_length(), shape[2].bit_length() - 1
+    assert st["register"] == sum(min(lk, log_n) for lk in range(1, log_p + 1))
+    assert st["shuffle"] == sum(min(max(lk - log_n, 0), 5) for lk in range(1, log_p + 1))
+    assert st["shared phases"] == log_p - log_n - 5
+    assert st["register"] + st["shuffle"] + st["shared"] == log_p * (log_p + 1) // 2
+
+
+def _wide_source():
+    from pathlib import Path
+
+    return (Path(bitonic.__file__).parents[1] / "csrc" / "bitonic.cu").read_text()
+
+
+def _wide_shapes_built():
+    """(log2 P, log2 N, sort) of every block shape the source's launch_wide
+    switches to: the shapes built, of which the wrappers pick by
+    bitonic.wide_block."""
+    import re
+
+    src = _wide_source()
+    body = src[src.index("cudaError_t launch_wide(const void*"):]
+    body = body[: body.index("\n}\n")]
+    return {(int(lp), int(ln), form == "true") for lp, ln, form in
+            re.findall(r"launch_wide_shape<(\d+), (\d+), (true|false)>", body)}
+
+
+def test_wide_kernel_model_steps_match_the_source_note():
+    from binary_spgemm_tpu_torch.benchmarks.k1_wide_shapes import LOG_N
+
+    note = " ".join(_wide_source().replace("//", " ").split())
+    for (P, T, N), ((reg, shfl, shared, phases), _, _) in WIDE_STEPS.items():
+        line = (f"P = {P}: {T} x {N}, {reg} register, {shfl} shuffle, {shared} "
+                f"shared-memory steps in {phases} phases")
+        assert line in note, line
+    built = _wide_shapes_built()
+    assert {(1 << lp, 1 << (lp - ln), 1 << ln) for lp, ln, _ in built} == set(WIDE_STEPS)
+    # the shapes driver times every K1 shape built
+    assert {(lp, ln) for lp, ln, sort in built if sort} == {
+        (lp, ln) for lp, lns in LOG_N.items() for ln in lns}
+
+
+@pytest.mark.parametrize("L", [4097, 4352, 4608, 4609, 4864, 6912, 7232, 8096, 8192, 8193,
+                               16384, 16385, 17408, 32767, 32768])
+def test_wide_block_picks_a_shape_the_source_builds(L):
+    """The card runs the shape wide_block picks (the model's schedule), and
+    launch_wide refuses any shape it does not build."""
+    built = _wide_shapes_built()
+    forms = (True, False) if L & (L - 1) == 0 else (True,)
+    for sort in forms:
+        T, N = bitonic.wide_block(L, sort)
+        log_p = (L - 1).bit_length()
+        assert T * N == 1 << log_p and T % 32 == 0 and T <= 1024
+        assert (log_p, N.bit_length() - 1, sort) in built, (L, sort, T, N)
+    assert bitonic.wide_block(L)[1] == (16 if L <= bitonic.WIDE_SHORT_L else 32)
+
+
+@pytest.mark.parametrize("L", [8192, 32768])
+@pytest.mark.parametrize("min_kk", [2, 32])
+def test_wide_kernel_model_network_form_is_the_plain_network(L, min_kk):
+    from binary_spgemm_tpu_torch.benchmarks.ab_wruns import alternating_runs
+
+    x = torch.from_numpy(stream(2, L, L + min_kk, hi=1 << 30))
+    runs = alternating_runs(x, 16)
+    for inp in (x, runs):
+        lk0 = bitonic._first_merge(min_kk, L)
+        got, seen = wide_kernel_model(inp.numpy(), sort=False, lk0=lk0)
+        assert np.array_equal(got, bitonic.bitonic_network_rows_plain(inp, min_kk).numpy())
+        assert seen["skipped_warp_steps"] == 0
+    assert np.array_equal(got, np.sort(x.numpy(), axis=1))  # runs of 16 from merge 32
+
+
+@pytest.mark.parametrize("shape", sorted(WIDE_STEPS))
+def test_wide_model_shared_memory_is_free_of_bank_conflicts(shape):
+    """The 16-byte word swizzle: a register round trip's 16-byte accesses reach
+    8 distinct bank groups in every phase of 8 threads; a shared step's and
+    the load's and store's 32-bit accesses reach 32 distinct banks a warp."""
+    P, T, N = shape
+    log_p, log_n = P.bit_length() - 1, N.bit_length() - 1
+    t = np.arange(T)
+    slots = wide_swz(np.arange(1 << log_p), log_n)
+    assert np.array_equal(np.sort(slots), np.arange(1 << log_p))  # a permutation
+    for c in range(N // 4):
+        w = wide_swz((t << log_n) + 4 * c, log_n)
+        assert (w % 4 == 0).all()  # 16-byte aligned
+        groups = (w // 4 % 8).reshape(-1, 8)
+        assert all(len(set(g)) == 8 for g in groups)
+    banks = (slots % 32).reshape(-1, 32)  # 32 consecutive slots: load, store
+    assert all(len(set(b)) == 32 for b in banks)
+    for lk in range(log_n + 6, log_p + 1):
+        for lj in range(lk - 1, log_n + 4, -1):
+            j = 1 << lj
+            for q in range(N // 2):
+                p = q * T + t
+                i = 2 * p - (p & (j - 1))
+                for u in (i + j, i ^ ((1 << lk) - 1)):
+                    for s_ in (i, u):
+                        b = (wide_swz(s_, log_n) % 32).reshape(-1, 32)
+                        assert all(len(set(row)) == 32 for row in b)

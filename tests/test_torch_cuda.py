@@ -46,11 +46,15 @@ def test_kernels_equal_their_plain_versions(cuda_device, k, L):
     assert bitonic.fused_sort_compress.launches == n2 + 1
 
 
+WIDE_LENGTHS = [4097, 4352, 4608, 4864, 6912, 7232, 7552, 8096, 8192, 8193, 16384,
+                16385, 17408, 32768]
+
+
 @pytest.mark.parametrize(
     "k,L",
     [(64, 128), (64, 129), (64, 255), (64, 256), (64, 257), (40, 512),
      (24, 1000), (16, 1024), (32, 2048), (16, 3968), (16, 4095), (8, 4096),
-     (16, 4097)],
+     (16, 4097)] + [(max(8, (1 << 18) // L), L) for L in WIDE_LENGTHS[1:]],
 )
 def test_k1_variants_equal_the_plain_version(cuda_device, k, L):
     rng = np.random.default_rng(L)
@@ -61,7 +65,8 @@ def test_k1_variants_equal_the_plain_version(cuda_device, k, L):
     x[1] = x[1, 0]  # one row of a single value
     xt = torch.from_numpy(x).to(cuda_device)
     variant = bitonic.k1_variant(L)
-    assert variant == ("reg" if 129 <= L <= 4096 else "smem")
+    assert variant == ("reg" if 129 <= L <= 4096 else "wide" if 4097 <= L <= 32768
+                       else "smem")
     before = dict(bitonic.bitonic_sort_rows.launches_by_variant)
     got = bitonic.bitonic_sort_rows(xt)
     torch.cuda.synchronize()
@@ -69,7 +74,7 @@ def test_k1_variants_equal_the_plain_version(cuda_device, k, L):
     after = bitonic.bitonic_sort_rows.launches_by_variant
     assert after[variant] == before[variant] + 1
     assert sum(after.values()) == sum(before.values()) + 1
-    if variant == "reg":  # the shared-memory kernel still takes these rows
+    if variant != "smem":  # the shared-memory kernel still takes these rows
         assert torch.equal(bitonic._sort_rows_variant(xt, "smem"), got)
 
 
@@ -449,7 +454,7 @@ def runs_input(k, L, w, seed):
     return xt, alternating_runs(xt, w)
 
 
-@pytest.mark.parametrize("L", [128, 256, 4096, 8192, 32768])
+@pytest.mark.parametrize("L", [128, 256, 4096, 8192, 16384, 32768])
 @pytest.mark.parametrize("first", ["2", "4", "32", "L", "2L"])
 def test_network_equals_its_plain_version(cuda_device, L, first):
     min_kk = {"L": L, "2L": 2 * L}.get(first) or int(first)
