@@ -50,16 +50,20 @@ package.  Ported so far:
   (host, resident compacted and resident one-sort routes), ``bfs_levels``,
   ``reachable``, ``triangle_structure``, ``triangle_count``,
   ``clustering_coefficients`` and ``k_truss``;
-* the CLI's ``gen``, ``multiply`` and ``graph`` commands
+* the row-partitioned distributed layer on ``torch.distributed``
+  (``parallel/``): ``dist_spgemm`` over every B layout and engine, the
+  masked, fused-OR and union ops, the sharded ingest
+  (``multihost.dist_spgemm_from_local``), and ``launch`` for a local group;
+* the CLI's ``gen``, ``multiply``, ``graph`` and ``validate`` commands
   (``python -m binary_spgemm_tpu_torch.cli``).
 
 Entry points run on ``device="cuda"`` unless told otherwise; ``device=`` is
 always the torch device.  The JAX package's boolean ``device=`` flag of
 ``k_hop``, ``transitive_closure`` and ``triangle_count`` (keep the matrices
 on the accelerator) is ``resident=`` here, with the same defaults.  Not
-ported yet (ROADMAP.md Queue 1): the native host helpers (the native
-Matrix-Market parser among them), the distributed layer, and the CLI's
-``bench`` and ``validate``, which need it.
+ported yet (ROADMAP.md Queue 1): the distributed counting family,
+triangles, one-sort closure and scaling report, the CLI's ``bench``, and
+the native host helpers (the native Matrix-Market parser among them).
 """
 from .formats.bbcsr import BlockedBCSR, blocked_from_arrays
 from .formats.bcsr import BCSR, bcsr_from_arrays, coo_to_csr_stable

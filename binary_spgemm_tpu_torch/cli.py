@@ -1,21 +1,24 @@
-"""Command-line interface of the port: data generation, one-shot products and
-graph ops.
+"""Command-line interface of the port: data generation, one-shot products,
+graph ops and the distributed check.
 
     python -m binary_spgemm_tpu_torch.cli gen a.mtx -n 4096 -d 4 --seed 1
     python -m binary_spgemm_tpu_torch.cli multiply a.mtx --out c.mtx
     python -m binary_spgemm_tpu_torch.cli graph a.mtx closure --resident --out r.mtx
+    python -m binary_spgemm_tpu_torch.cli validate a.mtx --devices 4 --oracle
 
-Counterpart of ``binary_spgemm_tpu/cli.py``'s ``gen``, ``multiply`` and
-``graph`` commands, with the same flags, outputs and exit codes, and two
-changes of name: ``--device {cuda,cpu}`` picks the torch device (``cuda``
-unless told otherwise), and ``graph --resident`` is the JAX CLI's ``graph
---device`` (keep the iterated products' matrices on the device).  ``bench``
-and ``validate`` are not ported yet: they run the row-partitioned
-distributed layer, which the port does not have yet.
+Counterpart of ``binary_spgemm_tpu/cli.py``'s ``gen``, ``multiply``,
+``graph`` and ``validate`` commands, with the same flags, outputs and exit
+codes, and two changes of name: ``--device {cuda,cpu}`` picks the torch
+device (``cuda`` unless told otherwise), and ``graph --resident`` is the JAX
+CLI's ``graph --device`` (keep the iterated products' matrices on the
+device).  ``validate --devices N`` starts N ranks on this machine
+(:mod:`.parallel.launch`: NCCL with a card a rank, else gloo); under
+``torchrun`` it joins the group that exists.  ``bench`` is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from .formats.bcsr import BCSR
@@ -37,6 +40,65 @@ def _single_device_spgemm(a, args, b=None):
         return spgemm(a, b, chunk_flops=args.chunk_flops or DEFAULT_CHUNK_FLOPS,
                       device=args.device)
     return spgemm(a, b, chunk_flops=args.chunk_flops, device=args.device)
+
+
+def _validate_rank(mesh, a, balance: str, b_layout: str):
+    from .parallel.dist_spgemm import dist_spgemm
+
+    return dist_spgemm(a, a, mesh, balance=balance, b_layout=b_layout)
+
+
+def cmd_validate(args) -> int:
+    """C = A·A over the ranks against the one-device product (and, with
+    ``--oracle``, the latter against scipy): the reference's ``make test``
+    (SpGEMM_mpi_omp_validity)."""
+    from .parallel import multihost
+    from .parallel.launch import default_backend, launch
+    from .utils.oracle import spgemm_oracle
+
+    a = _load(args.path, args.transpose)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # under torchrun
+        multihost.initialize(backend="nccl" if args.device == "cuda" else "gloo")
+        mesh = multihost.global_row_mesh(args.device)
+        if args.devices is not None and args.devices != mesh.size:
+            print(f"--devices {args.devices} != the group's {mesh.size} ranks",
+                  file=sys.stderr)
+            return 2
+        c_pars = [_validate_rank(mesh, a, args.balance, args.b_layout)]
+    else:
+        import torch
+
+        from .ops.spgemm import resolve_device
+
+        n = args.devices
+        if n is None:
+            n = torch.cuda.device_count() if resolve_device(args.device).type == "cuda" else 1
+        if n == 1:  # this process alone
+            from .parallel.mesh import make_row_mesh
+
+            c_pars = [_validate_rank(make_row_mesh(1, device=args.device), a,
+                                     args.balance, args.b_layout)]
+        else:
+            c_pars = launch(_validate_rank, n, a, args.balance, args.b_layout,
+                            backend=default_backend(n, args.device),
+                            device=args.device, timeout=3600.0)
+    c_ser = _single_device_spgemm(a, args)
+    ok = all(c.equals(c_ser) for c in c_pars)
+    oracle_ok = True
+    if args.oracle:
+        oracle_ok = c_ser.equals(spgemm_oracle(a, a))
+    if ok and oracle_ok:
+        # ≡ final/SpGEMM_mpi_omp_validity.c:340
+        print("Results of serial and multicore are the same!")
+        return 0
+    if not ok:
+        print("MISMATCH between serial and multi-device results", file=sys.stderr)
+        bad = next(c for c in c_pars if not c.equals(c_ser))
+        print(bad.diff(c_ser), file=sys.stderr)
+    if not oracle_ok:
+        print("MISMATCH vs scipy oracle", file=sys.stderr)
+        print(c_ser.diff(spgemm_oracle(a, a)), file=sys.stderr)
+    return 1
 
 
 def cmd_gen(args) -> int:
@@ -167,10 +229,9 @@ def cmd_graph(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="binary_spgemm_tpu_torch",
-        description="boolean SpGEMM on a CUDA card: data generation, products "
-        "and graph ops",
-        epilog="bench and validate are not ported yet: they need the "
-        "row-partitioned distributed layer",
+        description="boolean SpGEMM on a CUDA card: data generation, products, "
+        "graph ops and the distributed check",
+        epilog="bench is not ported yet",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -194,6 +255,26 @@ def build_parser() -> argparse.ArgumentParser:
         "--engine", choices=["auto", "esc", "ell"], default="auto",
         help="SpGEMM engine (auto = sliced-ELL when its expansion fits)",
     )
+
+    common = argparse.ArgumentParser(add_help=False, parents=[io_common, engine_common])
+    common.add_argument(
+        "--devices", type=int, default=None,
+        help="ranks (≈ MPI tasks; default: one a card, or 1 on the CPU); "
+        "started here over NCCL with a card a rank, else gloo",
+    )
+    common.add_argument(
+        "--balance", choices=["flops", "rows"], default="flops",
+        help="row partition strategy (rows = reference parity)",
+    )
+    common.add_argument(
+        "--b-layout", choices=["replicated", "sharded", "ring"], default="replicated",
+        help="B operand layout over the ranks (replicated = reference parity; "
+        "sharded = all-gathered in the step; ring = rotated, O(nnz/S) memory)",
+    )
+    v = sub.add_parser("validate", parents=[common],
+                       help="serial vs multi-device bit-exact check")
+    v.add_argument("--oracle", action="store_true", help="also compare against scipy")
+    v.set_defaults(fn=cmd_validate)
 
     m = sub.add_parser(
         "multiply", parents=[io_common, engine_common],

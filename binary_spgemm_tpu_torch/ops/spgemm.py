@@ -65,6 +65,8 @@ __all__ = [
     "resolve_device",
     "row_flops",
     "sort_compress",
+    "sort_compress_2d",
+    "sort_compress_2d_keys",
     "sort_compress_masked",
     "sort_compress_masked_seps",
     "sort_compress_masked_seps_2d",
@@ -445,21 +447,65 @@ def sort_compress_seps(
     return (c_keys & 0xFFFFFFFF).to(INT), nnz_c
 
 
-def sort_compress_seps_2d_keys(
-    key: torch.Tensor, n_rows: int, n_cols: int
-) -> tuple[torch.Tensor, torch.Tensor]:
+def _compress_2d_keys(key: torch.Tensor, n_rows: int, n_cols: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort each row of the packed ``[k, L]`` key stream, drop left-neighbour
     duplicates and keys at or past the sentinel row, compact by demoting them
-    to ``INT32_MAX`` and sorting again.  Returns the column field of the
-    compacted keys (separators embedded, so each chunk's row pointers ride in
-    the stream) and the per-row valid count ``nnz [k]`` (int32)."""
+    to ``INT32_MAX`` and sorting again (both sorts through
+    :func:`..bitonic.sort_rows`).  Returns the compacted keys and the per-row
+    valid count ``nnz [k]`` (int32)."""
     shift = int(n_cols).bit_length()
     key_s = sort_rows_1key(key)
     keep = (key_s != _prev(key_s, -1)) & (key_s < (n_rows << shift))
     nnz_c = keep.sum(dim=1, dtype=INT)
-    demoted = torch.where(keep, key_s, INT32_MAX)
-    c_keys = sort_rows_1key(demoted)
-    return c_keys & ((1 << shift) - 1), nnz_c
+    return sort_rows_1key(torch.where(keep, key_s, INT32_MAX)), nnz_c
+
+
+def sort_compress_seps_2d_keys(
+    key: torch.Tensor, n_rows: int, n_cols: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_compress_2d_keys` returning the column field of the compacted
+    keys (separators embedded, so each chunk's row pointers ride in the
+    stream) and the per-row valid count ``nnz [k]`` (int32)."""
+    c_keys, nnz_c = _compress_2d_keys(key, n_rows, n_cols)
+    return c_keys & ((1 << int(n_cols).bit_length()) - 1), nnz_c
+
+
+def sort_compress_2d_keys(
+    key: torch.Tensor, n_rows: int, n_cols: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched :func:`sort_compress` on the pre-packed ``[C, L]`` key stream
+    ``(row << bl) | col``: each row of the stack sorts, deduplicates and
+    compacts on its own (:func:`_compress_2d_keys`), and each row's exclusive
+    row pointers come from a histogram of its compacted row field.  Returns
+    ``(c_indptr [C, n_rows+1], c_indices [C, L], nnz [C])``; the distributed
+    ELL step serves all of a rank's sub-chunks with it."""
+    shift = int(n_cols).bit_length()
+    c_keys, nnz_c = _compress_2d_keys(key, n_rows, n_cols)
+    # INT32_MAX (the demoted slots) shifts to past n_rows: the tail bucket
+    indptr = _indptr_from_sorted_rows(c_keys >> shift, n_rows)
+    return indptr, c_keys & ((1 << shift) - 1), nnz_c
+
+
+def sort_compress_2d(
+    row: torch.Tensor, col: torch.Tensor, n_rows: int, n_cols: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched :func:`sort_compress` on ``[C, L]`` (row, col) pair streams,
+    sorted along the last axis.  Packable pairs take the packed int32 path
+    (:func:`sort_compress_2d_keys`, K1); otherwise the pair sorts as one
+    int64 key ``(row << 32) | col`` through ``torch.sort``, as the JAX
+    package's 2-key ``lax.sort`` was plain XLA.  Returns ``(c_indptr [C,
+    n_rows+1], c_indices [C, L], nnz [C])``."""
+    if packable(n_rows, n_cols):
+        shift = int(n_cols).bit_length()
+        return sort_compress_2d_keys((row << shift) | col, n_rows, n_cols)
+    key_s = torch.sort(_pair_key(row, col), dim=1).values
+    keep = (key_s != _prev(key_s, -1)) & ((key_s >> 32) < n_rows)
+    nnz_c = keep.sum(dim=1, dtype=INT)
+    c_keys = torch.sort(torch.where(keep, key_s, (n_rows << 32) | n_cols),
+                        dim=1).values
+    indptr = _indptr_from_sorted_rows((c_keys >> 32).to(INT), n_rows)
+    return indptr, (c_keys & 0xFFFFFFFF).to(INT), nnz_c
 
 
 def sort_compress_seps_2d(

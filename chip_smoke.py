@@ -172,10 +172,27 @@ Phases, each reported on its own lines; any failure exits non-zero:
     input and the bench config, then ``graph closure`` (its written file
     equal to (d)'s) and ``graph khop --resident`` (the bench product's nnz)
     run at once on the card;
-20. a ``{"kernels": [...]}`` line (the graph ops' K1, P3 and P4 launches
-    under ``launches_by_path["graph"]``; K1's wide kernel as an entry of its
-    own, launched on the op family's ``run_or``, with every captured stream
-    it sorts), then, last, the ``{"ok": true, ...}`` line.
+20. the distributed layer over NCCL, one rank (``parallel/launch.py``):
+    the bench config through ``dist_spgemm`` at every B layout
+    (replicated, sharded, ring) and engine (ESC, ELL);
+21. the distributed layer over gloo, ranks sharing the one card: the same
+    six products and the JAX dryrun's 14 ported paths (A = 128 x 128) in 4
+    ranks; ``dist_masked_spgemm(A, A, A)``, ``dist_spgemm_or(A, A, A)`` with
+    and without ``mask=A``, ``dist_spm_or(A, C)`` and
+    ``dist_spgemm_from_local`` (each rank reads its rows of the bench config
+    written as ``.mtx``) in 2 ranks.  Every rank's product must equal the
+    single-card one (phase 5's and phase 17's, by digest), every step it
+    assembles must hold its tensors on the card, every ELL product must
+    launch P3 or P4 and the dryrun K1 too, on every rank; each rank prints
+    per call its host-clock wall, K1 launches by variant, P3/P4 launches,
+    collective counters and peak device memory, K1's, P3's and P4's counts
+    set to 0 just before the call and read just after.  A rank's failure
+    or a launch past its time limit fails the phase;
+22. a ``{"kernels": [...]}`` line (the graph ops' K1, P3 and P4 launches
+    under ``launches_by_path["graph"]``, the distributed ones per rank under
+    ``launches_by_path["distributed (per rank)"]``; K1's wide kernel as an
+    entry of its own, launched on the op family's ``run_or``, with every
+    captured stream it sorts), then, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -1719,6 +1736,189 @@ def graph_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     return out
 
 
+# phases 20-21: the bench config through dist_spgemm at every B layout and
+# engine, the ranks phase 21 runs over gloo on the one card, and the JAX
+# dryrun's scale (A = 128 x 128)
+DIST_PAIRS = [(lay, eng) for lay in ("replicated", "sharded", "ring") for eng in ("esc", "ell")]
+GLOO_RANKS = (2, 4)
+DIST_TIMEOUT_S = 600.0
+
+
+def digest(m) -> str:
+    """A product's identity across processes: the hash of its shape,
+    row pointers (as int64) and column indices."""
+    import hashlib
+
+    h = hashlib.sha256(repr(tuple(m.shape)).encode())
+    h.update(np.asarray(m.indptr, np.int64).tobytes())
+    h.update(np.asarray(m.indices, np.int32).tobytes())
+    return h.hexdigest()
+
+
+def local_product(path: str, b, n: int, *, mesh):
+    """``dist_spgemm_from_local``: this rank reads only its rows of ``path``
+    (rows-balanced bounds) and multiplies them by the replicated B."""
+    from binary_spgemm_tpu_torch.io.mmio import read_pattern
+    from binary_spgemm_tpu_torch.parallel import multihost
+    from binary_spgemm_tpu_torch.parallel.mesh import partition_rows
+
+    bounds = partition_rows(np.ones(n), mesh.size, balance="rows")
+    lo, hi = multihost.process_row_range(bounds, mesh)
+    a_local = read_pattern(path, transpose=False, row_range=(lo, hi))
+    check(a_local.shape == (hi - lo, b.n_rows), f"rank {mesh.rank} read {a_local.shape}")
+    return multihost.dist_spgemm_from_local(a_local, bounds, b, mesh)
+
+
+def dist_rank(mesh, calls) -> list[dict]:
+    """One rank of phases 20-21: each call ``(label, fn, args, kwargs)`` as
+    ``fn(*args, mesh=mesh, **kwargs)``, with K1's, P3's and P4's launch
+    counts, the sort routes, the collectives' counters and the peak device
+    memory set to 0 just before and read just after (a synchronize each
+    side of the host-clock wall).  Every step handed to assembly must hold
+    its tensors on the card.  Returns per call those readings and the
+    result's digest (or, for the dryrun, its ``(path, ok)`` list)."""
+    import torch
+
+    from binary_spgemm_tpu_torch.ops import bitonic, gather
+    from binary_spgemm_tpu_torch.parallel import comm
+    from binary_spgemm_tpu_torch.parallel import dist_spgemm as dm
+
+    check(mesh.device.type == "cuda", f"rank {mesh.rank} computes on {mesh.device}")
+    k1, routes = bitonic.bitonic_sort_rows, bitonic.sort_rows.routes
+    on_card = []
+    assemble = dm._assemble
+
+    def assemble_on_card(step, sub_bounds, shape, mesh_):
+        on_card.append(all(t.is_cuda for t in (step.c_ptr, step.c_idx, step.nnz)))
+        return assemble(step, sub_bounds, shape, mesh_)
+
+    dm._assemble = assemble_on_card
+    out = []
+    for label, fn, args, kwargs in calls:
+        k1.launches = gather.class_gather.launches = gather.class_gather_keys.launches = 0
+        for counts in (k1.launches_by_variant, routes):
+            for key in counts:
+                counts[key] = 0
+        comm.reset_counters()
+        on_card.clear()
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        t0 = time.perf_counter()
+        res = fn(*args, mesh=mesh, **kwargs)
+        torch.cuda.synchronize(mesh.device)
+        rec = {"label": label, "rank": mesh.rank, "s": time.perf_counter() - t0,
+               "k1": k1.launches, "k1_by_variant": dict(k1.launches_by_variant),
+               "p3": gather.class_gather.launches, "p4": gather.class_gather_keys.launches,
+               "routes": dict(routes), "comm": dict(comm.counters),
+               "peak_mib": torch.cuda.max_memory_allocated(mesh.device) / 2**20,
+               "on_card": list(on_card)}
+        if isinstance(res, list):
+            rec["checks"] = res
+        else:
+            rec["nnz"], rec["digest"] = res.nnz, digest(res)
+        out.append(rec)
+    return out
+
+
+def dist_report(runs: list[list[dict]], want: dict, backend: str) -> dict:
+    """Check and print every rank's readings of one launch; ``want`` maps a
+    call's label to ``(digest, nnz, gathers)`` of the single-card product,
+    ``gathers`` whether the path is an ELL one (P3 or P4 must launch).
+    Returns ``{label: {"k1": [...], "p3": [...], "p4": [...], "s": [...]}}``
+    over the ranks."""
+    S = len(runs)
+    by_label: dict = {}
+    for r, recs in enumerate(runs):
+        for rec in recs:
+            label = rec["label"]
+            check(rec["on_card"] and all(rec["on_card"]),
+                  f"S={S} rank {r} {label}: a step held tensors off the card")
+            if "checks" in rec:
+                bad = [name for name, ok in rec["checks"] if not ok]
+                check(not bad, f"S={S} rank {r} dryrun mismatches: {bad}")
+                check(rec["k1"] > 0 and rec["p3"] + rec["p4"] > 0,
+                      f"S={S} rank {r}: the dryrun launched K1 {rec['k1']}, P3 "
+                      f"{rec['p3']}, P4 {rec['p4']}")
+                result = f"{len(rec['checks'])} paths bit-exact"
+            else:
+                d, nnz, gathers = want[label]
+                check(rec["digest"] == d and rec["nnz"] == nnz,
+                      f"S={S} rank {r} {label}: output nnz {rec['nnz']} (want {nnz}), "
+                      "not the single-card product")
+                if gathers:
+                    check(rec["p3"] + rec["p4"] > 0,
+                          f"S={S} rank {r} {label}: no P3/P4 launch on an ELL path")
+                result = f"nnz {rec['nnz']} bit-exact"
+            print(f"  S={S} ({backend}) rank {r} {label}: {result}; {rec['s']:.3f} s on "
+                  f"the host clock; K1 {rec['k1']} {rec['k1_by_variant']}, P3 {rec['p3']}, "
+                  f"P4 {rec['p4']}, sort routes {rec['routes']}; comm {rec['comm']}; peak "
+                  f"device memory {rec['peak_mib']:.1f} MiB")
+            row = by_label.setdefault(label, {"k1": [], "p3": [], "p4": [], "s": []})
+            for key in ("k1", "p3", "p4", "s"):
+                row[key].append(rec[key])
+    return by_label
+
+
+def dist_phases(torch, card: str, *, api, a, c, op_results) -> dict:
+    """Phases 20 and 21: the distributed layer on the card.  ``a`` and ``c``
+    are phase 5's A and C = A·A (bit-exact against scipy), ``op_results``
+    phase 17's single-card op family products."""
+    dist, dryrun, launch = api["dist"], api["dryrun"], api["launch"]
+    want = {f"bench dist_spgemm[{lay},{eng}]": (digest(c), c.nnz, eng == "ell")
+            for lay, eng in DIST_PAIRS}
+    spgemm_calls = [(f"bench dist_spgemm[{lay},{eng}]", dist.dist_spgemm, (a, a),
+                     {"b_layout": lay, "engine": eng}) for lay, eng in DIST_PAIRS]
+    out = {}
+
+    phase("20. the distributed layer over NCCL: one rank")
+    t0 = time.perf_counter()
+    runs = launch(dist_rank, 1, spgemm_calls, backend="nccl", device="cuda",
+                  timeout=DIST_TIMEOUT_S)
+    print(f"1 rank over NCCL: {time.perf_counter() - t0:.2f} s on the host clock, "
+          f"rank start included; {card}")
+    out["S=1 nccl"] = dist_report(runs, want, "nccl")
+
+    phase("21. the distributed layer over gloo: 2 and 4 ranks on one card")
+    print("ranks share the one card, so these walls are not a scaling curve")
+    path = os.path.join(ROOT, "build", "dist_bench.mtx")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    api["write_pattern"](path, a)
+    # the op family's auto engine takes the ELL step on the bench config;
+    # spm_or and the sharded ingest's product are ESC-form
+    for label, key, gathers in (("bench dist_masked_spgemm(A, A, A)", "masked", True),
+                                ("bench dist_spgemm_or(A, A, A)", "or", True),
+                                ("bench dist_spgemm_or(A, A, A, mask=A)", "or-masked", True),
+                                ("bench dist_spm_or(A, C)", "or", False)):
+        want[label] = (digest(op_results[key]), op_results[key].nnz, gathers)
+    want["bench dist_spgemm_from_local (rows from the .mtx)"] = (digest(c), c.nnz, False)
+    calls = {
+        4: spgemm_calls + [("dryrun (14 paths, A = 128 x 128)", dryrun.dryrun_paths, (),
+                            {})],
+        2: [("bench dist_masked_spgemm(A, A, A)", dist.dist_masked_spgemm, (a, a, a), {}),
+            ("bench dist_spgemm_or(A, A, A)", dist.dist_spgemm_or, (a, a, a), {}),
+            ("bench dist_spgemm_or(A, A, A, mask=A)", dist.dist_spgemm_or, (a, a, a),
+             {"mask": a}),
+            ("bench dist_spm_or(A, C)", dist.dist_spm_or, (a, c), {}),
+            ("bench dist_spgemm_from_local (rows from the .mtx)", local_product,
+             (path, a, a.n_rows), {})],
+    }
+    for S in GLOO_RANKS:
+        t0 = time.perf_counter()
+        runs = launch(dist_rank, S, calls[S], backend="gloo", device="cuda",
+                      timeout=DIST_TIMEOUT_S)
+        print(f"{S} ranks over gloo on one card: {time.perf_counter() - t0:.2f} s on the "
+              f"host clock, rank start included; {card}")
+        out[f"S={S} gloo"] = dist_report(runs, want, "gloo")
+    os.remove(path)
+    return out
+
+
+def launches_on(dist: dict, key: str) -> dict:
+    """``{"S=... backend": {label: [launches per rank]}}`` of one kernel."""
+    return {run: {label: row[key] for label, row in rows.items()}
+            for run, rows in dist.items()}
+
+
 def run_smoke() -> dict:
     import torch
 
@@ -2606,12 +2806,22 @@ def run_smoke() -> dict:
     op_launches.update({label: rec["launches"] for label, rec in cnt["products"].items()})
 
     phase("19. the device API, the one-sort pipeline and the graph ops")
+    op_results = ops.pop("results")
     gr = graph_phase(
         torch, f"on {smi}", api=api, reset_counts=reset_counts, read_counts=read_counts,
         routes=routes, k1_by_variant=k1_by_variant, bench=(a, c), main_launches=launches,
-        op_results=ops.pop("results"), count_results=cnt.pop("results"),
+        op_results=op_results, count_results=cnt.pop("results"),
         bench_symmetric=cnt.pop("bench_symmetric"))
     graph_launches = {label: rec["launches"] for label, rec in gr["products"].items()}
+
+    from binary_spgemm_tpu_torch import write_pattern
+    from binary_spgemm_tpu_torch.parallel import dist_spgemm as dist
+    from binary_spgemm_tpu_torch.parallel import dryrun
+    from binary_spgemm_tpu_torch.parallel.launch import launch
+
+    api.update(dist=dist, dryrun=dryrun, launch=launch, write_pattern=write_pattern)
+    dist_runs = dist_phases(torch, f"on {smi}", api=api, a=a, c=c, op_results=op_results)
+    del op_results
 
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
     # K1's wide kernel: its own path is the op family's A ∪ A·A (run_or), the
@@ -2640,7 +2850,8 @@ def run_smoke() -> dict:
                    for label, rec in (*ops["products"].items(), *cnt["products"].items())},
                 "graph": {label: {"launches": rec["launches"]["bitonic_sort_rows"],
                                   "by_variant": rec["k1_by_variant"]}
-                          for label, rec in gr["products"].items()}},
+                          for label, rec in gr["products"].items()},
+                "distributed (per rank)": launches_on(dist_runs, "k1")},
         },
         {
             "name": "bitonic_sort_rows (wide)", "route": "cuda", "source": src,
@@ -2695,7 +2906,8 @@ def run_smoke() -> dict:
                                  "rmat-s16": launches16["class_gather"],
                                  **{k: v["class_gather"] for k, v in op_launches.items()},
                                  "graph": {k: v["class_gather"]
-                                           for k, v in graph_launches.items()}},
+                                           for k, v in graph_launches.items()},
+                                 "distributed (per rank)": launches_on(dist_runs, "p3")},
             "on_path": {
                 "rmat-s18-e8": gather_row(gather_rmat, "p3", launches18["class_gather"],
                                           "rmat-s18-e8, one group"),
@@ -2727,7 +2939,8 @@ def run_smoke() -> dict:
                                  "random-32k": launches32["class_gather_keys"],
                                  **{k: v["class_gather_keys"] for k, v in op_launches.items()},
                                  "graph": {k: v["class_gather_keys"]
-                                           for k, v in graph_launches.items()}},
+                                           for k, v in graph_launches.items()},
+                                 "distributed (per rank)": launches_on(dist_runs, "p4")},
             "on_path": {
                 "bench": gather_row(gather_main, "p4", launches["class_gather_keys"],
                                     "bench config, one group"),
@@ -2769,8 +2982,9 @@ def run_smoke() -> dict:
             "on_main_path": False,
         },
     ]
-    phase("20. kernels")
-    paths = {"rmat-s16": times16, "rmat-s18-e8": times18, "random-32k": times32,
+    phase("22. kernels")
+    paths = {"distributed": {run: {label: row["s"] for label, row in rows.items()}
+                             for run, rows in dist_runs.items()},"rmat-s16": times16, "rmat-s18-e8": times18, "random-32k": times32,
              "esc": esc, "op_family": {k: ops[k] for k in ("times", "cummax_ms")},
              "counting": cnt["times"],
              "graph": {k: gr[k] for k in ("k_hop_s", "closure", "onesort_stream", "cli_s")}}

@@ -2,8 +2,9 @@
 ``graph``) against the JAX package's, on the CPU (``--device cpu``): the same
 commands on the same files write byte-equal output files and print the same
 lines, whatever engine or route the port takes; the error exits (code 2)
-are the JAX CLI's; ``--resident`` is the JAX CLI's ``graph --device``, and
-``bench`` / ``validate`` are not registered yet."""
+are the JAX CLI's; ``--resident`` is the JAX CLI's ``graph --device``;
+``validate`` over launched gloo ranks prints the JAX CLI's lines, and
+``bench`` is not registered yet."""
 import os
 import subprocess
 import sys
@@ -184,10 +185,32 @@ def test_parser_names():
     args = p.parse_args(["graph", "a.mtx", "closure"])
     assert args.device == "cuda" and args.resident is False and args.two_sort is False
     assert p.parse_args(["multiply", "a.mtx"]).device == "cuda"
-    for cmd in ("bench", "validate"):
-        with pytest.raises(SystemExit):
-            p.parse_args([cmd, "a.mtx"])
-    assert "bench and validate are not ported yet" in p.format_help()
+    args = p.parse_args(["validate", "a.mtx"])
+    assert (args.device, args.devices, args.balance, args.b_layout, args.engine,
+            args.oracle) == ("cuda", None, "flops", "replicated", "auto", False)
+    with pytest.raises(SystemExit):
+        p.parse_args(["bench", "a.mtx"])
+    assert "bench is not ported yet" in p.format_help()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--oracle", "--devices", "2", "--b-layout", "ring", "--balance", "rows"],
+    ["--devices", "1", "--engine", "ell", "--b-layout", "sharded"],
+])
+def test_validate_prints_the_jax_clis_lines(mtx, capsys, argv):
+    """``validate`` over 2 gloo ranks (and one process alone) prints the JAX
+    CLI's confirm line on the same file and flags."""
+    j, t = both(capsys, ["validate", mtx, *argv], ["validate", mtx, *argv, *CPU])
+    assert j == t == "Results of serial and multicore are the same!\n"
+
+
+def test_validate_defaults_to_the_card(mtx):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp_cli.main(["validate", mtx])
 
 
 def test_resident_route_defaults_to_the_card(mtx):

@@ -865,3 +865,86 @@ def test_graph_ops_on_the_card(cuda_device, no_host_engine):
     assert graph.k_truss(g, 3).equals(graph.k_truss(g, 3, device="cpu"))
     a = tp.BCSR.random(3000, 3000, 2.0, seed=10)
     assert np.array_equal(graph.bfs_levels(a, [0, 7]), graph.bfs_levels(a, [0, 7], device="cpu"))
+
+
+@pytest.mark.parametrize("L", [128, 129, 4096, 4097, 32768, 32769])
+@pytest.mark.parametrize("packable", [True, False])
+def test_sort_compress_2d_on_the_card_equals_the_cpu(cuda_device, L, packable):
+    """``sort_compress_2d`` on the card (K1 up to 32,768 slots where the
+    pair packs, ``torch.sort`` past it and for the int64 pair key) equals
+    the CPU's plain version on whole outputs."""
+    from binary_spgemm_tpu_torch.ops import spgemm as sp
+
+    n_rows, n_cols = (50, 300) if packable else (50, 1 << 26)
+    rng = np.random.default_rng(L)
+    row = torch.from_numpy(rng.integers(0, n_rows + 1, (3, L)).astype(np.int32))
+    col = torch.from_numpy(rng.integers(0, 64, (3, L)).astype(np.int32))
+    col[row == n_rows] = n_cols
+    k1 = bitonic.bitonic_sort_rows.launches
+    got = sp.sort_compress_2d(row.to(cuda_device), col.to(cuda_device), n_rows, n_cols)
+    want = sp.sort_compress_2d(row, col, n_rows, n_cols)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bitonic.bitonic_sort_rows.launches - k1 == (2 if packable and L <= 32768 else 0)
+
+
+def dist_cases(device):
+    from binary_spgemm_tpu_torch.parallel import dist_spgemm as dist
+
+    a = tp.BCSR.random(600, 600, 4.0, seed=21)
+    f = tp.BCSR.random(600, 600, 12.0, seed=22)
+    mod = "binary_spgemm_tpu_torch.parallel.dist_spgemm"
+    cases = [(f"{lay}-{eng}", mod, "dist_spgemm", (a, a),
+              {"b_layout": lay, "engine": eng, "device": device})
+             for lay in ("replicated", "sharded", "ring") for eng in ("esc", "ell")]
+    cases += [("masked", mod, "dist_masked_spgemm", (f, a, a), {"device": device}),
+              ("or", mod, "dist_spgemm_or", (f, a, a), {"device": device}),
+              ("or-masked", mod, "dist_spgemm_or", (f, a, a), {"mask": f, "device": device}),
+              ("spm-or", mod, "dist_spm_or", (a, f), {"device": device})]
+    return dist, a, f, [(*c, ()) for c in cases]
+
+
+def test_dist_ops_on_the_card_equal_the_cpu(cuda_device):
+    """The distributed ops in one process alone on the card: each equal to
+    the same call on the CPU and to scipy, the ELL steps gathering with
+    P3/P4 and sorting with K1 (rows of at most 32,768 slots here)."""
+    from binary_spgemm_tpu_torch.ops import gather
+    from binary_spgemm_tpu_torch.parallel.mesh import make_row_mesh
+    from binary_spgemm_tpu_torch.utils.oracle import masked_spgemm_oracle
+
+    import _torch_dist_cases
+
+    dist, a, f, cases = dist_cases("cuda")
+    card = _torch_dist_cases.run_cases(make_row_mesh(), cases)
+    cpu = _torch_dist_cases.run_cases(make_row_mesh(device="cpu"), dist_cases("cpu")[3])
+    prod = spgemm_oracle(a, a)
+    want = {"masked": masked_spgemm_oracle(f, a, a), "or": union_oracle(f, prod),
+            "or-masked": union_oracle(f, masked_spgemm_oracle(f, a, a)),
+            "spm-or": union_oracle(a, f)}
+    for name, res in card.items():
+        assert res["c"].equals(want.get(name, prod)), name
+        assert res["c"].equals(cpu[name]["c"]), name
+        for p, q in zip(res["steps"], cpu[name]["steps"]):
+            assert np.array_equal(p["c_ptr"], q["c_ptr"]) and p["total"] == q["total"]
+    k1, p3, p4 = (bitonic.bitonic_sort_rows.launches, gather.class_gather.launches,
+                  gather.class_gather_keys.launches)
+    dist.dist_spgemm(a, a, engine="ell")
+    assert bitonic.bitonic_sort_rows.launches > k1
+    assert gather.class_gather.launches + gather.class_gather_keys.launches > p3 + p4
+
+
+def test_dist_ranks_share_the_card(cuda_device):
+    """Two gloo ranks on the one card: every op on both ranks equal to the
+    same op in one process alone on the card."""
+    from binary_spgemm_tpu_torch.parallel.launch import launch
+    from binary_spgemm_tpu_torch.parallel.mesh import make_row_mesh
+
+    import _torch_dist_cases
+
+    cases = dist_cases("cuda")[3]
+    alone = _torch_dist_cases.run_cases(make_row_mesh(), cases)
+    res = launch(_torch_dist_cases.run_cases, 2, cases, backend="gloo", device="cuda",
+                 timeout=300)
+    for rank in res:
+        for name, got in rank.items():
+            assert got["c"].equals(alone[name]["c"]), name
