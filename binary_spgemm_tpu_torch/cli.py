@@ -53,7 +53,7 @@ def cmd_validate(args) -> int:
     ``--oracle``, the latter against scipy): the reference's ``make test``
     (SpGEMM_mpi_omp_validity)."""
     from .parallel import multihost
-    from .parallel.launch import default_backend, launch
+    from .parallel.launch import launch
     from .utils.oracle import spgemm_oracle
 
     a = _load(args.path, args.transpose)
@@ -80,7 +80,6 @@ def cmd_validate(args) -> int:
                                      args.balance, args.b_layout)]
         else:
             c_pars = launch(_validate_rank, n, a, args.balance, args.b_layout,
-                            backend=default_backend(n, args.device),
                             device=args.device, timeout=3600.0)
     c_ser = _single_device_spgemm(a, args)
     ok = all(c.equals(c_ser) for c in c_pars)

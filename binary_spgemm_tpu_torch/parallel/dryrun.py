@@ -3,7 +3,7 @@
     python -m binary_spgemm_tpu_torch.parallel.dryrun 4 [--device cpu]
 
 Counterpart of the JAX package's ``__graft_entry__.dryrun_multichip``, at
-its sizes (``scale`` = 8 gives its 8-device A of 128 x 128) in S ranks:
+its 8-device sizes (A of 128 x 128, the wide cases 4,800 rows) in S ranks:
 :func:`.dist_spgemm.dist_spgemm` over every B layout and engine, the masked,
 fused-OR (with and without a mask) and union ops, and the three ELL plan
 guards (the batched sub-chunk plan, a power-law A through it, and the
@@ -26,10 +26,12 @@ PATHS = tuple(
        "dist_spgemm[ell,rmat-batched-spmd]", "dist_spgemm[ell,skew-guard-fallback]"]
 )
 
+N = 128  # A, F and D are N x N
+WIDE_N = 4800  # rows of the wide-column cases
 WIDE_M = 1 << 24  # n_cols 2^24: a packed row cap of 32 rows a sub-chunk
 
 
-def dryrun_paths(mesh, scale: int = 8) -> list[tuple[str, bool]]:
+def dryrun_paths(mesh) -> list[tuple[str, bool]]:
     """Run every path of :data:`PATHS` on this rank (all ranks together);
     return ``[(path, bit-exact)]``."""
     from ..formats.bcsr import BCSR
@@ -45,10 +47,9 @@ def dryrun_paths(mesh, scale: int = 8) -> list[tuple[str, bool]]:
     )
     from .mesh import partition_rows
 
-    n = 16 * scale
-    a = BCSR.random(n, n, 2.0, seed=0)
-    f = BCSR.random(n, n, 3.0, seed=1)
-    d = BCSR.random(n, n, 1.0, seed=2)
+    a = BCSR.random(N, N, 2.0, seed=0)
+    f = BCSR.random(N, N, 3.0, seed=1)
+    d = BCSR.random(N, N, 1.0, seed=2)
     want = spgemm_oracle(a, a)
     want_masked = masked_spgemm_oracle(f, a, a)
     got = []
@@ -67,14 +68,14 @@ def dryrun_paths(mesh, scale: int = 8) -> list[tuple[str, bool]]:
         return _shard_ell_operands(x, y, mesh.size, bounds, rf, allow_batched=True)
 
     # (a) past 16 packed sub-chunks a shard: the batched [C, sort_pad] plan
-    wa = BCSR.random(600 * scale, 600 * scale, 2.0, seed=3)
-    wb = BCSR.random(600 * scale, WIDE_M, 2.0, seed=4)
+    wa = BCSR.random(WIDE_N, WIDE_N, 2.0, seed=3)
+    wb = BCSR.random(WIDE_N, WIDE_M, 2.0, seed=4)
     if not plan(wa, wb)[-1]:
         raise AssertionError("the wide-column case did not take the batched plan")
     got.append((dist_spgemm(wa, wb, mesh, engine="ell"), spgemm_oracle(wa, wb)))
     # (b) a power-law A through it, then (c) the skew guard lowered to below
     # that plan's resident slots: the unrolled re-plan
-    sa = BCSR.rmat(max((600 * scale - 1).bit_length(), 4), 2.0, seed=5)
+    sa = BCSR.rmat((WIDE_N - 1).bit_length(), 2.0, seed=5)
     sb = BCSR.random(sa.n_cols, WIDE_M, 2.0, seed=6)
     plan_s = plan(sa, sb)
     if not plan_s[-1]:
@@ -92,23 +93,21 @@ def dryrun_paths(mesh, scale: int = 8) -> list[tuple[str, bool]]:
     return [(name, c.equals(w)) for name, (c, w) in zip(PATHS, got)]
 
 
-def dryrun_multichip(n_ranks: int, *, device: str = "cuda", scale: int = 8) -> list[list]:
+def dryrun_multichip(n_ranks: int, *, device: str = "cuda") -> list[list]:
     """:func:`dryrun_paths` on ``n_ranks`` launched ranks (NCCL with a card
     a rank, else gloo); prints each path and raises ``AssertionError`` if
     any rank's result differs from scipy's.  Returns every rank's ``[(path,
     ok)]``."""
     from .launch import default_backend, launch
 
-    backend = default_backend(n_ranks, device)
-    res = launch(dryrun_paths, n_ranks, scale, backend=backend, device=device,
-                 timeout=600.0)
+    res = launch(dryrun_paths, n_ranks, device=device, timeout=600.0)
     bad = sorted({name for checks in res for name, ok in checks if not ok})
     for name in PATHS:
         print(f"  {name}: {'MISMATCH' if name in bad else 'OK'}")
     if bad:
         raise AssertionError(f"distributed mismatches: {bad}")
-    print(f"dryrun OK: {n_ranks} ranks ({backend}, {device}), A=({16 * scale}, "
-          f"{16 * scale}); {len(PATHS)} paths bit-exact on every rank")
+    print(f"dryrun OK: {n_ranks} ranks ({default_backend(n_ranks, device)}, "
+          f"{device}), A=({N}, {N}); {len(PATHS)} paths bit-exact on every rank")
     return res
 
 
@@ -116,9 +115,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="binary_spgemm_tpu_torch.parallel.dryrun")
     p.add_argument("ranks", type=int, nargs="?", default=4)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    p.add_argument("--scale", type=int, default=8)
     args = p.parse_args(argv)
-    dryrun_multichip(args.ranks, device=args.device, scale=args.scale)
+    dryrun_multichip(args.ranks, device=args.device)
     return 0
 
 

@@ -1,20 +1,23 @@
 """Start a local process group and run one function on each of its ranks.
 
     from binary_spgemm_tpu_torch.parallel.launch import launch
-    results = launch(fn, 4, a, b, backend="gloo", device="cpu", timeout=120)
+    results = launch(fn, 4, a, b, timeout=120)                # on the card
+    results = launch(fn, 4, a, b, device="cpu", timeout=120)  # on the host
 
-``fn(mesh, *args)`` must be a module-level function (ranks start
-by ``spawn`` and import it).  Each rank joins the group at
-``tcp://localhost:<free port>`` with the given backend, builds its
-:class:`.mesh.RowMesh` on ``device`` and calls ``fn``; the parent returns
-each rank's result in rank order.  If a rank raises, dies or the group
-outlives ``timeout`` seconds, every rank is killed and the parent raises
-with the rank's traceback: a failure is never swallowed.
+``fn(mesh, *args)`` must be a module-level function (ranks start by
+``spawn`` and import it).  Each rank joins the group at
+``tcp://localhost:<free port>`` over :func:`default_backend`'s choice,
+builds its :class:`.mesh.RowMesh` on ``device`` and calls ``fn``; the
+parent returns each rank's result in rank order.  If a rank raises, dies
+or the group outlives ``timeout`` seconds, every rank is killed and the
+parent raises with the rank's traceback: a failure is never swallowed.
 
 NCCL refuses two ranks on one card, so several ranks sharing a card run
 over gloo (its collectives then stage through the host, :mod:`.comm`);
-NCCL takes one rank a card.  On a card the kernels are built once in the
-parent before the ranks start, so the ranks load them instead of building.
+NCCL takes one rank a card.  ``device`` defaults to ``"cuda"`` and raises
+where there is no card: the CPU runs only when the caller asks for it.  On
+a card the kernels are built once in the parent before the ranks start,
+so the ranks load them instead of building.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..ops.spgemm import resolve_device
 from .mesh import make_row_mesh
 
 __all__ = ["default_backend", "launch"]
@@ -68,14 +72,17 @@ def _rank_main(fn, rank: int, size: int, port: int, backend: str, device: str,
         results.put((rank, False, traceback.format_exc()))
 
 
-def launch(fn, n_ranks: int, *args, backend: str = "gloo", device: str = "cpu",
+def launch(fn, n_ranks: int, *args, device: str | torch.device = "cuda",
            timeout: float = 600.0) -> list:
-    """Run ``fn(mesh, *args)`` on ``n_ranks`` spawned ranks of one
-    ``backend`` group on ``device`` (``"cuda"`` gives rank r card r modulo
-    the card count); return their results in rank order.  Raises
-    ``RuntimeError`` if a rank fails and ``TimeoutError`` past ``timeout``
-    seconds, after killing every rank."""
-    if torch.device(device).type == "cuda":
+    """Run ``fn(mesh, *args)`` on ``n_ranks`` spawned ranks of one group on
+    ``device`` (``"cuda"`` gives rank r card r modulo the card count, and
+    raises where there is no card), over :func:`default_backend`'s backend;
+    return their results in rank order.  Raises ``RuntimeError`` if a rank
+    fails and ``TimeoutError`` past ``timeout`` seconds, after killing every
+    rank."""
+    device = resolve_device(device)
+    backend = default_backend(n_ranks, device)
+    if device.type == "cuda":
         from .. import _build
 
         _build.build_all()

@@ -174,16 +174,23 @@ Phases, each reported on its own lines; any failure exits non-zero:
     run at once on the card;
 20. the distributed layer over NCCL, one rank (``parallel/launch.py``):
     the bench config through ``dist_spgemm`` at every B layout
-    (replicated, sharded, ring) and engine (ESC, ELL);
+    (replicated, sharded, ring) and engine (ESC, ELL), and the wide-column
+    product (``WIDE_COL``, 8192 x 2^24, d = 16) through the ELL engine;
 21. the distributed layer over gloo, ranks sharing the one card: the same
-    six products and the JAX dryrun's 14 ported paths (A = 128 x 128) in 4
-    ranks; ``dist_masked_spgemm(A, A, A)``, ``dist_spgemm_or(A, A, A)`` with
-    and without ``mask=A``, ``dist_spm_or(A, C)`` and
+    seven products and the JAX dryrun's 14 ported paths (A = 128 x 128) in
+    4 ranks; ``dist_masked_spgemm(A, A, A)``, ``dist_spgemm_or(A, A, A)``
+    with and without ``mask=A``, ``dist_spm_or(A, C)``,
     ``dist_spgemm_from_local`` (each rank reads its rows of the bench config
-    written as ``.mtx``) in 2 ranks.  Every rank's product must equal the
-    single-card one (phase 5's and phase 17's, by digest), every step it
+    written as ``.mtx``) and the wide-column product in 2 ranks.  Every
+    rank's product must equal the single-card one (phase 5's and phase
+    17's, by digest; scipy's for the wide-column one), every step it
     assembles must hold its tensors on the card, every ELL product must
-    launch P3 or P4 and the dryrun K1 too, on every rank; each rank prints
+    launch P3 or P4 and the dryrun K1 too, on every rank.  Each rank's
+    ``sort_rows`` routes and K1 launches by variant are held against the
+    plan the parent makes alike (``ell_sorts``): on the bench's ELL
+    products two ``torch.sort`` routes a stack (rows past K1's window), on
+    the wide-column product two launches of K1's wide kernel, on the ESC
+    and ring forms none; K1 launches equal its routes.  Each rank prints
     per call its host-clock wall, K1 launches by variant, P3/P4 launches,
     collective counters and peak device memory, K1's, P3's and P4's counts
     set to 0 just before the call and read just after.  A rank's failure
@@ -1742,6 +1749,10 @@ def graph_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
 DIST_PAIRS = [(lay, eng) for lay in ("replicated", "sharded", "ring") for eng in ("esc", "ell")]
 GLOO_RANKS = (2, 4)
 DIST_TIMEOUT_S = 600.0
+# the dryrun's wide-column product at d = 16: BCSR.random(n, n, d, seed) times
+# BCSR.random(n, 2^24, d, seed + 1); its plan's rows of 12,288 slots put
+# each rank's two sorts on K1's wide kernel (the bench's rows are past K1)
+WIDE_COL = (8192, 1 << 24, 16.0, 11)
 
 
 def digest(m) -> str:
@@ -1820,12 +1831,65 @@ def dist_rank(mesh, calls) -> list[dict]:
     return out
 
 
-def dist_report(runs: list[list[dict]], want: dict, backend: str) -> dict:
+def ell_sorts(api, x, y, S: int, *, b_layout: str = "replicated", bits: int = 0,
+              plain: bool = True) -> dict:
+    """What one rank's ELL step must read of ``sort_rows`` and K1, from the
+    plan every rank makes alike (made here in the parent): the rank's
+    sub-chunks form one ``[C, sort_pad]`` stack, sorted twice.  Keys that do
+    not pack (``bits`` the join's extra key bits) sort as int64 pairs,
+    outside ``sort_rows``; rows past K1's window take ``torch.sort``; else
+    K1, for the plain product (rows of exactly ``sort_pad`` slots) by the
+    variant ``k1_variant`` picks.  ``routes`` and ``k1_by_variant`` are
+    ``None`` where only their totals are known (a join's rows add the side
+    operands' slots to ``sort_pad``)."""
+    from binary_spgemm_tpu_torch.parallel.mesh import partition_rows
+
+    sp, bitonic, dist = api["spgemm_mod"], api["bitonic"], api["dist"]
+    rf = sp.row_flops(x, y)
+    plan = dist._shard_ell_operands(x, y, S, partition_rows(rf, S), rf, b_tables=b_layout,
+                                    extra_key_bits=bits, allow_batched=plain)
+    rows_pad, sort_pad = plan[5], plan[6]
+    zero = {v: 0 for v in bitonic.bitonic_sort_rows.launches_by_variant}
+    out = {"sort_pad": sort_pad, "C": plan[7].shape[1] - 1, "routes": None,
+           "k1_by_variant": None}
+    if not sp.packable(rows_pad, (y.n_cols << bits) + (1 << bits) - 1):
+        out.update(routes={"k1": 0, "torch_sort": 0}, k1_by_variant=zero)
+    elif sort_pad > bitonic.MAX_L:
+        out.update(routes={"k1": 0, "torch_sort": 2}, k1_by_variant=zero)
+    elif plain:
+        out.update(routes={"k1": 2, "torch_sort": 0},
+                   k1_by_variant={**zero, bitonic.k1_variant(sort_pad): 2})
+    return out
+
+
+def check_sorts(rec: dict, want: dict | None, where: str) -> None:
+    """Hold a rank's ``sort_rows`` routes and K1 launches against
+    :func:`ell_sorts` (``None``: a path that sorts outside ``sort_rows``).
+    Every K1 route must launch one kernel on the card."""
+    if want is None:
+        want = {"routes": {"k1": 0, "torch_sort": 0}, "k1_by_variant": None}
+    check(rec["k1"] == rec["routes"]["k1"],
+          f"{where}: K1 launched {rec['k1']} times for {rec['routes']['k1']} K1 routes")
+    if want["routes"] is None:
+        check(sum(rec["routes"].values()) == 2,
+              f"{where}: sort routes {rec['routes']}, not two sorts of one stack")
+    else:
+        check(rec["routes"] == want["routes"],
+              f"{where}: sort routes {rec['routes']}, the plan (sort_pad "
+              f"{want.get('sort_pad')}) gives {want['routes']}")
+    if want["k1_by_variant"] is not None:
+        check(rec["k1_by_variant"] == want["k1_by_variant"],
+              f"{where}: K1 by variant {rec['k1_by_variant']}, the plan (sort_pad "
+              f"{want.get('sort_pad')}) gives {want['k1_by_variant']}")
+
+
+def dist_report(runs: list[list[dict]], want: dict, backend: str, sorts: dict) -> dict:
     """Check and print every rank's readings of one launch; ``want`` maps a
     call's label to ``(digest, nnz, gathers)`` of the single-card product,
-    ``gathers`` whether the path is an ELL one (P3 or P4 must launch).
-    Returns ``{label: {"k1": [...], "p3": [...], "p4": [...], "s": [...]}}``
-    over the ranks."""
+    ``gathers`` whether the path is an ELL one (P3 or P4 must launch), and
+    ``sorts`` to its :func:`ell_sorts` (missing: no ``sort_rows`` call).
+    Returns ``{label: {"k1": [...], "k1_wide": [...], "p3": [...], "p4":
+    [...], "s": [...]}}`` over the ranks."""
     S = len(runs)
     by_label: dict = {}
     for r, recs in enumerate(runs):
@@ -1839,6 +1903,9 @@ def dist_report(runs: list[list[dict]], want: dict, backend: str) -> dict:
                 check(rec["k1"] > 0 and rec["p3"] + rec["p4"] > 0,
                       f"S={S} rank {r}: the dryrun launched K1 {rec['k1']}, P3 "
                       f"{rec['p3']}, P4 {rec['p4']}")
+                check(rec["k1"] == rec["routes"]["k1"],
+                      f"S={S} rank {r}: the dryrun launched K1 {rec['k1']} times for "
+                      f"{rec['routes']['k1']} K1 routes")
                 result = f"{len(rec['checks'])} paths bit-exact"
             else:
                 d, nnz, gathers = want[label]
@@ -1848,14 +1915,17 @@ def dist_report(runs: list[list[dict]], want: dict, backend: str) -> dict:
                 if gathers:
                     check(rec["p3"] + rec["p4"] > 0,
                           f"S={S} rank {r} {label}: no P3/P4 launch on an ELL path")
+                check_sorts(rec, sorts.get(label), f"S={S} rank {r} {label}")
                 result = f"nnz {rec['nnz']} bit-exact"
             print(f"  S={S} ({backend}) rank {r} {label}: {result}; {rec['s']:.3f} s on "
                   f"the host clock; K1 {rec['k1']} {rec['k1_by_variant']}, P3 {rec['p3']}, "
                   f"P4 {rec['p4']}, sort routes {rec['routes']}; comm {rec['comm']}; peak "
                   f"device memory {rec['peak_mib']:.1f} MiB")
-            row = by_label.setdefault(label, {"k1": [], "p3": [], "p4": [], "s": []})
+            row = by_label.setdefault(label, {"k1": [], "k1_wide": [], "p3": [], "p4": [],
+                                              "s": []})
             for key in ("k1", "p3", "p4", "s"):
                 row[key].append(rec[key])
+            row["k1_wide"].append(rec["k1_by_variant"]["wide"])
     return by_label
 
 
@@ -1866,17 +1936,41 @@ def dist_phases(torch, card: str, *, api, a, c, op_results) -> dict:
     dist, dryrun, launch = api["dist"], api["dryrun"], api["launch"]
     want = {f"bench dist_spgemm[{lay},{eng}]": (digest(c), c.nnz, eng == "ell")
             for lay, eng in DIST_PAIRS}
+    n_w, m_w, d_w, seed_w = WIDE_COL
+    wa = api["BCSR"].random(n_w, n_w, d_w, seed=seed_w)
+    wb = api["BCSR"].random(n_w, m_w, d_w, seed=seed_w + 1)
+    wide_label = f"wide-column dist_spgemm[replicated,ell] ({n_w} x 2^{m_w.bit_length() - 1})"
+    wc = api["spgemm_oracle"](wa, wb)
+    want[wide_label] = (digest(wc), wc.nnz, True)
+    wide_call = (wide_label, dist.dist_spgemm, (wa, wb), {"engine": "ell"})
     spgemm_calls = [(f"bench dist_spgemm[{lay},{eng}]", dist.dist_spgemm, (a, a),
                      {"b_layout": lay, "engine": eng}) for lay, eng in DIST_PAIRS]
+
+    def plans(S: int) -> dict:
+        """:func:`ell_sorts` of every ELL call this phase makes at ``S``."""
+        got = {f"bench dist_spgemm[{lay},ell]": ell_sorts(api, a, a, S, b_layout=lay)
+               for lay in ("replicated", "sharded")}
+        got[wide_label] = ell_sorts(api, wa, wb, S)
+        if S == 2:
+            for label, bits in (("bench dist_masked_spgemm(A, A, A)", 1),
+                                ("bench dist_spgemm_or(A, A, A)", 0),
+                                ("bench dist_spgemm_or(A, A, A, mask=A)", 2)):
+                got[label] = ell_sorts(api, a, a, S, bits=bits, plain=False)
+        for label, p in got.items():
+            print(f"  plan at S={S}, {label}: C {p['C']}, sort_pad {p['sort_pad']}; "
+                  f"per rank sort routes {p['routes'] or 'two'}, K1 "
+                  f"{p['k1_by_variant'] or 'as routed'}")
+        return got
+
     out = {}
 
     phase("20. the distributed layer over NCCL: one rank")
     t0 = time.perf_counter()
-    runs = launch(dist_rank, 1, spgemm_calls, backend="nccl", device="cuda",
+    runs = launch(dist_rank, 1, spgemm_calls + [wide_call], device="cuda",
                   timeout=DIST_TIMEOUT_S)
     print(f"1 rank over NCCL: {time.perf_counter() - t0:.2f} s on the host clock, "
           f"rank start included; {card}")
-    out["S=1 nccl"] = dist_report(runs, want, "nccl")
+    out["S=1 nccl"] = dist_report(runs, want, "nccl", plans(1))
 
     phase("21. the distributed layer over gloo: 2 and 4 ranks on one card")
     print("ranks share the one card, so these walls are not a scaling curve")
@@ -1892,23 +1986,22 @@ def dist_phases(torch, card: str, *, api, a, c, op_results) -> dict:
         want[label] = (digest(op_results[key]), op_results[key].nnz, gathers)
     want["bench dist_spgemm_from_local (rows from the .mtx)"] = (digest(c), c.nnz, False)
     calls = {
-        4: spgemm_calls + [("dryrun (14 paths, A = 128 x 128)", dryrun.dryrun_paths, (),
-                            {})],
+        4: spgemm_calls + [wide_call, ("dryrun (14 paths, A = 128 x 128)",
+                                       dryrun.dryrun_paths, (), {})],
         2: [("bench dist_masked_spgemm(A, A, A)", dist.dist_masked_spgemm, (a, a, a), {}),
             ("bench dist_spgemm_or(A, A, A)", dist.dist_spgemm_or, (a, a, a), {}),
             ("bench dist_spgemm_or(A, A, A, mask=A)", dist.dist_spgemm_or, (a, a, a),
              {"mask": a}),
             ("bench dist_spm_or(A, C)", dist.dist_spm_or, (a, c), {}),
             ("bench dist_spgemm_from_local (rows from the .mtx)", local_product,
-             (path, a, a.n_rows), {})],
+             (path, a, a.n_rows), {}), wide_call],
     }
     for S in GLOO_RANKS:
         t0 = time.perf_counter()
-        runs = launch(dist_rank, S, calls[S], backend="gloo", device="cuda",
-                      timeout=DIST_TIMEOUT_S)
+        runs = launch(dist_rank, S, calls[S], device="cuda", timeout=DIST_TIMEOUT_S)
         print(f"{S} ranks over gloo on one card: {time.perf_counter() - t0:.2f} s on the "
               f"host clock, rank start included; {card}")
-        out[f"S={S} gloo"] = dist_report(runs, want, "gloo")
+        out[f"S={S} gloo"] = dist_report(runs, want, "gloo", plans(S))
     os.remove(path)
     return out
 
@@ -2819,7 +2912,8 @@ def run_smoke() -> dict:
     from binary_spgemm_tpu_torch.parallel import dryrun
     from binary_spgemm_tpu_torch.parallel.launch import launch
 
-    api.update(dist=dist, dryrun=dryrun, launch=launch, write_pattern=write_pattern)
+    api.update(dist=dist, dryrun=dryrun, launch=launch, write_pattern=write_pattern,
+               spgemm_oracle=spgemm_oracle)
     dist_runs = dist_phases(torch, f"on {smi}", api=api, a=a, c=c, op_results=op_results)
     del op_results
 
@@ -2864,9 +2958,10 @@ def run_smoke() -> dict:
                                                "block")},
             "on_main_path": False, "variant": "wide", "on_path": wide_rows,
             "launches_by_path": {
-                label: rec["k1_by_variant"]["wide"]
-                for label, rec in (*ops["products"].items(), *cnt["products"].items(),
-                                   *gr["products"].items())},
+                **{label: rec["k1_by_variant"]["wide"]
+                   for label, rec in (*ops["products"].items(), *cnt["products"].items(),
+                                      *gr["products"].items())},
+                "distributed (per rank)": launches_on(dist_runs, "k1_wide")},
         },
         {
             "name": "fused_sort_compress", "route": "cuda", "source": src,

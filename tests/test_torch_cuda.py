@@ -943,8 +943,7 @@ def test_dist_ranks_share_the_card(cuda_device):
 
     cases = dist_cases("cuda")[3]
     alone = _torch_dist_cases.run_cases(make_row_mesh(), cases)
-    res = launch(_torch_dist_cases.run_cases, 2, cases, backend="gloo", device="cuda",
-                 timeout=300)
+    res = launch(_torch_dist_cases.run_cases, 2, cases, device="cuda", timeout=300)
     for rank in res:
         for name, got in rank.items():
             assert got["c"].equals(alone[name]["c"]), name

@@ -69,7 +69,8 @@ def written(tmp_path_factory):
 @pytest.fixture(scope="module")
 def ranks(written):
     path, ja = written
-    return launch(_torch_dist_cases.from_local, S, path, to_port(ja), N, timeout=120)
+    return launch(_torch_dist_cases.from_local, S, path, to_port(ja), N, device="cpu",
+                  timeout=120)
 
 
 def jax_from_local(ja, bounds):

@@ -222,7 +222,8 @@ def ranks():
 
     def get(S):
         if S not in cache:
-            cache[S] = launch(_torch_dist_cases.run_cases, S, port_cases(S), timeout=300)
+            cache[S] = launch(_torch_dist_cases.run_cases, S, port_cases(S),
+                             device="cpu", timeout=300)
         return cache[S]
 
     return get
@@ -528,12 +529,12 @@ def test_pointer_fix_wraps_as_int32():
 
 def test_launcher_surfaces_a_failed_rank():
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
-        launch(_torch_dist_cases.raise_on_rank, 2, 1, timeout=60)
+        launch(_torch_dist_cases.raise_on_rank, 2, 1, device="cpu", timeout=60)
 
 
 def test_launcher_kills_a_hung_group():
     with pytest.raises(TimeoutError, match="ran past"):
-        launch(_torch_dist_cases.sleep_forever, 2, timeout=3)
+        launch(_torch_dist_cases.sleep_forever, 2, device="cpu", timeout=3)
 
 
 def test_collectives_and_counters():
@@ -541,7 +542,7 @@ def test_collectives_and_counters():
     ring step in rank order, their calls and bytes counted, nothing staged
     on the CPU (gloo moves host tensors)."""
     S = 3
-    facts = launch(_torch_dist_cases.mesh_facts, S, timeout=120)
+    facts = launch(_torch_dist_cases.mesh_facts, S, device="cpu", timeout=120)
     bounds = partition_rows(np.ones(100), S)
     for r, f in enumerate(facts):
         assert (f["rank"], f["size"], f["backend"], f["global"]) == (r, S, "gloo", (r, S))

@@ -291,18 +291,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_entry_points_default_to_cuda():
     from binary_spgemm_tpu_torch.ops import bsr as tp_bsr
     from binary_spgemm_tpu_torch.parallel import dist_spgemm as tp_dist
+    from binary_spgemm_tpu_torch.parallel import dryrun as tp_dryrun
+    from binary_spgemm_tpu_torch.parallel import launch as tp_launch
     from binary_spgemm_tpu_torch.parallel import mesh as tp_mesh
     from binary_spgemm_tpu_torch.parallel import multihost as tp_mh
 
     dist_entries = (tp_dist.dist_spgemm, tp_dist.dist_masked_spgemm,
                     tp_dist.dist_spgemm_or, tp_dist.dist_spm_or, tp_mesh.make_row_mesh,
-                    tp_mh.dist_spgemm_from_local, tp_mh.global_row_mesh)
+                    tp_mh.dist_spgemm_from_local, tp_mh.global_row_mesh,
+                    tp_launch.launch, tp_dryrun.dryrun_multichip)
     for fn in (tp.spgemm, tp.auto_executor, tp.EllSpGEMMExecutor,
                tp.ell_spgemm, tp_ell.cached_executor, tp.bsr_spgemm, tp_bsr.BsrExecutor,
                tp_bsr.BsrStagedExecutor, tp_bsr.maybe_bsr_executor,
                tp_sp.blocked_route, tp.SpGEMMExecutor, tp.tuned_executor,
                *dist_entries):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    # the backend follows from the rank count and the device: no knob
+    assert "backend" not in inspect.signature(tp_launch.launch).parameters
     d = tp.BCSR.random(64, 64, 2.0, seed=4)
     if torch.cuda.is_available():
         assert tp_mesh.make_row_mesh().device.type == "cuda"
@@ -311,7 +316,9 @@ def test_entry_points_default_to_cuda():
                       lambda: tp_dist.dist_masked_spgemm(d, d, d),
                       lambda: tp_dist.dist_spgemm_or(d, d, d),
                       lambda: tp_dist.dist_spm_or(d, d),
-                      lambda: tp_mh.dist_spgemm_from_local(d, [0, 64], d)):
+                      lambda: tp_mh.dist_spgemm_from_local(d, [0, 64], d),
+                      lambda: tp_launch.launch(tp_dryrun.dryrun_paths, 2),
+                      lambda: tp_dryrun.dryrun_multichip(2)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 build()
     a = tp.BCSR.random(1 << 16, 1 << 16, 1.0, seed=1)
