@@ -52,7 +52,10 @@ package.  Ported so far:
   ``clustering_coefficients`` and ``k_truss``;
 * the row-partitioned distributed layer on ``torch.distributed``
   (``parallel/``): ``dist_spgemm`` over every B layout and engine, the
-  masked, fused-OR and union ops, the sharded ingest
+  masked, fused-OR and union ops, the counting family
+  (``dist_spgemm_counts``, ``dist_masked_spgemm_counts``) and
+  ``dist_triangle_count``, the one-sort ``dist_transitive_closure`` and
+  ``dist_k_hop`` (``parallel/dist_onesort.py``), the sharded ingest
   (``multihost.dist_spgemm_from_local``), and ``launch`` for a local group;
 * the CLI's ``gen``, ``multiply``, ``graph`` and ``validate`` commands
   (``python -m binary_spgemm_tpu_torch.cli``).

@@ -13,7 +13,8 @@ device (``cuda`` unless told otherwise), and ``graph --resident`` is the JAX
 CLI's ``graph --device`` (keep the iterated products' matrices on the
 device).  ``validate --devices N`` starts N ranks on this machine
 (:mod:`.parallel.launch`: NCCL with a card a rank, else gloo); under
-``torchrun`` it joins the group that exists.  ``bench`` is not ported yet.
+``torchrun`` it starts the group by the same rule, over the ranks on its
+machine (``LOCAL_WORLD_SIZE``).  ``bench`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -52,13 +53,16 @@ def cmd_validate(args) -> int:
     """C = A·A over the ranks against the one-device product (and, with
     ``--oracle``, the latter against scipy): the reference's ``make test``
     (SpGEMM_mpi_omp_validity)."""
+    from .ops.spgemm import resolve_device
     from .parallel import multihost
-    from .parallel.launch import launch
+    from .parallel.launch import launch, torchrun_backend
     from .utils.oracle import spgemm_oracle
 
     a = _load(args.path, args.transpose)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # under torchrun
-        multihost.initialize(backend="nccl" if args.device == "cuda" else "gloo")
+        resolve_device(args.device)  # --device cuda without a card raises
+        # NCCL only where each of this machine's ranks has a card of its own
+        multihost.initialize(backend=torchrun_backend(args.device))
         mesh = multihost.global_row_mesh(args.device)
         if args.devices is not None and args.devices != mesh.size:
             print(f"--devices {args.devices} != the group's {mesh.size} ranks",
@@ -67,8 +71,6 @@ def cmd_validate(args) -> int:
         c_pars = [_validate_rank(mesh, a, args.balance, args.b_layout)]
     else:
         import torch
-
-        from .ops.spgemm import resolve_device
 
         n = args.devices
         if n is None:

@@ -6,7 +6,11 @@ The JAX package's collectives inside ``shard_map`` map one to one:
 JAX (``parallel/dist_spgemm``)  here
 ==============================  ===========================================
 ``lax.all_gather``              :func:`all_gather` into ``[S, ...]``
-``lax.psum`` of the counts      the sum of the gathered counts
+``lax.psum`` of the nnz         the sum of the gathered per-chunk counts
+                                (the same gather gives the offsets)
+``lax.psum`` of a count or a    :func:`all_reduce_sum`, one int64
+sum (triangles, the closure's   all-reduce (JAX's two int32 limbs, ``(hi
+valid count)                    << 15) + lo``, become one int64)
 ``lax.ppermute`` (cyclic)       :class:`RingShift`: ``batch_isend_irecv`` to
                                 rank + 1 and from rank - 1
 ``lax.axis_index``              ``mesh.rank``
@@ -27,7 +31,8 @@ import torch.distributed as dist
 
 from .mesh import RowMesh
 
-__all__ = ["RingShift", "all_gather", "all_gather_host", "counters", "reset_counters"]
+__all__ = ["RingShift", "all_gather", "all_gather_host", "all_reduce_sum", "counters",
+           "reset_counters"]
 
 # this process's (this rank's) totals; callers read and reset them around a
 # region they measure
@@ -78,6 +83,21 @@ def all_gather_host(x: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
     if mesh.backend == "nccl":
         return _to(all_gather(x, mesh), torch.device("cpu"))
     return all_gather(_to(x, torch.device("cpu")), mesh)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
+    """The element-wise sum of every rank's int64 ``x`` (one shape on all
+    ranks), on ``x``'s device: on the card under NCCL, through the host
+    under gloo.  A mesh without a group returns ``x``."""
+    if x.dtype != torch.int64:
+        raise TypeError(f"all_reduce_sum takes int64, got {x.dtype}")
+    if mesh.group is None:
+        return x
+    src = _to(x.contiguous(), _backend_device(mesh))
+    out = src.clone() if src is x else src
+    _sent(out)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+    return _to(out, x.device)
 
 
 class RingShift:

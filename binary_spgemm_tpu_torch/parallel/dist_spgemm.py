@@ -1,9 +1,10 @@
 """Row-partitioned boolean SpGEMM over a ``torch.distributed`` group.
 
-Counterpart of ``binary_spgemm_tpu/parallel/dist_spgemm.py``'s products and
-op family.  Each rank is one shard of the JAX package's row mesh: the
-``shard_fn`` of every ``shard_map`` becomes a function each rank runs on its
-own slice, and the collectives go through :mod:`.comm`.
+Counterpart of ``binary_spgemm_tpu/parallel/dist_spgemm.py``: the products,
+the op family, and the counting family with the triangle count.  Each rank
+is one shard of the JAX package's row mesh: the ``shard_fn`` of every
+``shard_map`` becomes a function each rank runs on its own slice, and the
+collectives go through :mod:`.comm`.
 
 ========================================  =================================
 reference (MPI) / JAX (shard_map)         here (one rank a shard)
@@ -14,11 +15,17 @@ inputs replicated, every rank reads       every rank stages alike in numpy
 the whole file (final:309)                and uploads only its own slice
 ``MPI_Reduce`` / ``psum`` of nnz          one ``all_gather`` of the
 ``MPI_Gather`` / ``all_gather`` counts    per-chunk counts gives both
+``psum`` of the triangles' two int32      :func:`.comm.all_reduce_sum` of
+limbs ``(hi, lo)``                        one int64 a rank
 ``ppermute`` ring over B shards           :class:`.comm.RingShift`, step
                                           t + 1's transfer started before
                                           step t's expansion
 host assembly / ``process_allgather``     every rank gathers the valid
                                           prefixes and holds the full C
+the counts stack beside the indices       :attr:`Step.cnt`, gathered with
+(``_two_level_ptr_fix_counts``,           the same valid-prefix compaction
+``c_cnt=`` of the assembly)               as the indices; the assembly
+                                          returns ``(BCSR, counts)``
 ========================================  =================================
 
 Host staging (:func:`shard_operands`, :func:`_shard_ell_operands` and the
@@ -32,7 +39,9 @@ counts.  :func:`_assemble` turns that into the full ``BCSR`` on every
 rank.  The ELL steps stack a rank's sub-chunk streams as one ``[C,
 sort_pad]`` array: P4 (packed keys) or P3 (pairs) gathers the class rows
 in one launch, and :func:`..ops.spgemm.sort_compress_2d_keys` (K1 through
-``sort_rows``) or the int64 pair sort compacts every sub-chunk at once.
+``sort_rows``) or the int64 pair sort compacts every sub-chunk at once; the
+counting steps run :mod:`..ops.counts`' compressions and joins on the same
+stack.
 """
 from __future__ import annotations
 
@@ -42,8 +51,19 @@ import numpy as np
 import torch
 
 from ..formats.bcsr import BCSR
+from ..ops.counts import (
+    _counts_compress,
+    _empty_counts,
+    _masked_counts,
+    _masked_counts_sum,
+    _triangles,
+    masked_counts_compress,
+    masked_counts_sum,
+    sort_compress_counts,
+)
 from ..ops.spgemm import (
     INT,
+    _indptr,
     _upload,
     compact_chunks,
     expand_pairs,
@@ -63,9 +83,15 @@ __all__ = [
     "ShardedOperands",
     "Step",
     "dist_masked_spgemm",
+    "dist_masked_spgemm_counts",
+    "dist_masked_spgemm_counts_ell",
+    "dist_masked_spgemm_counts_sharded",
     "dist_masked_spgemm_ell",
     "dist_masked_spgemm_sharded",
     "dist_spgemm",
+    "dist_spgemm_counts",
+    "dist_spgemm_counts_ell",
+    "dist_spgemm_counts_sharded",
     "dist_spgemm_ell",
     "dist_spgemm_or",
     "dist_spgemm_or_ell",
@@ -76,6 +102,9 @@ __all__ = [
     "dist_spgemm_sharded_b",
     "dist_spm_or",
     "dist_spm_or_sharded",
+    "dist_triangle_count",
+    "dist_triangle_sum_ell",
+    "dist_triangle_sum_sharded",
     "ring_step_pad",
     "shard_b_operands",
     "shard_operands",
@@ -491,12 +520,16 @@ class Step:
     2^31 as the JAX package's do), ``c_idx [C, P]`` whose rows hold each
     sub-chunk's valid indices in a prefix, ``nnz [C]`` the valid counts and
     ``counts`` every rank's ``nnz`` (host, ``[S, C]`` int64).  The
-    single-chunk steps have C = 1."""
+    single-chunk steps have C = 1.  The counting steps carry ``cnt [C,
+    P]``, each entry's multiplicity (int32) laid out as ``c_idx``: a
+    payload the pointer fix leaves as it is (JAX's
+    ``_two_level_ptr_fix_counts``)."""
 
     c_ptr: torch.Tensor
     c_idx: torch.Tensor
     nnz: torch.Tensor
     counts: np.ndarray
+    cnt: torch.Tensor | None = None
 
     @property
     def total(self) -> int:
@@ -504,22 +537,24 @@ class Step:
 
 
 def _ptr_fix(ptr: torch.Tensor, idx: torch.Tensor, nnz: torch.Tensor,
-             mesh: RowMesh) -> Step:
+             mesh: RowMesh, cnt: torch.Tensor | None = None) -> Step:
     """The two-level pointer fix: each sub-chunk's offset within the rank
     plus the rank's offset over the group, from one gather of every rank's
     counts (≡ the reference's MPI_Reduce + MPI_Gather + displacement scan,
     final/SpGEMM_mpi_omp.c:178-196, and its intra-rank stitch :134-141).
-    ``ptr [C, rows+1]``, ``idx [C, P]``, ``nnz [C]``."""
+    ``ptr [C, rows+1]``, ``idx [C, P]``, ``nnz [C]``; ``cnt`` (``[C, P]``,
+    the counting steps) rides along unfixed."""
     counts = comm.all_gather_host(nnz.to(torch.int64), mesh).numpy()
     local = np.cumsum(counts[mesh.rank]) - counts[mesh.rank]
     off = torch.from_numpy(local + int(counts[: mesh.rank].sum())).to(ptr.device)
     fixed = (ptr.to(torch.int64) + off[:, None]).to(INT)  # int32 wrap, as JAX's
-    return Step(fixed, idx, nnz, counts)
+    return Step(fixed, idx, nnz, counts, cnt)
 
 
-def _one(c_ptr, c_idx, nnz_c, mesh: RowMesh) -> Step:
+def _one(c_ptr, c_idx, nnz_c, mesh: RowMesh, cnt=None) -> Step:
     """:func:`_ptr_fix` of a single-chunk product (≡ ``_assembly_epilogue``)."""
-    return _ptr_fix(c_ptr[None], c_idx[None], nnz_c.reshape(1), mesh)
+    return _ptr_fix(c_ptr[None], c_idx[None], nnz_c.reshape(1), mesh,
+                    None if cnt is None else cnt[None])
 
 
 def dist_spgemm_sharded(a_ptr, a_idx, a_nnz: int, b_ptr, b_idx, *, mesh: RowMesh,
@@ -778,28 +813,161 @@ def dist_spgemm_or_ell(tables, entry_rows, entry_pos, d_ptr, d_idx, f_ptr=None,
 
 
 # ---------------------------------------------------------------------------
+# The counting steps: multiplicities, and the triangles' wedge sum
+# ---------------------------------------------------------------------------
+
+
+def _group_sum(sums: torch.Tensor, mesh: RowMesh) -> int:
+    """The group's total of every rank's int32 sums: each widened to int64
+    and added on the rank, then one all-reduce.  JAX splits each sum into
+    two int32 limbs for its ``psum`` (no int64 there); the total is its
+    ``(hi << 15) + lo``."""
+    local = sums.to(torch.int64).sum().reshape(1)
+    return int(comm.all_reduce_sum(local, mesh)[0])
+
+
+def dist_spgemm_counts_sharded(a_ptr, a_idx, a_nnz: int, b_ptr, b_idx, *,
+                               mesh: RowMesh, n_cols: int, flops_pad: int) -> Step:
+    """This rank's ESC counting product: the expansion, then
+    :func:`..ops.counts.sort_compress_counts`; each entry's multiplicity is
+    the step's counts payload."""
+    row, col = expand_pairs(a_ptr, a_idx, a_nnz, b_ptr, b_idx, n_cols=n_cols,
+                            flops_pad=flops_pad, check_total=False)
+    c_ptr, c_idx, c_cnt, nnz = sort_compress_counts(row, col, a_ptr.shape[0] - 1, n_cols)
+    return _one(c_ptr, c_idx, nnz, mesh, c_cnt)
+
+
+def dist_masked_spgemm_counts_sharded(a_ptr, a_idx, a_nnz: int, f_ptr, f_idx, b_ptr,
+                                      b_idx, *, mesh: RowMesh, n_cols: int,
+                                      flops_pad: int) -> Step:
+    """This rank's masked ESC counting product C = F .* (A·B): the
+    expansion, then :func:`..ops.counts.masked_counts_compress` (F
+    row-sharded with A).  A rank keeps at most its mask entries, so the
+    indices and counts are cut to the mask pad, as JAX's are."""
+    row, col = expand_pairs(a_ptr, a_idx, a_nnz, b_ptr, b_idx, n_cols=n_cols,
+                            flops_pad=flops_pad, check_total=False)
+    f_pad = f_idx.shape[0]
+    c_ptr, c_idx, c_cnt, nnz = masked_counts_compress(
+        row, col, f_ptr, f_idx, f_ptr[-1], a_ptr.shape[0] - 1, n_cols)
+    return _one(c_ptr, c_idx[:f_pad], nnz, mesh, c_cnt[:f_pad])
+
+
+def dist_triangle_sum_sharded(a_ptr, a_idx, a_nnz: int, f_ptr, f_idx, b_ptr, b_idx, *,
+                              mesh: RowMesh, n_cols: int, flops_pad: int) -> int:
+    """The group's wedge sum Σ_{(i,j)∈F} mult((A·B)[i,j]), this rank's part
+    by the ESC expansion and the tagged counting join
+    (:func:`..ops.counts.masked_counts_sum`); every rank returns the total
+    (:func:`_group_sum`)."""
+    row, col = expand_pairs(a_ptr, a_idx, a_nnz, b_ptr, b_idx, n_cols=n_cols,
+                            flops_pad=flops_pad, check_total=False)
+    s = masked_counts_sum(row, col, f_ptr, f_idx, f_ptr[-1], a_ptr.shape[0] - 1, n_cols)
+    return _group_sum(s, mesh)
+
+
+def _join_stream(tables, entry_rows, entry_pos, *, rows_pad: int, n_cols: int, **kw):
+    """A rank's ``[C, sort_pad]`` stream for a tagged counting join: the
+    plain keys ``(row << bl) | col`` (P4) where the join's key, one bit
+    wider, packs; else pairs (P3).  Returns ``(row, col, key)``, ``key``
+    ``None`` for pairs and ``row``/``col`` ``None`` for keys."""
+    kw.update(rows_pad=rows_pad, n_cols=n_cols)
+    if packable(rows_pad, 2 * n_cols + 1):
+        return None, None, _ell_stream(tables, entry_rows, entry_pos,
+                                       shift=n_cols.bit_length(), **kw)
+    row, col = _ell_stream(tables, entry_rows, entry_pos, **kw)
+    return row, col, None
+
+
+def dist_spgemm_counts_ell(tables, entry_rows, entry_pos, *, mesh: RowMesh,
+                           rows_pad: int, n_cols: int, widths: tuple[int, ...],
+                           pads: tuple[int, ...], sort_pad: int) -> Step:
+    """This rank's counting product with the sliced-ELL expansion: the
+    sub-chunked plan of :func:`dist_spgemm_ell` with the counts compression
+    (:func:`..ops.counts.sort_compress_counts`) in place of the plain one,
+    every sub-chunk along the last axis at once (packed keys from P4 where
+    they pack, the key sort through ``sort_rows``; else P3 pairs and an
+    int64 key).  Row c of the step is JAX's sub-chunk c."""
+    kw = dict(widths=widths, pads=pads, sort_pad=sort_pad, rows_pad=rows_pad,
+              n_cols=n_cols)
+    if packable(rows_pad, n_cols):
+        key = _ell_stream(tables, entry_rows, entry_pos, shift=n_cols.bit_length(), **kw)
+        rows, cols, cnt, nnz = _counts_compress(None, None, rows_pad, n_cols, key=key)
+    else:
+        rows, cols, cnt, nnz = _counts_compress(
+            *_ell_stream(tables, entry_rows, entry_pos, **kw), rows_pad, n_cols)
+    return _ptr_fix(_indptr(rows, rows_pad), cols, nnz, mesh, cnt)
+
+
+def dist_masked_spgemm_counts_ell(tables, entry_rows, entry_pos, f_ptr, f_idx, *,
+                                  mesh: RowMesh, rows_pad: int, n_cols: int,
+                                  widths: tuple[int, ...], pads: tuple[int, ...],
+                                  sort_pad: int) -> Step:
+    """This rank's masked counting product with the sliced-ELL expansion
+    (per-edge common-neighbour counts when F = A = B): the counts
+    compression, then the tagged join with the sub-chunks' mask pairs
+    (:func:`..ops.counts._masked_counts`), every sub-chunk at once; indices
+    and counts cut to the mask pad.  ``f_ptr [C, rows_pad+1]``, ``f_idx
+    [C, f_pad]`` chunk-local."""
+    from ..ops.ell import _staged_pairs_2d
+
+    row, col, key = _join_stream(tables, entry_rows, entry_pos, widths=widths, pads=pads,
+                                 sort_pad=sort_pad, rows_pad=rows_pad, n_cols=n_cols)
+    f_row, f_col = _staged_pairs_2d(f_ptr, f_idx, rows_pad, n_cols)
+    cols, rows, cnt, nnz = _masked_counts(row, col, f_row, f_col, rows_pad, n_cols,
+                                          seps=False, key=key)
+    f_pad = f_idx.shape[-1]
+    return _ptr_fix(_indptr(rows, rows_pad), cols[:, :f_pad], nnz, mesh,
+                    cnt[:, :f_pad])
+
+
+def dist_triangle_sum_ell(tables, entry_rows, entry_pos, f_ptr, f_idx, *,
+                          mesh: RowMesh, rows_pad: int, n_cols: int,
+                          widths: tuple[int, ...], pads: tuple[int, ...],
+                          sort_pad: int) -> int:
+    """The group's wedge sum with the sliced-ELL expansion: the sub-chunked
+    plan of :func:`dist_spgemm_ell` feeding the tagged counting join
+    (:func:`..ops.counts._masked_counts_sum`, one int32 a sub-chunk), the
+    ELL form of :func:`dist_triangle_sum_sharded`; every rank returns the
+    total."""
+    from ..ops.ell import _staged_pairs_2d
+
+    row, col, key = _join_stream(tables, entry_rows, entry_pos, widths=widths, pads=pads,
+                                 sort_pad=sort_pad, rows_pad=rows_pad, n_cols=n_cols)
+    f_row, f_col = _staged_pairs_2d(f_ptr, f_idx, rows_pad, n_cols)
+    return _group_sum(_masked_counts_sum(row, col, f_row, f_col, rows_pad, n_cols, key=key),
+                      mesh)
+
+
+# ---------------------------------------------------------------------------
 # Assembly: the full result on every rank
 # ---------------------------------------------------------------------------
 
 
-def _assemble(step: Step, sub_bounds: np.ndarray, shape, mesh: RowMesh) -> BCSR:
+def _assemble(step: Step, sub_bounds: np.ndarray, shape, mesh: RowMesh):
     """Every rank's product gathered into the full ``BCSR`` on every rank
     (the reference's gather-to-root, final/SpGEMM_mpi_omp.c:203-223, made
     symmetric).  Each rank sends only its sub-chunks' valid indices,
     compacted on its device, padded to the longest rank's; the row pointers
     are rebuilt on the host from sub-chunk-local differences of the
     gathered int32 pointers (exact mod 2^32) plus int64 bases, so past 2^31
-    output entries the indptr widens to int64.  ``sub_bounds [S, C+1]``."""
+    output entries the indptr widens to int64.  ``sub_bounds [S, C+1]``.
+    A step with a counts payload gathers it as the indices (one more
+    gather) and returns ``(BCSR, counts int64)``, the counting ops'
+    contract."""
     C = sub_bounds.shape[1] - 1
     rank_nnz = step.counts.sum(1)
     width = int(rank_nnz.max())
     if width == 0:
-        return _empty(*shape)
-    mine = step.c_idx[0] if C == 1 else compact_chunks(step.c_idx, step.nnz)
-    idx = comm.all_gather_host(mine[:width], mesh).numpy()
+        return _empty(*shape) if step.cnt is None else _empty_counts(*shape)
+
+    def gathered(x: torch.Tensor) -> np.ndarray:
+        mine = x[0] if C == 1 else compact_chunks(x, step.nnz)
+        return comm.all_gather_host(mine[:width], mesh).numpy()
+
+    idx = gathered(step.c_idx)
+    cnt = None if step.cnt is None else gathered(step.cnt)
     ptr = comm.all_gather_host(step.c_ptr, mesh).numpy()
     indptr_parts = [np.zeros(1, np.int64)]
-    index_parts = []
+    index_parts, count_parts = [], []
     base = 0
     for s in range(sub_bounds.shape[0]):
         off = 0
@@ -808,11 +976,16 @@ def _assemble(step: Step, sub_bounds: np.ndarray, shape, mesh: RowMesh) -> BCSR:
             n_c = int(step.counts[s, c])
             if r1 > r0:
                 index_parts.append(idx[s, off : off + n_c])
+                if cnt is not None:
+                    count_parts.append(cnt[s, off : off + n_c])
                 p = ptr[s, c].view(np.uint32)
                 indptr_parts.append((p[1 : r1 - r0 + 1] - p[0]).astype(np.int64) + base)
             base += n_c
             off += n_c
-    return BCSR(np.concatenate(indptr_parts), np.concatenate(index_parts), shape)
+    out = BCSR(np.concatenate(indptr_parts), np.concatenate(index_parts), shape)
+    if cnt is None:
+        return out
+    return out, np.concatenate(count_parts).astype(np.int64)
 
 
 def _bounds_2d(bounds: np.ndarray) -> np.ndarray:
@@ -846,6 +1019,16 @@ def _stage_ell(plan, mesh: RowMesh, sharded_tables: bool = False):
     tables, er, ep = plan[:3]
     tables = [(_mine if sharded_tables else _whole)(t, mesh) for t in tables]
     return tables, [_mine(e, mesh) for e in er], [_mine(e, mesh) for e in ep]
+
+
+def _esc_a(ops: ShardedOperands, mesh: RowMesh) -> tuple:
+    """This rank's A shard of an ESC step: ``(ptr, idx, nnz)``."""
+    return _mine(ops.a_ptr, mesh), _mine(ops.a_idx, mesh), int(ops.a_nnz[mesh.rank, 0])
+
+
+def _esc_b(ops: ShardedOperands, mesh: RowMesh) -> tuple:
+    """The replicated B of an ESC step: ``(ptr, idx)``."""
+    return _whole(ops.b_ptr, mesh), _whole(ops.b_idx, mesh)
 
 
 def _ell_kw(plan) -> dict:
@@ -918,11 +1101,9 @@ def dist_spgemm(
                 return _assemble(step, plan[7], (n, m), mesh)
 
     ops = shard_operands(a, b, mesh.size, balance=balance)
-    a_args = (_mine(ops.a_ptr, mesh), _mine(ops.a_idx, mesh),
-              int(ops.a_nnz[mesh.rank, 0]))
+    a_args = _esc_a(ops, mesh)
     if b_layout == "replicated":
-        step = dist_spgemm_sharded(*a_args, _whole(ops.b_ptr, mesh),
-                                   _whole(ops.b_idx, mesh), mesh=mesh, n_cols=m,
+        step = dist_spgemm_sharded(*a_args, *_esc_b(ops, mesh), mesh=mesh, n_cols=m,
                                    flops_pad=ops.flops_pad)
     else:
         b_ptr_sh, b_idx_sh, m_per = shard_b_operands(b, mesh.size)
@@ -973,10 +1154,9 @@ def dist_masked_spgemm(
 
     ops = shard_operands(a, b, mesh.size, balance=balance)
     f_ptr, f_idx, _ = _shard_rows_csr(f, ops.bounds, ops.rows_pad)
-    step = dist_masked_spgemm_sharded(
-        _mine(ops.a_ptr, mesh), _mine(ops.a_idx, mesh), int(ops.a_nnz[mesh.rank, 0]),
-        _mine(f_ptr, mesh), _mine(f_idx, mesh), _whole(ops.b_ptr, mesh),
-        _whole(ops.b_idx, mesh), mesh=mesh, n_cols=m, flops_pad=ops.flops_pad)
+    step = dist_masked_spgemm_sharded(*_esc_a(ops, mesh), _mine(f_ptr, mesh),
+                                      _mine(f_idx, mesh), *_esc_b(ops, mesh), mesh=mesh,
+                                      n_cols=m, flops_pad=ops.flops_pad)
     return _assemble(step, _bounds_2d(ops.bounds), (n, m), mesh)
 
 
@@ -1057,7 +1237,117 @@ def dist_spgemm_or(
         side = [_mine(f_ptr, mesh), _mine(f_idx, mesh)]
     step = dist_spgemm_or_sharded(
         _mine(d_ptr, mesh), _mine(d_idx, mesh), int(d_nnz[mesh.rank, 0]),
-        _mine(ops.a_ptr, mesh), _mine(ops.a_idx, mesh), int(ops.a_nnz[mesh.rank, 0]),
-        _whole(ops.b_ptr, mesh), _whole(ops.b_idx, mesh), *side, mesh=mesh,
-        n_cols=m, flops_pad=ops.flops_pad)
+        *_esc_a(ops, mesh), *_esc_b(ops, mesh), *side, mesh=mesh, n_cols=m,
+        flops_pad=ops.flops_pad)
     return _assemble(step, _bounds_2d(ops.bounds), (n, m), mesh)
+
+
+def _counts_route(a, b, mesh, balance, engine, bits, ell_step, esc_step, f=None):
+    """The counting ops' routing, as JAX's: the sliced-ELL step where its
+    plan fits ``AUTO_ELL_MAX_SLOTS`` (``bits`` the join's extra key bits;
+    ``engine="ell"`` forces it and surfaces its guard), else ESC.  ``f``,
+    when given, is the mask F, row-sharded with A.  Returns the step's
+    result and the sub-chunk bounds ``[S, C+1]`` of its rows."""
+    m = b.n_cols
+    if engine in ("auto", "ell"):
+        plan = _ell_plan(a, b, mesh, balance, engine, extra_key_bits=bits)
+        if plan is not None:
+            side = () if f is None else tuple(
+                _mine(x, mesh) for x in _shard_ell_csr(f, plan[7], plan[5]))
+            return ell_step(*_stage_ell(plan, mesh), *side, mesh=mesh, n_cols=m,
+                            **_ell_kw(plan)), plan[7]
+    ops = shard_operands(a, b, mesh.size, balance=balance)
+    side = () if f is None else tuple(
+        _mine(x, mesh) for x in _shard_rows_csr(f, ops.bounds, ops.rows_pad)[:2])
+    return esc_step(*_esc_a(ops, mesh), *side, *_esc_b(ops, mesh), mesh=mesh, n_cols=m,
+                    flops_pad=ops.flops_pad), _bounds_2d(ops.bounds)
+
+
+def dist_spgemm_counts(
+    a: BCSR,
+    b: BCSR,
+    mesh: RowMesh | None = None,
+    *,
+    balance: str = "flops",
+    engine: str = "auto",
+    device: str | torch.device = "cuda",
+) -> tuple[BCSR, np.ndarray]:
+    """C = A·B with each entry's multiplicity (the integer product of the
+    0/1 operands) over the ranks of ``mesh``: the counting form of
+    :func:`dist_spgemm` (B replicated, the reference's semantics).  Returns
+    ``(c, counts)`` on every rank, ``counts`` int64; ``engine`` as in
+    :func:`dist_spgemm`."""
+    if a.n_cols != b.n_rows:
+        raise ValueError(f"shape mismatch: {a.shape} @ {b.shape}")
+    if engine not in ("auto", "esc", "ell"):
+        raise ValueError(f"unknown engine {engine!r}")
+    require_int32_operands(a, b)
+    n, m = a.n_rows, b.n_cols
+    if a.nnz == 0 or b.nnz == 0:
+        return _empty_counts(n, m)
+    # duplicate operand entries would inflate the multiplicities
+    a, b = a.sum_duplicates(), b.sum_duplicates()
+    mesh = _mesh(mesh, device)
+    step, sub_bounds = _counts_route(a, b, mesh, balance, engine, 0,
+                                     dist_spgemm_counts_ell, dist_spgemm_counts_sharded)
+    return _assemble(step, sub_bounds, (n, m), mesh)
+
+
+def dist_masked_spgemm_counts(
+    f: BCSR,
+    a: BCSR,
+    b: BCSR,
+    mesh: RowMesh | None = None,
+    *,
+    balance: str = "flops",
+    engine: str = "auto",
+    device: str | torch.device = "cuda",
+) -> tuple[BCSR, np.ndarray]:
+    """C = F .* (A·B) with each entry's multiplicity over the ranks of
+    ``mesh`` (per-edge common-neighbour counts when f = a = b), the
+    distributed :func:`..ops.counts.masked_spgemm_counts`.  MASK FIRST;
+    returns ``(c, counts)`` on every rank; ``engine`` as in
+    :func:`dist_spgemm`."""
+    if a.n_cols != b.n_rows or tuple(f.shape) != (a.n_rows, b.n_cols):
+        raise ValueError(f"shape mismatch: F{f.shape} vs {a.shape} @ {b.shape}")
+    if engine not in ("auto", "esc", "ell"):
+        raise ValueError(f"unknown engine {engine!r}")
+    require_int32_operands(f, a, b)
+    n, m = a.n_rows, b.n_cols
+    if a.nnz == 0 or b.nnz == 0 or f.nnz == 0:
+        return _empty_counts(n, m)
+    f = f.sum_duplicates()
+    a, b = a.sum_duplicates(), b.sum_duplicates()
+    mesh = _mesh(mesh, device)
+    step, sub_bounds = _counts_route(a, b, mesh, balance, engine, 1,
+                                     dist_masked_spgemm_counts_ell,
+                                     dist_masked_spgemm_counts_sharded, f)
+    return _assemble(step, sub_bounds, (n, m), mesh)
+
+
+def dist_triangle_count(
+    a: BCSR,
+    mesh: RowMesh | None = None,
+    *,
+    balance: str = "flops",
+    engine: str = "auto",
+    device: str | torch.device = "cuda",
+) -> int:
+    """Triangles of the undirected simple graph whose (symmetric, hollow)
+    adjacency is A, over the ranks of ``mesh``: each rank reduces its row
+    block's wedge sum to one int64 and one all-reduce adds them, so no
+    index array leaves a rank (the reference gathers the whole result to
+    rank 0).  Every rank returns the count.  Raises ``ValueError`` when the
+    sum is not divisible by 6; ``engine`` as in :func:`dist_spgemm`."""
+    if a.n_rows != a.n_cols:
+        raise ValueError("triangles need a square matrix")
+    if engine not in ("auto", "esc", "ell"):
+        raise ValueError(f"unknown engine {engine!r}")
+    require_int32_operands(a)
+    if a.nnz == 0:
+        return 0
+    a = a.sum_duplicates()
+    mesh = _mesh(mesh, device)
+    total, _ = _counts_route(a, a, mesh, balance, engine, 1, dist_triangle_sum_ell,
+                             dist_triangle_sum_sharded, a)
+    return _triangles(total)

@@ -35,16 +35,24 @@ import torch.multiprocessing as mp
 from ..ops.spgemm import resolve_device
 from .mesh import make_row_mesh
 
-__all__ = ["default_backend", "launch"]
+__all__ = ["default_backend", "launch", "torchrun_backend"]
 
 
 def default_backend(n_ranks: int, device: str | torch.device) -> str:
-    """NCCL where every rank has a card of its own, else gloo (ranks on the
-    CPU, or sharing a card, which NCCL refuses)."""
+    """NCCL where every rank of the machine has a card of its own, else
+    gloo (ranks on the CPU, or sharing a card, which NCCL refuses).
+    ``n_ranks`` counts the ranks on this machine."""
     device = torch.device(device)
     if device.type == "cuda" and n_ranks <= torch.cuda.device_count():
         return "nccl"
     return "gloo"
+
+
+def torchrun_backend(device: str | torch.device) -> str:
+    """:func:`default_backend` for a group ``torchrun`` started: the ranks
+    on this machine are its ``LOCAL_WORLD_SIZE`` (else ``WORLD_SIZE``)."""
+    local = os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1"))
+    return default_backend(int(local), device)
 
 
 def _free_port() -> int:

@@ -176,25 +176,35 @@ Phases, each reported on its own lines; any failure exits non-zero:
     the bench config through ``dist_spgemm`` at every B layout
     (replicated, sharded, ring) and engine (ESC, ELL), and the wide-column
     product (``WIDE_COL``, 8192 x 2^24, d = 16) through the ELL engine;
+    then the counting family: ``dist_spgemm_counts(A, A)`` at both engines
+    and ``dist_masked_spgemm_counts(A, A, A)`` (indices and counts equal to
+    phase 18's by digest), ``dist_triangle_count`` at both engines on phase
+    18's symmetric bench graph (5,340), ``dist_transitive_closure`` of
+    phase 19's closure input (equal to its 1,866,786-nnz closure, with its
+    rounds and compactions) and ``dist_k_hop`` of it at k = 2 and 3 (equal
+    to the single-card resident ``k_hop``, itself held to scipy; k = 3 is
+    the product the JAX package's bound truncates);
 21. the distributed layer over gloo, ranks sharing the one card: the same
-    seven products and the JAX dryrun's 14 ported paths (A = 128 x 128) in
-    4 ranks; ``dist_masked_spgemm(A, A, A)``, ``dist_spgemm_or(A, A, A)``
-    with and without ``mask=A``, ``dist_spm_or(A, C)``,
-    ``dist_spgemm_from_local`` (each rank reads its rows of the bench config
-    written as ``.mtx``) and the wide-column product in 2 ranks.  Every
-    rank's product must equal the single-card one (phase 5's and phase
-    17's, by digest; scipy's for the wide-column one), every step it
-    assembles must hold its tensors on the card, every ELL product must
-    launch P3 or P4 and the dryrun K1 too, on every rank.  Each rank's
-    ``sort_rows`` routes and K1 launches by variant are held against the
-    plan the parent makes alike (``ell_sorts``): on the bench's ELL
-    products two ``torch.sort`` routes a stack (rows past K1's window), on
-    the wide-column product two launches of K1's wide kernel, on the ESC
-    and ring forms none; K1 launches equal its routes.  Each rank prints
-    per call its host-clock wall, K1 launches by variant, P3/P4 launches,
-    collective counters and peak device memory, K1's, P3's and P4's counts
-    set to 0 just before the call and read just after.  A rank's failure
-    or a launch past its time limit fails the phase;
+    calls and the JAX dryrun's 19 paths (A = 128 x 128) in 4 ranks;
+    ``dist_masked_spgemm(A, A, A)``, ``dist_spgemm_or(A, A, A)`` with and
+    without ``mask=A``, ``dist_spm_or(A, C)``, ``dist_spgemm_from_local``
+    (each rank reads its rows of the bench config written as ``.mtx``) and
+    the wide-column product in 2 ranks.  Every rank's result must equal the
+    single-card one (phases 5, 17, 18 and 19's, by digest; scipy's for the
+    wide-column one), every step it assembles must hold its tensors (the
+    counts payload too) on the card, every ELL call must launch P3 or P4
+    and the dryrun K1 too, on every rank.  Each rank's ``sort_rows`` routes
+    and K1 launches by variant are held against the plan the parent makes
+    alike (``ell_sorts``, ``count_sorts``): on the bench's ELL products two
+    ``torch.sort`` routes a stack (rows past K1's window), on its ELL
+    counting calls one (the key sort; the payload sorts are ``torch.sort``
+    calls outside ``sort_rows``), on the wide-column product two launches
+    of K1's wide kernel, on the ESC, ring and one-sort forms none; K1
+    launches equal its routes.  Each rank prints per call its host-clock
+    wall, K1 launches by variant, P3/P4 launches, collective counters and
+    peak device memory, K1's, P3's and P4's counts set to 0 just before the
+    call and read just after.  A rank's failure or a launch past its time
+    limit fails the phase;
 22. a ``{"kernels": [...]}`` line (the graph ops' K1, P3 and P4 launches
     under ``launches_by_path["graph"]``, the distributed ones per rank under
     ``launches_by_path["distributed (per rank)"]``; K1's wide kernel as an
@@ -1630,6 +1640,7 @@ def graph_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
               f"{launches['class_gather']}, P4 {launches['class_gather_keys']}, "
               f"sort_rows routes {rts}; {card}")
     out["closure"] = closure
+    out["closure_input"] = (m, want)  # phases 20-21 hold the distributed closure to it
     ell._EXEC_CACHE.clear()
     # the rows K1 sorts on the closure's host route (rounds 2-4), captured in
     # one more host-route closure, against K1's shared-memory kernel and
@@ -1755,15 +1766,29 @@ DIST_TIMEOUT_S = 600.0
 WIDE_COL = (8192, 1 << 24, 16.0, 11)
 
 
-def digest(m) -> str:
+def digest(m, counts=None) -> str:
     """A product's identity across processes: the hash of its shape,
-    row pointers (as int64) and column indices."""
+    row pointers (as int64), column indices and, for a counting product,
+    its counts (as int64)."""
     import hashlib
 
     h = hashlib.sha256(repr(tuple(m.shape)).encode())
     h.update(np.asarray(m.indptr, np.int64).tobytes())
     h.update(np.asarray(m.indices, np.int32).tobytes())
+    if counts is not None:
+        h.update(np.asarray(counts, np.int64).tobytes())
     return h.hexdigest()
+
+
+def result_identity(res) -> tuple[str, int]:
+    """``(digest, size)`` of a distributed call's result: a ``BCSR`` (size
+    its nnz), a counting product's ``(BCSR, counts)`` (its nnz) or a
+    triangle count (the count itself)."""
+    if isinstance(res, int):
+        return f"{res} triangles", res
+    if isinstance(res, tuple):
+        return digest(*res), res[0].nnz
+    return digest(res), res.nnz
 
 
 def local_product(path: str, b, n: int, *, mesh):
@@ -1785,25 +1810,51 @@ def dist_rank(mesh, calls) -> list[dict]:
     ``fn(*args, mesh=mesh, **kwargs)``, with K1's, P3's and P4's launch
     counts, the sort routes, the collectives' counters and the peak device
     memory set to 0 just before and read just after (a synchronize each
-    side of the host-clock wall).  Every step handed to assembly must hold
-    its tensors on the card.  Returns per call those readings and the
-    result's digest (or, for the dryrun, its ``(path, ok)`` list)."""
+    side of the host-clock wall).  Every step handed to assembly (counts
+    payload included), every triangle step's sums before the all-reduce and
+    every one-sort state handed to the final pull must be on the card; a
+    one-sort call counts its products (the closure's rounds) and the stream
+    lengths it compacts.  Returns per call
+    those readings and the result's identity (:func:`result_identity`; for
+    the dryrun its ``(path, ok)`` list), and a closure's rounds and
+    compactions."""
     import torch
 
     from binary_spgemm_tpu_torch.ops import bitonic, gather
     from binary_spgemm_tpu_torch.parallel import comm
+    from binary_spgemm_tpu_torch.parallel import dist_onesort as do
     from binary_spgemm_tpu_torch.parallel import dist_spgemm as dm
 
     check(mesh.device.type == "cuda", f"rank {mesh.rank} computes on {mesh.device}")
     k1, routes = bitonic.bitonic_sort_rows, bitonic.sort_rows.routes
     on_card = []
-    assemble = dm._assemble
+    assemble, group_sum, pull = dm._assemble, dm._group_sum, do._pull
+    product, compact = do._dist_product, do._dist_compact
+    onesort = {"products": 0, "compactions": []}
+
+    def counted_product(*args, **kwargs):
+        onesort["products"] += 1
+        return product(*args, **kwargs)
+
+    def counted_compact(state, **kwargs):
+        onesort["compactions"].append(state[0].shape[0])
+        return compact(state, **kwargs)
 
     def assemble_on_card(step, sub_bounds, shape, mesh_):
-        on_card.append(all(t.is_cuda for t in (step.c_ptr, step.c_idx, step.nnz)))
+        held = (step.c_ptr, step.c_idx, step.nnz) + (() if step.cnt is None else (step.cnt,))
+        on_card.append(all(t.is_cuda for t in held))
         return assemble(step, sub_bounds, shape, mesh_)
 
-    dm._assemble = assemble_on_card
+    def group_sum_on_card(sums, mesh_):
+        on_card.append(sums.is_cuda)
+        return group_sum(sums, mesh_)
+
+    def pull_on_card(state, *rest):
+        on_card.append(all(t.is_cuda for t in state))
+        return pull(state, *rest)
+
+    dm._assemble, dm._group_sum, do._pull = assemble_on_card, group_sum_on_card, pull_on_card
+    do._dist_product, do._dist_compact = counted_product, counted_compact
     out = []
     for label, fn, args, kwargs in calls:
         k1.launches = gather.class_gather.launches = gather.class_gather_keys.launches = 0
@@ -1812,6 +1863,7 @@ def dist_rank(mesh, calls) -> list[dict]:
                 counts[key] = 0
         comm.reset_counters()
         on_card.clear()
+        onesort.update(products=0, compactions=[])
         torch.cuda.synchronize(mesh.device)
         torch.cuda.reset_peak_memory_stats(mesh.device)
         t0 = time.perf_counter()
@@ -1826,7 +1878,9 @@ def dist_rank(mesh, calls) -> list[dict]:
         if isinstance(res, list):
             rec["checks"] = res
         else:
-            rec["nnz"], rec["digest"] = res.nnz, digest(res)
+            rec["digest"], rec["nnz"] = result_identity(res)
+        if onesort["products"]:  # the closure's rounds, or k-hop's products
+            rec["rounds"], rec["compactions"] = onesort["products"], onesort["compactions"]
         out.append(rec)
     return out
 
@@ -1859,6 +1913,33 @@ def ell_sorts(api, x, y, S: int, *, b_layout: str = "replicated", bits: int = 0,
     elif plain:
         out.update(routes={"k1": 2, "torch_sort": 0},
                    k1_by_variant={**zero, bitonic.k1_variant(sort_pad): 2})
+    return out
+
+
+def count_sorts(api, x, y, S: int, *, bits: int = 0, mask=None) -> dict:
+    """:func:`ell_sorts` of a counting step: one key sort a stack through
+    ``sort_rows`` (the payload sorts are ``torch.sort`` calls outside it),
+    of rows of ``sort_pad`` slots, or ``sort_pad`` plus the mask pad for the
+    triangles' tagged sort (``mask`` the graph itself), from the plan every
+    rank makes alike (the counting plans are never batched)."""
+    from binary_spgemm_tpu_torch.parallel.mesh import partition_rows
+
+    sp, bitonic, dist = api["spgemm_mod"], api["bitonic"], api["dist"]
+    rf = sp.row_flops(x, y)
+    plan = dist._shard_ell_operands(x, y, S, partition_rows(rf, S), rf, extra_key_bits=bits)
+    rows_pad, sort_pad = plan[5], plan[6]
+    L = sort_pad
+    if mask is not None:
+        L += dist._shard_ell_csr(mask, plan[7], rows_pad)[1].shape[-1]
+    zero = {v: 0 for v in bitonic.bitonic_sort_rows.launches_by_variant}
+    out = {"sort_pad": L, "C": plan[7].shape[1] - 1}
+    if not sp.packable(rows_pad, (y.n_cols << bits) + (1 << bits) - 1):
+        out.update(routes={"k1": 0, "torch_sort": 0}, k1_by_variant=zero)
+    elif L > bitonic.MAX_L:
+        out.update(routes={"k1": 0, "torch_sort": 1}, k1_by_variant=zero)
+    else:
+        out.update(routes={"k1": 1, "torch_sort": 0},
+                   k1_by_variant={**zero, bitonic.k1_variant(L): 1})
     return out
 
 
@@ -1910,13 +1991,16 @@ def dist_report(runs: list[list[dict]], want: dict, backend: str, sorts: dict) -
             else:
                 d, nnz, gathers = want[label]
                 check(rec["digest"] == d and rec["nnz"] == nnz,
-                      f"S={S} rank {r} {label}: output nnz {rec['nnz']} (want {nnz}), "
-                      "not the single-card product")
+                      f"S={S} rank {r} {label}: result {rec['nnz']} (want {nnz}), "
+                      "not the single-card one")
                 if gathers:
                     check(rec["p3"] + rec["p4"] > 0,
                           f"S={S} rank {r} {label}: no P3/P4 launch on an ELL path")
                 check_sorts(rec, sorts.get(label), f"S={S} rank {r} {label}")
-                result = f"nnz {rec['nnz']} bit-exact"
+                result = (d if d.endswith("triangles") else f"nnz {rec['nnz']}") + " bit-exact"
+                if "rounds" in rec:
+                    result += (f", {rec['rounds']} one-sort products, compactions of "
+                               f"{rec['compactions']} slots")
             print(f"  S={S} ({backend}) rank {r} {label}: {result}; {rec['s']:.3f} s on "
                   f"the host clock; K1 {rec['k1']} {rec['k1_by_variant']}, P3 {rec['p3']}, "
                   f"P4 {rec['p4']}, sort routes {rec['routes']}; comm {rec['comm']}; peak "
@@ -1929,13 +2013,48 @@ def dist_report(runs: list[list[dict]], want: dict, backend: str, sorts: dict) -
     return by_label
 
 
-def dist_phases(torch, card: str, *, api, a, c, op_results) -> dict:
+def dist_phases(torch, card: str, *, api, a, c, op_results, count_results, symmetric,
+                closure) -> dict:
     """Phases 20 and 21: the distributed layer on the card.  ``a`` and ``c``
     are phase 5's A and C = A·A (bit-exact against scipy), ``op_results``
-    phase 17's single-card op family products."""
+    phase 17's single-card op family products, ``count_results`` phase 18's
+    single-card counting products, ``symmetric`` its symmetric bench graph
+    and ``closure`` phase 19's closure input and its closure (scipy's)."""
     dist, dryrun, launch = api["dist"], api["dryrun"], api["launch"]
+    dist_onesort, graph = api["dist_onesort"], api["graph"]
     want = {f"bench dist_spgemm[{lay},{eng}]": (digest(c), c.nnz, eng == "ell")
             for lay, eng in DIST_PAIRS}
+    # the counting family, the triangles, the closure and k-hop: each held to
+    # the single-card result (phases 18 and 19), on every rank
+    count_calls = []
+    for eng in ("esc", "ell"):
+        label = f"bench dist_spgemm_counts[{eng}]"
+        want[label] = (*result_identity(count_results["counts"]), eng == "ell")
+        count_calls.append((label, dist.dist_spgemm_counts, (a, a), {"engine": eng}))
+    label = "bench dist_masked_spgemm_counts(A, A, A)"
+    want[label] = (*result_identity(count_results["masked counts"]), True)
+    count_calls.append((label, dist.dist_masked_spgemm_counts, (a, a, a), {}))
+    for eng in ("esc", "ell"):
+        label = f"bench symmetric dist_triangle_count[{eng}]"
+        want[label] = (*result_identity(TRIANGLES["bench"][2]), eng == "ell")
+        count_calls.append((label, dist.dist_triangle_count, (symmetric,), {"engine": eng}))
+    m, m_closure = closure
+    label = "closure input dist_transitive_closure"
+    want[label] = (*result_identity(m_closure), False)
+    count_calls.append((label, dist_onesort.dist_transitive_closure, (m,), {}))
+    ms = m.to_scipy()
+    power = ms
+    for k in (2, 3):
+        # the single-card k-hop (the resident one-sort route), held to scipy
+        power = ((power @ ms) > 0).astype(np.int8).tocsr()
+        power.sort_indices()
+        single = graph.k_hop(m, k, resident=True)
+        check(single.equals(api["BCSR"](power.indptr, power.indices, power.shape)),
+              f"single-card k_hop(closure input, {k}) differs from scipy's")
+        label = f"closure input dist_k_hop(A, {k})"
+        want[label] = (*result_identity(single), False)
+        count_calls.append((label, dist_onesort.dist_k_hop, (m,), {"k": k}))
+        print(f"single-card k_hop(closure input, {k}): {single.nnz} nnz, equal to scipy's")
     n_w, m_w, d_w, seed_w = WIDE_COL
     wa = api["BCSR"].random(n_w, n_w, d_w, seed=seed_w)
     wb = api["BCSR"].random(n_w, m_w, d_w, seed=seed_w + 1)
@@ -1951,6 +2070,12 @@ def dist_phases(torch, card: str, *, api, a, c, op_results) -> dict:
         got = {f"bench dist_spgemm[{lay},ell]": ell_sorts(api, a, a, S, b_layout=lay)
                for lay in ("replicated", "sharded")}
         got[wide_label] = ell_sorts(api, wa, wb, S)
+        if S in (1, 4):
+            got["bench dist_spgemm_counts[ell]"] = count_sorts(api, a, a, S)
+            got["bench dist_masked_spgemm_counts(A, A, A)"] = count_sorts(api, a, a, S,
+                                                                          bits=1)
+            got["bench symmetric dist_triangle_count[ell]"] = count_sorts(
+                api, symmetric, symmetric, S, bits=1, mask=symmetric)
         if S == 2:
             for label, bits in (("bench dist_masked_spgemm(A, A, A)", 1),
                                 ("bench dist_spgemm_or(A, A, A)", 0),
@@ -1966,7 +2091,7 @@ def dist_phases(torch, card: str, *, api, a, c, op_results) -> dict:
 
     phase("20. the distributed layer over NCCL: one rank")
     t0 = time.perf_counter()
-    runs = launch(dist_rank, 1, spgemm_calls + [wide_call], device="cuda",
+    runs = launch(dist_rank, 1, spgemm_calls + [wide_call] + count_calls, device="cuda",
                   timeout=DIST_TIMEOUT_S)
     print(f"1 rank over NCCL: {time.perf_counter() - t0:.2f} s on the host clock, "
           f"rank start included; {card}")
@@ -1986,8 +2111,9 @@ def dist_phases(torch, card: str, *, api, a, c, op_results) -> dict:
         want[label] = (digest(op_results[key]), op_results[key].nnz, gathers)
     want["bench dist_spgemm_from_local (rows from the .mtx)"] = (digest(c), c.nnz, False)
     calls = {
-        4: spgemm_calls + [wide_call, ("dryrun (14 paths, A = 128 x 128)",
-                                       dryrun.dryrun_paths, (), {})],
+        4: spgemm_calls + [wide_call] + count_calls
+        + [(f"dryrun ({len(dryrun.PATHS)} paths, A = 128 x 128)", dryrun.dryrun_paths, (),
+            {})],
         2: [("bench dist_masked_spgemm(A, A, A)", dist.dist_masked_spgemm, (a, a, a), {}),
             ("bench dist_spgemm_or(A, A, A)", dist.dist_spgemm_or, (a, a, a), {}),
             ("bench dist_spgemm_or(A, A, A, mask=A)", dist.dist_spgemm_or, (a, a, a),
@@ -2900,22 +3026,26 @@ def run_smoke() -> dict:
 
     phase("19. the device API, the one-sort pipeline and the graph ops")
     op_results = ops.pop("results")
+    count_results, bench_symmetric = cnt.pop("results"), cnt.pop("bench_symmetric")
     gr = graph_phase(
         torch, f"on {smi}", api=api, reset_counts=reset_counts, read_counts=read_counts,
         routes=routes, k1_by_variant=k1_by_variant, bench=(a, c), main_launches=launches,
-        op_results=op_results, count_results=cnt.pop("results"),
-        bench_symmetric=cnt.pop("bench_symmetric"))
+        op_results=op_results, count_results=count_results, bench_symmetric=bench_symmetric)
     graph_launches = {label: rec["launches"] for label, rec in gr["products"].items()}
 
     from binary_spgemm_tpu_torch import write_pattern
+    from binary_spgemm_tpu_torch.ops import graph
+    from binary_spgemm_tpu_torch.parallel import dist_onesort
     from binary_spgemm_tpu_torch.parallel import dist_spgemm as dist
     from binary_spgemm_tpu_torch.parallel import dryrun
     from binary_spgemm_tpu_torch.parallel.launch import launch
 
-    api.update(dist=dist, dryrun=dryrun, launch=launch, write_pattern=write_pattern,
-               spgemm_oracle=spgemm_oracle)
-    dist_runs = dist_phases(torch, f"on {smi}", api=api, a=a, c=c, op_results=op_results)
-    del op_results
+    api.update(dist=dist, dist_onesort=dist_onesort, graph=graph, dryrun=dryrun,
+               launch=launch, write_pattern=write_pattern, spgemm_oracle=spgemm_oracle)
+    dist_runs = dist_phases(torch, f"on {smi}", api=api, a=a, c=c, op_results=op_results,
+                            count_results=count_results, symmetric=bench_symmetric[0],
+                            closure=gr.pop("closure_input"))
+    del op_results, count_results, bench_symmetric
 
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
     # K1's wide kernel: its own path is the op family's A ∪ A·A (run_or), the

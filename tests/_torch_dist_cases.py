@@ -11,44 +11,76 @@ import numpy as np
 
 def step_record(step, sub_bounds) -> dict:
     """A rank's :class:`Step` on the host: pointers, each sub-chunk's valid
-    indices, the valid counts, the total and the sub-chunk bounds."""
+    indices (and counts payload, where the step has one), the valid counts,
+    the total and the sub-chunk bounds."""
     nnz = step.nnz.cpu().numpy()
     idx = step.c_idx.cpu().numpy()
-    return {"c_ptr": step.c_ptr.cpu().numpy(), "nnz": nnz,
-            "idx": [idx[c, : nnz[c]] for c in range(len(nnz))],
-            "total": step.total, "sub_bounds": np.asarray(sub_bounds)}
+    rec = {"c_ptr": step.c_ptr.cpu().numpy(), "nnz": nnz,
+           "idx": [idx[c, : nnz[c]] for c in range(len(nnz))],
+           "total": step.total, "sub_bounds": np.asarray(sub_bounds)}
+    if step.cnt is not None:
+        cnt = step.cnt.cpu().numpy()
+        rec["cnt"] = [cnt[c, : nnz[c]] for c in range(len(nnz))]
+    return rec
 
 
 def run_cases(mesh, cases) -> dict:
     """Run each ``(name, module, function, args, kwargs, patches)`` case on
     this rank (``mesh=`` passed by keyword); ``patches`` are ``(module,
     attribute, value)`` set for the call only.  Returns ``{name: {"c":
-    result, "steps": [step_record per assembly]}}``."""
+    result, "steps": [step_record per assembly], "pulls": [the one-sort
+    state each final pull received]}}``, or ``{name: {"error": "Type:
+    message"}}`` where the call raised (on every rank alike, or the others
+    wait in a collective until the launch's time limit)."""
+    from binary_spgemm_tpu_torch.parallel import dist_onesort as do
     from binary_spgemm_tpu_torch.parallel import dist_spgemm as dm
 
     out = {}
-    assemble = dm._assemble
+    assemble, pull = dm._assemble, do._pull
     for name, module, fn, args, kwargs, patches in cases:
-        steps = []
+        steps, pulls = [], []
 
         def capture(step, sub_bounds, shape, mesh_):
             steps.append(step_record(step, sub_bounds))
             return assemble(step, sub_bounds, shape, mesh_)
+
+        def capture_pull(state, *rest):
+            pulls.append({k: t.cpu().numpy() for k, t in zip(("cols", "pos", "nnz"), state)})
+            return pull(state, *rest)
 
         saved = []
         for mod, attr, value in patches:
             m = importlib.import_module(mod)
             saved.append((m, attr, getattr(m, attr)))
             setattr(m, attr, value)
-        dm._assemble = capture
+        dm._assemble, do._pull = capture, capture_pull
         try:
             fn_ = getattr(importlib.import_module(module), fn)
-            out[name] = {"c": fn_(*args, mesh=mesh, **kwargs), "steps": steps}
+            out[name] = {"c": fn_(*args, mesh=mesh, **kwargs), "steps": steps,
+                         "pulls": pulls}
+        except (ValueError, OverflowError) as err:
+            out[name] = {"error": f"{type(err).__name__}: {err}"}
         finally:
-            dm._assemble = assemble
+            dm._assemble, do._pull = assemble, pull
             for m, attr, value in saved:
                 setattr(m, attr, value)
     return out
+
+
+def reduce_facts(mesh) -> dict:
+    """One int64 all-reduce of ``[rank, 2**40 + rank]`` on this rank's
+    device, the device of its result, and the collectives' counters over
+    it."""
+    import torch
+
+    from binary_spgemm_tpu_torch.parallel import comm
+
+    comm.reset_counters()
+    x = torch.tensor([mesh.rank, (1 << 40) + mesh.rank], dtype=torch.int64,
+                     device=mesh.device)
+    got = comm.all_reduce_sum(x, mesh)
+    return {"sum": got.cpu().numpy(), "input": x.cpu().numpy(), "device": str(got.device),
+            "backend": mesh.backend, "counters": dict(comm.counters)}
 
 
 def mesh_facts(mesh) -> dict:

@@ -213,6 +213,89 @@ def test_validate_defaults_to_the_card(mtx):
         tp_cli.main(["validate", mtx])
 
 
+@pytest.mark.parametrize("local, world, cards, device, want", [
+    ("2", "2", 1, "cuda", "gloo"),   # two ranks share the one card: NCCL refuses
+    ("1", "1", 1, "cuda", "nccl"),
+    ("4", "8", 4, "cuda", "nccl"),   # two machines of four cards each
+    ("8", "8", 4, "cuda", "gloo"),
+    (None, "2", 2, "cuda", "nccl"),  # no LOCAL_WORLD_SIZE: the world's ranks
+    ("1", "1", 1, "cpu", "gloo"),
+])
+def test_torchrun_backend_rule(monkeypatch, local, world, cards, device, want):
+    """Under ``torchrun`` the backend follows ``launch.default_backend``'s
+    rule over the ranks on this machine (``LOCAL_WORLD_SIZE``) against its
+    card count."""
+    import torch
+
+    from binary_spgemm_tpu_torch.parallel import launch
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setenv("WORLD_SIZE", world)
+    if local is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local)
+    assert launch.torchrun_backend(device) == want
+    assert launch.default_backend(int(local or world), device) == want
+
+
+class _Initialised(Exception):
+    pass
+
+
+@pytest.mark.parametrize("local, want", [("2", "gloo"), ("1", "nccl")])
+def test_validate_under_torchrun_takes_the_rule(mtx, monkeypatch, local, want):
+    """``validate --device cuda`` under ``torchrun`` env starts its group
+    with the rule's backend: gloo for two ranks on a one-card machine."""
+    import torch
+
+    from binary_spgemm_tpu_torch.parallel import multihost
+
+    got = []
+
+    def initialize(backend="nccl", **kwargs):
+        got.append(backend)
+        raise _Initialised
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(multihost, "initialize", initialize)
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", local), ("LOCAL_WORLD_SIZE", local)):
+        monkeypatch.setenv(key, value)
+    with pytest.raises(_Initialised):
+        tp_cli.main(["validate", mtx, "--device", "cuda"])
+    assert got == [want]
+
+
+def test_validate_under_torchrun_without_a_card_raises(mtx, monkeypatch):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_WORLD_SIZE", "1")):
+        monkeypatch.setenv(key, value)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp_cli.main(["validate", mtx])
+
+
+def test_validate_joins_a_torchrun_group(mtx):
+    """``validate --device cpu`` in a process with ``torchrun``'s variables
+    (rank 0 of 1) starts a gloo group at ``env://`` and prints the confirm
+    line."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    res = subprocess.run([sys.executable, "-m", "binary_spgemm_tpu_torch.cli", "validate",
+                          mtx, "--device", "cpu", "--oracle"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout == "Results of serial and multicore are the same!\n"
+
+
 def test_resident_route_defaults_to_the_card(mtx):
     import torch
 

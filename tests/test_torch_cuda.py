@@ -947,3 +947,103 @@ def test_dist_ranks_share_the_card(cuda_device):
     for rank in res:
         for name, got in rank.items():
             assert got["c"].equals(alone[name]["c"]), name
+
+
+def dist_count_cases(device):
+    """The distributed counting family, triangles, the closure and k-hop at
+    test size (``run_cases`` cases on ``device``)."""
+    from binary_spgemm_tpu_torch.ops import graph
+
+    a = tp.BCSR.random(600, 600, 4.0, seed=21)
+    f = tp.BCSR.random(600, 600, 12.0, seed=22)
+    g = symmetric_hollow(a)
+    r = tp.BCSR.random(900, 900, 1.2, seed=9)
+    mod = "binary_spgemm_tpu_torch.parallel.dist_spgemm"
+    one = "binary_spgemm_tpu_torch.parallel.dist_onesort"
+    kw = {"device": device}
+    cases = [(f"counts-{eng}", mod, "dist_spgemm_counts", (a, a), {"engine": eng, **kw})
+             for eng in ("esc", "ell")]
+    cases += [(f"masked-counts-{eng}", mod, "dist_masked_spgemm_counts", (f, a, a),
+               {"engine": eng, **kw}) for eng in ("esc", "ell")]
+    cases += [(f"triangles-{eng}", mod, "dist_triangle_count", (g,), {"engine": eng, **kw})
+              for eng in ("esc", "ell")]
+    cases += [("closure", one, "dist_transitive_closure", (r,), kw)]
+    cases += [(f"k_hop-{k}", one, "dist_k_hop", (a,), {"k": k, **kw}) for k in (2, 3)]
+    want = {"closure": graph.transitive_closure(r, device="cpu"),
+            "k_hop-2": graph.k_hop(a, 2, device="cpu"),
+            "k_hop-3": graph.k_hop(a, 3, device="cpu")}
+    return [(*c, ()) for c in cases], want
+
+
+def same_result(x, y) -> bool:
+    if isinstance(x, tuple):
+        return x[0].equals(y[0]) and np.array_equal(x[1], y[1])
+    if isinstance(x, int):
+        return x == y
+    return x.equals(y)
+
+
+def test_dist_counting_on_the_card_equals_the_cpu(cuda_device):
+    """The distributed counting family, triangles, closure and k-hop in one
+    process alone on the card: each equal to the same call on the CPU (and
+    the closure and k-hop to the host routes), the counting steps on the
+    card, the ELL counts launching K1 (rows within its window here) and
+    P3/P4."""
+    from binary_spgemm_tpu_torch.ops import gather
+    from binary_spgemm_tpu_torch.parallel import dist_spgemm as dist
+    from binary_spgemm_tpu_torch.parallel.mesh import make_row_mesh
+
+    import _torch_dist_cases
+
+    cases, want = dist_count_cases("cuda")
+    card = _torch_dist_cases.run_cases(make_row_mesh(), cases)
+    cpu = _torch_dist_cases.run_cases(make_row_mesh(device="cpu"), dist_count_cases("cpu")[0])
+    for name, res in card.items():
+        assert "error" not in res, (name, res)
+        assert same_result(res["c"], cpu[name]["c"]), name
+        if name in want:
+            assert res["c"].equals(want[name]), name
+        for p, q in zip(res["steps"], cpu[name]["steps"]):
+            assert np.array_equal(p["c_ptr"], q["c_ptr"]) and p["total"] == q["total"]
+            for x, y in zip(p["cnt"], q["cnt"]):
+                assert np.array_equal(x, y)
+    a = tp.BCSR.random(600, 600, 4.0, seed=21)
+    k1, p34 = (bitonic.bitonic_sort_rows.launches,
+               gather.class_gather.launches + gather.class_gather_keys.launches)
+    dist.dist_spgemm_counts(a, a, engine="ell")
+    assert bitonic.bitonic_sort_rows.launches > k1
+    assert gather.class_gather.launches + gather.class_gather_keys.launches > p34
+
+
+def test_dist_counting_ranks_share_the_card(cuda_device):
+    """Two gloo ranks on the one card: the counting family, triangles,
+    closure and k-hop on both ranks equal to the same call in one process
+    alone on the card."""
+    from binary_spgemm_tpu_torch.parallel.launch import launch
+    from binary_spgemm_tpu_torch.parallel.mesh import make_row_mesh
+
+    import _torch_dist_cases
+
+    cases, _ = dist_count_cases("cuda")
+    alone = _torch_dist_cases.run_cases(make_row_mesh(), cases)
+    res = launch(_torch_dist_cases.run_cases, 2, cases, device="cuda", timeout=300)
+    for rank in res:
+        for name, got in rank.items():
+            assert same_result(got["c"], alone[name]["c"]), name
+
+
+@pytest.mark.parametrize("n_ranks, backend, staged", [(1, "nccl", 0), (2, "gloo", 32)])
+def test_all_reduce_sum_on_the_card(cuda_device, n_ranks, backend, staged):
+    """``comm.all_reduce_sum`` of card tensors: under NCCL (one rank, its
+    own card) it stays on the card; under gloo (ranks sharing the card) it
+    stages through the host, down and up."""
+    from binary_spgemm_tpu_torch.parallel.launch import launch
+
+    import _torch_dist_cases
+
+    facts = launch(_torch_dist_cases.reduce_facts, n_ranks, device="cuda", timeout=300)
+    S = n_ranks
+    for f in facts:
+        assert f["backend"] == backend and f["device"].startswith("cuda")
+        assert list(f["sum"]) == [S * (S - 1) // 2, S * (1 << 40) + S * (S - 1) // 2]
+        assert f["counters"] == {"calls": 1, "bytes": 16, "staged_bytes": staged}
