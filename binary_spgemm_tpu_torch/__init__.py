@@ -3,7 +3,7 @@
 A port of ``binary_spgemm_tpu`` (JAX/Pallas on a TPU) to PyTorch on an
 NVIDIA H100: the sparsity structure of C = A·B over boolean CSR matrices,
 bit-exact against scipy.  This package imports neither JAX nor the JAX
-package.  Ported so far:
+package.  It does everything the JAX package does:
 
 * the sliced-ELL engine end to end in both plans (``auto_executor`` /
   ``EllSpGEMMExecutor`` / ``ell_spgemm`` / ``spgemm``): batched bins for many
@@ -34,7 +34,7 @@ package.  Ported so far:
   ``ops.counts.triangle_count_device``, with the executors' ``run_counts``
   / ``run_masked_counts`` / ``run_counts_sum`` and ``assemble_counts``;
 * Matrix-Market ingest and egest (``read_pattern``, ``write_pattern``,
-  ``write_integer``; numpy parsing) and the whole ``BCSR`` container
+  ``write_integer``) and the whole ``BCSR`` container
   (``from_torch`` / ``to_torch``, ``transpose``, ``sort_indices``,
   ``diff``, ``flops``);
 * the blocked tensor-core route for block-clustered operands
@@ -56,17 +56,19 @@ package.  Ported so far:
   (``dist_spgemm_counts``, ``dist_masked_spgemm_counts``) and
   ``dist_triangle_count``, the one-sort ``dist_transitive_closure`` and
   ``dist_k_hop`` (``parallel/dist_onesort.py``), the sharded ingest
-  (``multihost.dist_spgemm_from_local``), and ``launch`` for a local group;
-* the CLI's ``gen``, ``multiply``, ``graph`` and ``validate`` commands
-  (``python -m binary_spgemm_tpu_torch.cli``).
+  (``multihost.dist_spgemm_from_local``), ``launch`` for a local group,
+  and the scaling report (``parallel/scaling.py``);
+* the native host tier (``native/``: the port's own ``mmparse.c``, built
+  with ``cc`` at first use): the Matrix-Market parser and writer, the
+  COO->CSR grouping, the sliced-ELL class partition and table fill,
+  ``row_flops`` and the host engine's products;
+* the CLI's ``bench``, ``gen``, ``multiply``, ``graph`` and ``validate``
+  commands (``python -m binary_spgemm_tpu_torch.cli``).
 
 Entry points run on ``device="cuda"`` unless told otherwise; ``device=`` is
 always the torch device.  The JAX package's boolean ``device=`` flag of
 ``k_hop``, ``transitive_closure`` and ``triangle_count`` (keep the matrices
-on the accelerator) is ``resident=`` here, with the same defaults.  Not
-ported yet (ROADMAP.md Queue 1): the distributed counting family,
-triangles, one-sort closure and scaling report, the CLI's ``bench``, and
-the native host helpers (the native Matrix-Market parser among them).
+on the accelerator) is ``resident=`` here, with the same defaults.
 """
 from .formats.bbcsr import BlockedBCSR, blocked_from_arrays
 from .formats.bcsr import BCSR, bcsr_from_arrays, coo_to_csr_stable

@@ -1,26 +1,31 @@
-"""Command-line interface of the port: data generation, one-shot products,
-graph ops and the distributed check.
+"""Command-line interface of the port: benchmark, data generation, one-shot
+products, graph ops and the distributed check.
 
+    python -m binary_spgemm_tpu_torch.cli bench a.mtx --times 5 --json
+    python -m binary_spgemm_tpu_torch.cli bench a.mtx --scaling-report --devices 2
     python -m binary_spgemm_tpu_torch.cli gen a.mtx -n 4096 -d 4 --seed 1
     python -m binary_spgemm_tpu_torch.cli multiply a.mtx --out c.mtx
     python -m binary_spgemm_tpu_torch.cli graph a.mtx closure --resident --out r.mtx
     python -m binary_spgemm_tpu_torch.cli validate a.mtx --devices 4 --oracle
 
-Counterpart of ``binary_spgemm_tpu/cli.py``'s ``gen``, ``multiply``,
-``graph`` and ``validate`` commands, with the same flags, outputs and exit
-codes, and two changes of name: ``--device {cuda,cpu}`` picks the torch
-device (``cuda`` unless told otherwise), and ``graph --resident`` is the JAX
-CLI's ``graph --device`` (keep the iterated products' matrices on the
-device).  ``validate --devices N`` starts N ranks on this machine
-(:mod:`.parallel.launch`: NCCL with a card a rank, else gloo); under
-``torchrun`` it starts the group by the same rule, over the ranks on its
-machine (``LOCAL_WORLD_SIZE``).  ``bench`` is not ported yet.
+Counterpart of ``binary_spgemm_tpu/cli.py``, every command with the same
+flags, outputs and exit codes, and two changes of name: ``--device
+{cuda,cpu}`` picks the torch device (``cuda`` unless told otherwise), and
+``graph --resident`` is the JAX CLI's ``graph --device`` (keep the iterated
+products' matrices on the device).  ``bench`` prints the reference's CSV
+line (and ``--json`` the JAX CLI's record), ``bench --scaling-report`` the
+report of :mod:`.parallel.scaling`.  ``validate --devices N`` and ``bench
+--devices N`` start N ranks on this machine (:mod:`.parallel.launch`: NCCL
+with a card a rank, else gloo); under ``torchrun`` they start the group by
+the same rule, over the ranks on its machine (``LOCAL_WORLD_SIZE``).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
+import time
 
 from .formats.bcsr import BCSR
 from .io.mmio import read_pattern, write_integer, write_pattern
@@ -43,6 +48,163 @@ def _single_device_spgemm(a, args, b=None):
     return spgemm(a, b, chunk_flops=args.chunk_flops, device=args.device)
 
 
+def _torchrun_mesh(args):
+    """Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set): start the group
+    over :func:`.parallel.launch.torchrun_backend`'s backend (NCCL only where
+    each of this machine's ranks has a card of its own) and return this
+    rank's mesh over it; ``None`` outside ``torchrun``."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None
+    from .ops.spgemm import resolve_device
+    from .parallel import multihost
+    from .parallel.launch import torchrun_backend
+
+    resolve_device(args.device)  # --device cuda without a card raises
+    multihost.initialize(backend=torchrun_backend(args.device))
+    return multihost.global_row_mesh(args.device)
+
+
+def _group_size_differs(args, mesh) -> bool:
+    if args.devices is not None and args.devices != mesh.size:
+        print(f"--devices {args.devices} != the group's {mesh.size} ranks",
+              file=sys.stderr)
+        return True
+    return False
+
+
+def _sync(device) -> None:
+    """The bench's barrier: the card's work done (nothing on the CPU)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _bench_rank(mesh, a, balance: str, b_layout: str, engine: str, times: int):
+    """``times`` repeats of C = A·A over the ranks, after a warm-up: each
+    timed between two barriers, so rank 0's walls are the slowest rank's.
+    Returns ``(output nnz, walls)``."""
+    from .parallel.dist_spgemm import dist_spgemm
+    from .parallel.multihost import barrier
+
+    def run():
+        c = dist_spgemm(a, a, mesh, balance=balance, b_layout=b_layout, engine=engine)
+        _sync(mesh.device)
+        return c
+
+    nnz = run().nnz
+    walls = []
+    for _ in range(times):
+        barrier()
+        t0 = time.perf_counter()
+        run()
+        barrier()
+        walls.append(time.perf_counter() - t0)
+    return nnz, walls
+
+
+def cmd_bench(args) -> int:
+    """C = A·A timed over ``--times`` repeats (≡ ``SpGEMM_mpi_omp path tBlock
+    threads times``): the reference's CSV line
+    ``tasks,threads,total_cpus,blocksize,path,n,input_nnz,output_nnz,mean,median,fastest``
+    and, with ``--json``, the JAX CLI's record.  ``--scaling-report`` prints
+    :mod:`.parallel.scaling`'s report instead; ``--sweep`` one CSV line per
+    ``--chunk-flops`` value."""
+    if args.sweep:
+        for value in args.sweep.split(","):
+            sub_args = argparse.Namespace(**vars(args))
+            sub_args.sweep = None
+            sub_args.chunk_flops = int(value)
+            rc = cmd_bench(sub_args)
+            if rc:
+                return rc
+        return 0
+    import torch.distributed as dist
+
+    from .ops.spgemm import resolve_device, spgemm_flops
+    from .utils.timers import BenchStats, bench_fn
+
+    device = resolve_device(args.device)
+    a = _load(args.path, args.transpose)
+    if a.n_rows != a.n_cols:
+        print("bench computes C = A*A; matrix must be square", file=sys.stderr)
+        return 2
+    mesh = _torchrun_mesh(args)
+    if mesh is not None and _group_size_differs(args, mesh):
+        return 2
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+
+    if args.scaling_report:
+        from .parallel.scaling import format_scaling_report, scaling_report
+
+        counts = None
+        if args.devices:
+            counts = [d for d in (1, 2, 4, 8, 16, 32) if d < args.devices]
+            counts.append(args.devices)
+        eng = args.engine if args.engine in ("esc", "ell") else "esc"
+        rep = scaling_report(a, device_counts=counts, balance=args.balance,
+                             times=args.times, engine=eng, b_layout=args.b_layout,
+                             device=device)
+        if rank0:
+            print(json.dumps(rep) if args.json else format_scaling_report(rep))
+        return 0
+
+    n_devices = mesh.size if mesh is not None else (args.devices or 1)
+    if mesh is not None or n_devices > 1:
+        bench = (args.balance, args.b_layout, args.engine, args.times)
+        if mesh is not None:
+            out_nnz, walls = _bench_rank(mesh, a, *bench)
+        else:
+            from .parallel.launch import launch
+
+            out_nnz, walls = launch(_bench_rank, n_devices, a, *bench, device=device,
+                                    timeout=3600.0)[0]
+        stats = BenchStats(walls)
+    else:
+        if args.tune:
+            # the model's plausibly best batched bin counts, measured once;
+            # the fastest is benched (ops/ell.py::tuned_executor)
+            from .ops.ell import tuned_executor
+
+            ex = tuned_executor(a, a, device=device)
+            if getattr(ex, "tune_report", None):
+                print("tuned: k=%d  %s" % (
+                    ex.n_chunks, " ".join(f"{k}:{t:.4f}s" for t, k in ex.tune_report)),
+                    file=sys.stderr)
+
+            def run():
+                return ex.assemble(ex.run())
+        else:
+            def run():
+                return _single_device_spgemm(a, args)
+
+        out_nnz = run().nnz  # warm-up: builds the kernels and the plan
+        _sync(device)
+        stats = bench_fn(run, repeats=args.times, barrier=lambda: _sync(device))
+    if not rank0:
+        return 0
+    blocksize = (args.chunk_flops or 0) if n_devices == 1 else a.n_rows // n_devices
+    print(f"{n_devices},1,{n_devices},{blocksize},{args.path},{a.n_rows},"
+          f"{a.nnz},{out_nnz},{stats.mean:.6f},{stats.median:.6f},{stats.fastest:.6f}")
+    if args.json:
+        flops = spgemm_flops(a, a)
+        print(json.dumps({
+            "devices": n_devices,
+            "platform": device.type,
+            "path": args.path,
+            "n": a.n_rows,
+            "input_nnz": a.nnz,
+            "output_nnz": out_nnz,
+            "flops": flops,
+            "mean_s": stats.mean,
+            "median_s": stats.median,
+            "fastest_s": stats.fastest,
+            "output_nnz_per_s": out_nnz / stats.fastest,
+            "flops_per_s": flops / stats.fastest,
+        }))
+    return 0
+
+
 def _validate_rank(mesh, a, balance: str, b_layout: str):
     from .parallel.dist_spgemm import dist_spgemm
 
@@ -54,19 +216,13 @@ def cmd_validate(args) -> int:
     ``--oracle``, the latter against scipy): the reference's ``make test``
     (SpGEMM_mpi_omp_validity)."""
     from .ops.spgemm import resolve_device
-    from .parallel import multihost
-    from .parallel.launch import launch, torchrun_backend
+    from .parallel.launch import launch
     from .utils.oracle import spgemm_oracle
 
     a = _load(args.path, args.transpose)
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # under torchrun
-        resolve_device(args.device)  # --device cuda without a card raises
-        # NCCL only where each of this machine's ranks has a card of its own
-        multihost.initialize(backend=torchrun_backend(args.device))
-        mesh = multihost.global_row_mesh(args.device)
-        if args.devices is not None and args.devices != mesh.size:
-            print(f"--devices {args.devices} != the group's {mesh.size} ranks",
-                  file=sys.stderr)
+    mesh = _torchrun_mesh(args)
+    if mesh is not None:
+        if _group_size_differs(args, mesh):
             return 2
         c_pars = [_validate_rank(mesh, a, args.balance, args.b_layout)]
     else:
@@ -230,9 +386,8 @@ def cmd_graph(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="binary_spgemm_tpu_torch",
-        description="boolean SpGEMM on a CUDA card: data generation, products, "
-        "graph ops and the distributed check",
-        epilog="bench is not ported yet",
+        description="boolean SpGEMM on a CUDA card: benchmark, data generation, "
+        "products, graph ops and the distributed check",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -272,6 +427,27 @@ def build_parser() -> argparse.ArgumentParser:
         help="B operand layout over the ranks (replicated = reference parity; "
         "sharded = all-gathered in the step; ring = rotated, O(nnz/S) memory)",
     )
+    bn = sub.add_parser("bench", parents=[common], help="time C = A*A")
+    bn.add_argument("--times", type=int, default=5, help="repeat count")
+    bn.add_argument("--json", action="store_true", help="also print a JSON record")
+    bn.add_argument(
+        "--tune", action="store_true",
+        help="measure the model's plausible-best batched bin counts once and "
+        "bench the fastest (staged; one plan per candidate)",
+    )
+    bn.add_argument(
+        "--scaling-report", action="store_true",
+        help="measure the row-partitioned step at 1..N ranks (N = --devices, or "
+        "one a card), separating per-shard compute from collective time; prints "
+        "the >=80%% efficiency report",
+    )
+    bn.add_argument(
+        "--sweep", default=None,
+        help="comma-separated chunk-flops values to sweep (one CSV line each; "
+        "the reference's tBlock blocksize sweep)",
+    )
+    bn.set_defaults(fn=cmd_bench)
+
     v = sub.add_parser("validate", parents=[common],
                        help="serial vs multi-device bit-exact check")
     v.add_argument("--oracle", action="store_true", help="also compare against scipy")

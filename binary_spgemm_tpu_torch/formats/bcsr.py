@@ -1,6 +1,6 @@
 """Boolean CSR (pattern-only) matrix container.
 
-Host-side, numpy only: ``indptr: int32[n+1]`` (int64 once the entry count
+Host-side numpy arrays: ``indptr: int32[n+1]`` (int64 once the entry count
 passes the int32 domain), ``indices: int32[nnz]``, shape ``(n, m)``.  No value
 array; the accumulation semiring is OR.  The arrays, the random generator and
 the COO->CSR grouping are element-identical to ``binary_spgemm_tpu``'s, so both
@@ -28,7 +28,10 @@ def coo_to_csr_stable(
     """Group COO entries by row with a *stable* (input-order-preserving)
     scatter: entries that share a row keep their input order and duplicates
     are not merged.  With ``n_cols`` the column indices are range-checked
-    too (a column >= ``n_cols`` would collide with the kernels' sentinels)."""
+    too (a column >= ``n_cols`` would collide with the kernels' sentinels).
+    The grouping is the native host tier's write-cursor counting sort
+    (:func:`..native.coo2csr`), and :func:`_coo_to_csr_numpy` past the
+    int32 domain."""
     rows = np.asarray(rows, dtype=np.int64)
     raw_cols = np.asarray(cols)
     if len(raw_cols) and n_cols is not None:
@@ -41,6 +44,19 @@ def coo_to_csr_stable(
     cols = raw_cols.astype(INDEX_DTYPE, copy=False)
     if len(rows) and (rows.min() < 0 or rows.max() >= n_rows):
         raise ValueError("row index out of range in COO->CSR")
+    if len(rows) > INDPTR_INT32_MAX:
+        # the native grouping works in uint32 row pointers
+        return _coo_to_csr_numpy(rows, cols, n_rows)
+    from .. import native
+
+    indptr, indices = native.coo2csr(rows, cols, n_rows)
+    return indptr.astype(INDEX_DTYPE), indices.astype(INDEX_DTYPE)
+
+
+def _coo_to_csr_numpy(rows: np.ndarray, cols: np.ndarray, n_rows: int):
+    """The numpy branch of :func:`coo_to_csr_stable` (its native tier is
+    :func:`..native.coo2csr`): a stable argsort by row; int64 row pointers
+    past the int32 domain."""
     ptr_dtype = np.int64 if len(rows) > INDPTR_INT32_MAX else INDEX_DTYPE
     counts = np.bincount(rows, minlength=n_rows)
     indptr = np.zeros(n_rows + 1, dtype=np.int64)

@@ -1,9 +1,7 @@
 """Matrix Market ingest and egest for pattern matrices.
 
-Counterpart of ``binary_spgemm_tpu/io/mmio.py``, its numpy branches (the JAX
-package falls back to them where its native parser is not built).  The
-ingest semantics that make results bit-exact with the reference's
-``readCOO``:
+Counterpart of ``binary_spgemm_tpu/io/mmio.py``.  The ingest semantics that
+make results bit-exact with the reference's ``readCOO``:
 
 * only the first two whitespace-separated fields of each entry line are read
   (value columns are skipped);
@@ -14,15 +12,24 @@ ingest semantics that make results bit-exact with the reference's
 * within a row, entries keep file order and duplicates are not merged;
 * ``symmetric`` files are expanded only on request (``expand_symmetric``).
 
-A ``.gz`` suffix reads and writes gzip transparently.
+The entry body is parsed and written by the native host tier
+(:mod:`..native`: a parallel C parser over an mmap of a large file, the
+row filter of a sharded read fused into the parse, a C formatter);
+:func:`_parse_numpy` and :func:`_format_pairs_numpy` are the numpy
+branches the tests hold it against.  A ``.gz`` suffix reads and writes gzip
+transparently.
 """
 from __future__ import annotations
 
+import contextlib
 import gzip
 import io
+import mmap
+import os
 
 import numpy as np
 
+from .. import native
 from ..formats.bcsr import BCSR
 
 __all__ = ["MMBanner", "read_banner", "read_pattern", "write_integer", "write_pattern"]
@@ -54,6 +61,91 @@ def _open(path, mode: str):
     return gzip.open(path, mode) if str(path).endswith(".gz") else open(path, mode)
 
 
+# bodies of files this large are parsed from an mmap: the OS pages the file
+# in while the parallel parser streams through it
+MMAP_BYTES = 16 << 20
+
+
+@contextlib.contextmanager
+def _open_body(path):
+    """Yield ``(banner, (n_rows, n_cols, nnz), body)`` of a coordinate file:
+    the header from a prefix read grown until it holds the size line, the
+    entry body as bytes, or as a memoryview over an mmap of a large file
+    (over the decompressed bytes of a ``.gz``), released on exit."""
+    raw = None
+    if str(path).endswith(".gz"):
+        with gzip.open(path, "rb") as gz:
+            raw = gz.read()
+    view = mm = None
+    with (io.BytesIO(raw) if raw is not None else open(path, "rb")) as f:
+        size = len(raw) if raw is not None else os.fstat(f.fileno()).st_size
+        head = f.read(1 << 16)
+        while True:
+            nl = head.find(b"\n")
+            if nl >= 0:
+                break
+            if len(head) >= size:
+                raise ValueError("missing Matrix-Market banner line")
+            head += f.read(len(head))
+        banner = read_banner(head[:nl].decode("ascii", errors="replace"))
+        if banner.format != "coordinate":
+            raise ValueError(
+                f"only coordinate format is supported, got {banner.format}"
+            )
+        # size line: the first non-blank line after the banner that is not
+        # a comment
+        pos = nl + 1
+        while True:
+            nl = head.find(b"\n", pos)
+            if nl < 0 and len(head) < size:
+                head += f.read(len(head))
+                continue
+            line = head[pos:] if nl < 0 else head[pos:nl]
+            pos = len(head) if nl < 0 else nl + 1
+            s = line.strip()
+            if s and not s.startswith(b"%"):
+                break
+            if nl < 0:
+                raise ValueError("missing size line")
+        shape_nnz = tuple(int(tok) for tok in s.split()[:3])
+        if raw is not None:
+            view = memoryview(raw)  # head is a prefix of raw
+            body = view[pos:]
+        elif size >= MMAP_BYTES:
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            view = memoryview(mm)
+            body = view[pos:]
+        else:
+            body = head[pos:] + f.read()
+    try:
+        yield banner, shape_nnz, body
+    finally:
+        if view is not None:
+            body.release()
+            view.release()
+        if mm is not None:
+            mm.close()
+
+
+def _fields(banner: MMBanner) -> int:
+    """Fields an entry line holds; only the first two are read."""
+    return {"pattern": 2, "complex": 4}.get(banner.field, 3)
+
+
+def _parse_numpy(body, nnz: int, fields: int) -> tuple[np.ndarray, np.ndarray]:
+    """The numpy branch of :func:`..native.parse_pairs`: 1-based ``(rows,
+    cols)`` int64 of ``nnz`` entries."""
+    data = np.array(bytes(body).split(), dtype=np.float64) if nnz else np.zeros(0)
+    if nnz and data.size % fields != 0:
+        raise ValueError(
+            f"entry count {data.size} not divisible by {fields} fields/line"
+        )
+    data = data.reshape(-1, fields) if nnz else data.reshape(0, 2)
+    if nnz and data.shape[0] != nnz:
+        raise ValueError(f"expected {nnz} entries, found {data.shape[0]}")
+    return data[:, 0].astype(np.int64), data[:, 1].astype(np.int64)
+
+
 def read_pattern(
     path,
     *,
@@ -68,44 +160,30 @@ def read_pattern(
     file declared ``symmetric``; the reference does not, so it is off by
     default.  ``row_range=(lo, hi)`` keeps rows ``[lo, hi)`` of the result
     only, as a ``(hi - lo, cols)`` matrix with row ids shifted by ``-lo``
-    (one process's slice of a sharded ingest)."""
+    (one process's slice of a sharded ingest): the filter runs inside the
+    parse, so the process holds only its own entries."""
     if row_range is not None and expand_symmetric:
         raise ValueError(
             "row_range with expand_symmetric is not supported (mirrored "
             "entries cross the row filter); expand first, then slice"
         )
-    with _open(path, "rb") as f:
-        raw = f.read()
-    with io.BytesIO(raw) as f:
-        banner = read_banner(f.readline().decode("ascii", errors="replace"))
-        if banner.format != "coordinate":
-            raise ValueError(
-                f"only coordinate format is supported, got {banner.format}"
-            )
-        # size line: the first non-blank line after the banner that is not
-        # a comment
-        while True:
-            line = f.readline()
-            if not line:
-                raise ValueError("missing size line")
-            s = line.strip()
-            if s and not s.startswith(b"%"):
-                break
-        n_rows, n_cols, nnz = (int(tok) for tok in s.split()[:3])
-        body = f.read()
-    # only the first two fields of each entry are used; value columns skipped
-    fields_per_line = {"pattern": 2, "complex": 4}.get(banner.field, 3)
-    data = np.array(body.split(), dtype=np.float64) if nnz else np.zeros(0)
-    if nnz and data.size % fields_per_line != 0:
-        raise ValueError(
-            f"entry count {data.size} not divisible by "
-            f"{fields_per_line} fields/line"
-        )
-    data = data.reshape(-1, fields_per_line) if nnz else data.reshape(0, 2)
-    if nnz and data.shape[0] != nnz:
-        raise ValueError(f"expected {nnz} entries, found {data.shape[0]}")
-    rows = data[:, 0].astype(np.int64) - 1
-    cols = data[:, 1].astype(np.int64) - 1
+    if row_range is not None:
+        lo, hi = (int(x) for x in row_range)
+        if lo < 0 or hi < lo:
+            raise ValueError(f"row_range {row_range} is not an interval of rows")
+    with _open_body(path) as (banner, (n_rows, n_cols, nnz), body):
+        fields = _fields(banner)
+        if not nnz:
+            rows = cols = np.zeros(0, np.uint32)
+        elif row_range is not None:
+            # the result's row is the file's second field under transpose
+            # semantics, the first otherwise
+            rows, cols = native.parse_pairs_filtered(
+                body, nnz, fields, 1 if transpose else 0, lo + 1, hi + 1)
+        else:
+            rows, cols = native.parse_pairs(body, nnz, fields)
+    rows = rows.astype(np.int64) - 1
+    cols = cols.astype(np.int64) - 1
 
     if banner.symmetry == "symmetric" and expand_symmetric:
         off = rows != cols
@@ -113,10 +191,6 @@ def read_pattern(
                       np.concatenate([cols, rows[off]]))
 
     if row_range is not None:
-        lo, hi = (int(x) for x in row_range)
-        key = cols if transpose else rows  # the field that becomes the row
-        keep = (key >= lo) & (key < hi)
-        rows, cols = rows[keep], cols[keep]
         if transpose:
             cols = cols - lo
             shape = (n_rows, hi - lo)  # swapped by from_coo(transpose=True)
@@ -127,14 +201,26 @@ def read_pattern(
     return BCSR.from_coo(rows, cols, (n_rows, n_cols), transpose=transpose)
 
 
-def _write(path, mat: BCSR, field: str, comment: str | None, columns, fmt: str):
+def _format_pairs_numpy(rows: np.ndarray, cols: np.ndarray) -> bytes:
+    """The numpy branch of :func:`..native.format_pairs`."""
+    return _savetxt([np.asarray(rows, np.int64) + 1, np.asarray(cols, np.int64) + 1],
+                    "%d %d")
+
+
+def _savetxt(columns, fmt: str) -> bytes:
+    out = io.BytesIO()
+    np.savetxt(out, np.column_stack(columns), fmt=fmt)
+    return out.getvalue()
+
+
+def _write(path, mat: BCSR, field: str, comment: str | None, body: bytes) -> None:
     with _open(path, "wb") as f:
         f.write(f"%%MatrixMarket matrix coordinate {field} general\n".encode())
         if comment:
             for line in comment.splitlines():
                 f.write(f"% {line}\n".encode())
         f.write(f"{mat.n_rows} {mat.n_cols} {mat.nnz}\n".encode())
-        np.savetxt(f, np.column_stack(columns), fmt=fmt)
+        f.write(body)
 
 
 def write_pattern(path, mat: BCSR, *, comment: str | None = None) -> None:
@@ -142,7 +228,7 @@ def write_pattern(path, mat: BCSR, *, comment: str | None = None) -> None:
     the banner, ``comment`` lines, the size line, then 1-based ``row col``
     pairs."""
     rows, cols = mat.to_coo()
-    _write(path, mat, "pattern", comment, [rows + 1, cols + 1], "%d %d")
+    _write(path, mat, "pattern", comment, native.format_pairs(rows, cols))
 
 
 def write_integer(path, mat: BCSR, values, *, comment: str | None = None) -> None:
@@ -158,4 +244,6 @@ def write_integer(path, mat: BCSR, values, *, comment: str | None = None) -> Non
             " (cast explicitly if truncation is intended)"
         )
     rows, cols = mat.to_coo()
-    _write(path, mat, "integer", comment, [rows + 1, cols + 1, values], "%d %d %d")
+    _write(path, mat, "integer", comment,
+           _savetxt([rows.astype(np.int64) + 1, cols.astype(np.int64) + 1, values],
+                    "%d %d %d"))

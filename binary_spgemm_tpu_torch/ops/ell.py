@@ -38,6 +38,7 @@ import weakref
 import numpy as np
 import torch
 
+from .. import native
 from ..formats.bcsr import BCSR
 from ..utils.timers import bench_fn, event_seconds
 from .bitonic import sort_rows as sort_rows_1key
@@ -149,7 +150,6 @@ class EllB:
         pos_in_class = np.zeros(m, np.int32)
         widths: list[int] = []
         tables: list[np.ndarray] = []
-        sentinel = b.n_cols
         if len(classes):
             # class id + stable in-class slot per nonempty row (slot order
             # within a class = ascending global row)
@@ -164,19 +164,33 @@ class EllB:
                 - np.repeat(starts, counts)
             ).astype(np.int32)
             widths = [int(wc) for wc in classes]
-            for ci, wc in enumerate(widths):
-                rows = rows_nz[ci_nz == ci]
-                # entry e of class row k lands at tbl[k, offset]
-                lens = w[rows]
-                tbl = np.full((len(rows), wc), sentinel, np.int32)
-                dst_row = np.repeat(np.arange(len(rows)), lens)
-                dst_off = np.arange(int(lens.sum()), dtype=np.int64) - np.repeat(
-                    np.cumsum(lens) - lens, lens
-                )
-                src = _segment_sources(b.indptr, rows, lens)
-                tbl[dst_row, dst_off] = b.indices[src]
-                tables.append(tbl)
+            tables = [np.empty((int(cnt), wc), np.int32)
+                      for cnt, wc in zip(counts, widths)]
+            # one parallel native pass over B's rows, within its size guard
+            if not native.table_fill(b.indptr, b.indices, class_of_row, pos_in_class,
+                                     tables, b.n_cols):
+                tables = _fill_tables_numpy(b, class_of_row, widths)
         return cls(widths, tables, class_of_row, pos_in_class, tuple(b.shape))
+
+
+def _fill_tables_numpy(b: BCSR, class_of_row: np.ndarray, widths) -> list[np.ndarray]:
+    """The numpy branch of :func:`..native.table_fill`: each class's table,
+    its rows in ascending B-row order, sentinel-padded with ``n_cols``."""
+    w = np.diff(b.indptr).astype(np.int64)
+    tables = []
+    for ci, wc in enumerate(widths):
+        rows = np.flatnonzero(class_of_row == ci)
+        # entry e of class row k lands at tbl[k, offset]
+        lens = w[rows]
+        tbl = np.full((len(rows), wc), b.n_cols, np.int32)
+        dst_row = np.repeat(np.arange(len(rows)), lens)
+        dst_off = np.arange(int(lens.sum()), dtype=np.int64) - np.repeat(
+            np.cumsum(lens) - lens, lens
+        )
+        src = _segment_sources(b.indptr, rows, lens)
+        tbl[dst_row, dst_off] = b.indices[src]
+        tables.append(tbl)
+    return tables
 
 
 def _segment_sources(
@@ -201,7 +215,17 @@ def _build_class_entries(
     Returns per-class ``(entry_rows, entry_pos)``: the output-row id and
     in-class B-row slot of every A-entry whose column belongs to the class.
     Within a class the CSR order (ascending row, file order within a row) is
-    kept — the invariant assembly relies on."""
+    kept — the invariant assembly relies on.  One parallel native pass
+    (:func:`..native.class_partition`) within its size guard, else
+    :func:`_class_entries_numpy`."""
+    out = native.class_partition(a.indptr, a.indices, ell.class_of_row,
+                                 ell.pos_in_class, len(ell.widths))
+    return out if out is not None else _class_entries_numpy(a, ell)
+
+
+def _class_entries_numpy(a: BCSR, ell: EllB) -> tuple[list[np.ndarray], list[np.ndarray]]:
+    """The numpy branch of :func:`_build_class_entries`: one stable sort of
+    the live entries by class."""
     entry_rows = np.repeat(
         np.arange(a.n_rows, dtype=np.int32), np.diff(a.indptr)
     )

@@ -1,24 +1,33 @@
 """Host (CPU) engine for the small-flop regime.
 
-Counterpart of ``binary_spgemm_tpu/ops/host.py``, its plain product.  A
-product whose Gustavson flop count is tiny (the reference's own validity
-fixture, n = 50000 with 25,000 nnz, is the canonical one) costs less on the
-host than one round trip to the card, so :func:`..spgemm.spgemm` diverts
-products of at most :data:`HOST_MAX_FLOPS` flops here, as the JAX package's
-router does, and the masked, union and fused-OR families divert their small
-products here the same way (:data:`HOST_OR_MAX_NNZ` for the last two), and
-so does ``spgemm_counts`` (:func:`host_spgemm_counts`).
+Counterpart of ``binary_spgemm_tpu/ops/host.py``.  A product whose
+Gustavson flop count is tiny (the reference's own validity fixture, n =
+50000 with 25,000 nnz, is the canonical one) costs less on the host than one
+round trip to the card, so :func:`..spgemm.spgemm` diverts products of at
+most :data:`HOST_MAX_FLOPS` flops here, as the JAX package's router does,
+and the masked, union and fused-OR families divert their small products
+here the same way (:data:`HOST_OR_MAX_NNZ` for the last two), and so does
+``spgemm_counts`` (:func:`host_spgemm_counts`).
 
-The engine is the JAX package's numpy tier: a vectorised expand–sort–compress
-(grouped-arange expansion, then ``np.unique`` over int64 ``row * m + col``
-keys), which its docstring pins order-identical to its native C tier.  The
-output contract is the device engines': exclusive row pointers, ascending
-deduplicated columns in each row, bit-exact with scipy.
+Two tiers, as in the JAX package:
+
+* the native C kernels (:func:`..native.spgemm_host`,
+  ``masked_spgemm_host``, ``spgemm_counts_host``): Gustavson with a *stamp*
+  sparse accumulator (a per-row tag instead of a bool array and its reset
+  walk) and a per-row insertion sort or qsort;
+* the numpy branches (``_spgemm_numpy``, ``_masked_spgemm_numpy``,
+  ``_spgemm_counts_numpy``): a vectorised expand–sort–compress
+  (grouped-arange expansion, then ``np.unique`` over int64 ``row * m +
+  col`` keys), taken past the native kernels' int32 domain.
+
+Both give the device engines' output contract: exclusive row pointers,
+ascending deduplicated columns in each row, bit-exact with scipy.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..formats.bcsr import BCSR
 
 __all__ = [
@@ -69,6 +78,16 @@ def host_spgemm(a: BCSR, b: BCSR) -> BCSR:
     if a.n_cols != b.n_rows:
         raise ValueError(f"shape mismatch: {a.shape} @ {b.shape}")
     n, m = a.n_rows, b.n_cols
+    res = native.spgemm_host(a.indptr, a.indices, n, m, b.indptr, b.indices, a.flops(b))
+    if res is None:
+        return _spgemm_numpy(a, b)
+    c_ptr, c_idx, _ = res
+    return BCSR(c_ptr.astype(np.int64), c_idx, (n, m))
+
+
+def _spgemm_numpy(a: BCSR, b: BCSR) -> BCSR:
+    """The numpy branch of :func:`host_spgemm`."""
+    n, m = a.n_rows, b.n_cols
     rows, cols = _expand_numpy(a, b)
     keys = np.unique(rows * np.int64(m) + cols)
     return _keys_to_csr(keys, n, m)
@@ -78,6 +97,17 @@ def host_spgemm_counts(a: BCSR, b: BCSR) -> tuple[BCSR, np.ndarray]:
     """C = A·B on the host with each entry's multiplicity (int64), the
     integer product of the 0/1 operands; the operands must be canonical
     (duplicate entries would inflate the counts)."""
+    n, m = a.n_rows, b.n_cols
+    res = native.spgemm_counts_host(a.indptr, a.indices, n, m, b.indptr, b.indices,
+                                    a.flops(b))
+    if res is None:
+        return _spgemm_counts_numpy(a, b)
+    c_ptr, c_idx, c_cnt, _ = res
+    return BCSR(c_ptr.astype(np.int64), c_idx, (n, m)), c_cnt
+
+
+def _spgemm_counts_numpy(a: BCSR, b: BCSR) -> tuple[BCSR, np.ndarray]:
+    """The numpy branch of :func:`host_spgemm_counts`."""
     n, m = a.n_rows, b.n_cols
     rows, cols = _expand_numpy(a, b)
     keys, counts = np.unique(rows * np.int64(m) + cols, return_counts=True)
@@ -96,6 +126,17 @@ def host_spm_or(a: BCSR, b: BCSR) -> BCSR:
 
 def host_masked_spgemm(f: BCSR, a: BCSR, b: BCSR) -> BCSR:
     """C = F .* (A·B) on the host (mask first; ``f`` canonical)."""
+    n, m = a.n_rows, b.n_cols
+    res = native.masked_spgemm_host(f.indptr, f.indices, a.indptr, a.indices, n, m,
+                                    b.indptr, b.indices, min(a.flops(b), f.nnz))
+    if res is None:
+        return _masked_spgemm_numpy(f, a, b)
+    c_ptr, c_idx, _ = res
+    return BCSR(c_ptr.astype(np.int64), c_idx, (n, m))
+
+
+def _masked_spgemm_numpy(f: BCSR, a: BCSR, b: BCSR) -> BCSR:
+    """The numpy branch of :func:`host_masked_spgemm`."""
     n, m = a.n_rows, b.n_cols
     rows, cols = _expand_numpy(a, b)
     keys = np.unique(rows * np.int64(m) + cols)

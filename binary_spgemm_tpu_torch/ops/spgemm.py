@@ -40,6 +40,7 @@ import math
 import numpy as np
 import torch
 
+from .. import native
 from ..formats.bcsr import BCSR
 from .bitonic import sort_rows as sort_rows_1key
 
@@ -750,8 +751,18 @@ def esc_spgemm_seps(
 
 
 def row_flops(a: BCSR, b: BCSR) -> np.ndarray:
-    """Per-output-row Gustavson flop counts of A·B (host, vectorised)."""
+    """Per-output-row Gustavson flop counts of A·B (host: one parallel
+    native pass, :func:`..native.row_weight`, within its size guard)."""
     blen = np.diff(b.indptr).astype(np.int64)
+    if a.nnz:
+        out = native.row_weight(a.indptr, a.indices, blen)
+        if out is not None:
+            return out
+    return _row_flops_numpy(a, blen)
+
+
+def _row_flops_numpy(a: BCSR, blen: np.ndarray) -> np.ndarray:
+    """The numpy branch of :func:`row_flops` (``blen``: B's row lengths)."""
     per_entry = blen[a.indices] if a.nnz else np.zeros(0, np.int64)
     cum = np.zeros(a.nnz + 1, dtype=np.int64)
     np.cumsum(per_entry, out=cum[1:])

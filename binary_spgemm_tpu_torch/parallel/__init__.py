@@ -8,6 +8,6 @@ the products, the op family, the counting family
 (``dist_spgemm_counts``, ``dist_masked_spgemm_counts``) and
 ``dist_triangle_count``, :mod:`.dist_onesort` the one-sort
 ``dist_transitive_closure`` and ``dist_k_hop``, :mod:`.multihost` the
-sharded-ingest glue, and :mod:`.dryrun` the 19 paths the JAX package's
-dryrun certifies.
+sharded-ingest glue, :mod:`.scaling` the scaling report, and
+:mod:`.dryrun` the 19 paths the JAX package's dryrun certifies.
 """

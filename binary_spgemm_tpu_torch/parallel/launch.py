@@ -64,6 +64,9 @@ def _free_port() -> int:
 def _rank_main(fn, rank: int, size: int, port: int, backend: str, device: str,
                timeout: float, inputs, results) -> None:
     try:
+        # the ranks on this machine, as torchrun says it: the native host
+        # tier divides the cores by it
+        os.environ["LOCAL_WORLD_SIZE"] = str(size)
         args = inputs.get(timeout=timeout)
         if device == "cpu":
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))

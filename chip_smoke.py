@@ -6,7 +6,8 @@
 Phases, each reported on its own lines; any failure exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
-2. the build of every kernel source (``csrc/*.cu``): seconds and ptxas report;
+2. the build of every kernel source (``csrc/*.cu``): seconds and ptxas report,
+   and of the native host tier (``native/mmparse.c``, ``cc -fopenmp``);
    K1's register and wide kernels, K3's pipe kernel and the P3/P4 group
    kernel must show no stack frame and no spills in any instantiation;
 3. K1 (bitonic_sort_rows) and K2 (fused_sort_compress) bit-equal to their
@@ -205,16 +206,36 @@ Phases, each reported on its own lines; any failure exits non-zero:
     peak device memory, K1's, P3's and P4's counts set to 0 just before the
     call and read just after.  A rank's failure or a launch past its time
     limit fails the phase;
-22. a ``{"kernels": [...]}`` line (the graph ops' K1, P3 and P4 launches
+22. the native host tier, the CLI's ``bench`` and K1's shared-memory
+    kernel: (a) each native helper (``native/``, built in phase 2) equal,
+    array for array, to its numpy branch at full size, both timed in turns
+    on the host clock: the parse of phase 21's bench ``.mtx`` (1,047,402
+    entries) and ``read_pattern`` of it, ``coo2csr`` on its entries, the
+    ELL table fill and ``_build_class_entries`` and ``row_flops`` on the
+    bench config and rmat-s16, the host engine's three products on
+    validity-class, and the bench config's set-up (``auto_executor``) on
+    the native tier and on the numpy branches; (b) ``cli.main(["bench",
+    ...])`` in this process on the bench ``.mtx`` (``--no-transpose``: the
+    bench config itself): ``--times 5 --json`` (16,703,465 nnz, 16
+    register-K1 and 8 P4 launches a run, counted from 0 just before the
+    call), ``--engine esc`` (no K1), ``--tune``, ``--sweep`` over two
+    chunk sizes and ``--devices 2`` (two gloo ranks on the one card), then
+    ``--scaling-report --devices 2 --json`` at esc x replicated and ell x
+    sharded in one group of two gloo ranks, each ``bit_exact``; every CSV
+    and JSON line printed; (c) K1's shared-memory kernel at ``[65536,
+    128]`` against its plain version, timed beside it and ``torch.sort``;
+23. a ``{"kernels": [...]}`` line (the graph ops' K1, P3 and P4 launches
     under ``launches_by_path["graph"]``, the distributed ones per rank under
-    ``launches_by_path["distributed (per rank)"]``; K1's wide kernel as an
-    entry of its own, launched on the op family's ``run_or``, with every
-    captured stream it sorts), then, last, the ``{"ok": true, ...}`` line.
+    ``launches_by_path["distributed (per rank)"]``; K1's wide and
+    shared-memory kernels as entries of their own, the wide one launched on
+    the op family's ``run_or``, with every captured stream it sorts), then,
+    last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -2128,14 +2149,295 @@ def dist_phases(torch, card: str, *, api, a, c, op_results, count_results, symme
         print(f"{S} ranks over gloo on one card: {time.perf_counter() - t0:.2f} s on the "
               f"host clock, rank start included; {card}")
         out[f"S={S} gloo"] = dist_report(runs, want, "gloo", plans(S))
-    os.remove(path)
-    return out
+    return out  # phase 22 reads the .mtx, then removes it
 
 
 def launches_on(dist: dict, key: str) -> dict:
     """``{"S=... backend": {label: [launches per rank]}}`` of one kernel."""
     return {run: {label: row[key] for label, row in rows.items()}
             for run, rows in dist.items()}
+
+
+# phase 22: the bench config's set-up on record before the native host tier
+# (git show 4357949:PERF.md, line 110), the CLI's two --chunk-flops values,
+# and the shape that puts K1 in its shared-memory window (L <= 128)
+SETUP_ON_RECORD = "1.34-1.40 s (git show 4357949:PERF.md, line 110)"
+BENCH_SWEEP = "4194304,16777216"
+SMEM_SHAPE = (65536, 128)
+
+
+def in_turns(fns: dict, rounds: int = 1) -> dict:
+    """Host-clock seconds of each ``name: fn`` called in turns, forward then
+    back, ``rounds`` times: the fastest call of each, and its result."""
+    best, out = {}, {}
+    order = list(fns.items())
+    for _ in range(rounds):
+        for name, fn in order + order[::-1]:
+            t0 = time.perf_counter()
+            out[name] = fn()
+            dt = time.perf_counter() - t0
+            best[name] = min(best.get(name, dt), dt)
+    return {"s": best, "out": out}
+
+
+def same_arrays(x, y) -> bool:
+    """Equal values of two arrays, or of two equal-length nests of them."""
+    if isinstance(x, (list, tuple)):
+        return len(x) == len(y) and all(same_arrays(p, q) for p, q in zip(x, y))
+    return np.array_equal(np.asarray(x), np.asarray(y))
+
+
+@contextlib.contextmanager
+def numpy_tier(native):
+    """A context in which the guarded native helpers return ``None``, as
+    past their size guards: every caller runs its numpy branch (the set-up's
+    A/B against the native tier)."""
+    saved = {name: getattr(native, name)
+             for name in ("class_partition", "table_fill", "row_weight")}
+    try:
+        for name in saved:
+            setattr(native, name, lambda *args, **kwargs: None)
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(native, name, fn)
+
+
+def native_phase(torch, card: str, *, api, a, a16, av, path: str,
+                 device: str = "cuda") -> dict:
+    """Phase 22a: each native helper against its numpy branch, array for
+    array, both timed in turns (host clock), at full size."""
+    native, mmio, ell, host = api["native"], api["mmio"], api["ell"], api["host"]
+    bcsr_mod, spgemm_mod = api["bcsr_mod"], api["spgemm_mod"]
+    print(f"native library {native._target().name}, {native.threads()} OpenMP threads "
+          f"of {os.cpu_count()} cores")
+    rows = {}
+
+    def row(label: str, res: dict, equal: bool, **extra) -> None:
+        check(equal, f"native {label} differs from its numpy branch")
+        rows[label] = {"native_s": res["s"]["native"], "numpy_s": res["s"]["numpy"],
+                       **extra}
+        print(f"{label}: native {res['s']['native'] * 1e3:.2f} ms, numpy "
+              f"{res['s']['numpy'] * 1e3:.2f} ms "
+              f"({res['s']['numpy'] / max(res['s']['native'], 1e-9):.1f}x), equal; "
+              f"{card}")
+
+    with mmio._open_body(path) as (banner, (n_rows, n_cols, nnz), body):
+        fields = mmio._fields(banner)
+        res = in_turns({"native": lambda: native.parse_pairs(body, nnz, fields),
+                        "numpy": lambda: mmio._parse_numpy(body, nnz, fields)})
+        (nr, nc), (pr, pc) = res["out"]["native"], res["out"]["numpy"]
+        row("parse_pairs", res, same_arrays((nr, nc), (pr, pc)), entries=nnz,
+            bytes=len(body))
+    check(nnz == a.nnz and (n_rows, n_cols) == a.shape, f"{path} is not the bench config")
+    t0 = time.perf_counter()
+    read = api["read_pattern"](path, transpose=False)
+    read_s = time.perf_counter() - t0
+    check(read.equals(a), "read_pattern of the bench .mtx differs from the bench config")
+    rows["read_pattern"] = {"native_s": read_s}
+    print(f"read_pattern of {nnz} entries ({os.path.getsize(path)} bytes): "
+          f"{read_s * 1e3:.2f} ms, equal to the bench config")
+    r0, c0 = nr.astype(np.int64) - 1, nc.astype(np.int32) - 1
+    res = in_turns({"native": lambda: native.coo2csr(r0, c0, n_rows),
+                    "numpy": lambda: bcsr_mod._coo_to_csr_numpy(r0, c0, n_rows)})
+    row("coo2csr", res, same_arrays(res["out"]["native"], res["out"]["numpy"]))
+    for label, m in (("bench", a), ("rmat-s16", a16)):
+        t0 = time.perf_counter()
+        e = ell.EllB.build(m)
+        build_s = time.perf_counter() - t0
+
+        def fill():
+            tables = [np.empty_like(t) for t in e.tables]
+            native.table_fill(m.indptr, m.indices, e.class_of_row, e.pos_in_class,
+                              tables, m.n_cols)
+            return tables
+
+        res = in_turns({"native": fill,
+                        "numpy": lambda: ell._fill_tables_numpy(m, e.class_of_row,
+                                                                e.widths)})
+        row(f"EllB.build's table fill ({label}, {len(e.widths)} classes; the whole "
+            f"build {build_s * 1e3:.2f} ms)", res,
+            same_arrays(res["out"]["native"], res["out"]["numpy"])
+            and same_arrays(e.tables, res["out"]["numpy"]), build_s=build_s)
+        res = in_turns({"native": lambda: ell._build_class_entries(m, e),
+                        "numpy": lambda: ell._class_entries_numpy(m, e)})
+        row(f"_build_class_entries ({label})", res,
+            same_arrays(list(res["out"]["native"]), list(res["out"]["numpy"])))
+        blen = np.diff(m.indptr).astype(np.int64)
+        res = in_turns({"native": lambda: spgemm_mod.row_flops(m, m),
+                        "numpy": lambda: spgemm_mod._row_flops_numpy(m, blen)})
+        row(f"row_flops ({label})", res,
+            same_arrays(res["out"]["native"], res["out"]["numpy"]))
+    for label, fn, plain in (
+            ("host_spgemm", lambda: host.host_spgemm(av, av),
+             lambda: host._spgemm_numpy(av, av)),
+            ("host_masked_spgemm", lambda: host.host_masked_spgemm(av, av, av),
+             lambda: host._masked_spgemm_numpy(av, av, av)),
+            ("host_spgemm_counts", lambda: host.host_spgemm_counts(av, av),
+             lambda: host._spgemm_counts_numpy(av, av))):
+        res = in_turns({"native": fn, "numpy": plain}, rounds=3)
+        got, want = res["out"]["native"], res["out"]["numpy"]
+        if isinstance(got, tuple):
+            equal = got[0].equals(want[0]) and same_arrays(got[1], want[1])
+        else:
+            equal = got.equals(want)
+        row(f"{label} (validity-class)", res, equal)
+
+    def setup():
+        ex = api["auto_executor"](a, a, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return ex.sort_pad, ex.n_chunks
+
+    def setup_numpy():
+        with numpy_tier(native):
+            return setup()
+
+    res = in_turns({"native": setup, "numpy": setup_numpy})
+    row("set-up: auto_executor(A, A) on the bench config", res,
+        res["out"]["native"] == res["out"]["numpy"], on_record=SETUP_ON_RECORD)
+    print(f"  (on record before the native tier: {SETUP_ON_RECORD})")
+    return rows
+
+
+def cli_lines(cli, argv: list[str]) -> tuple[list[str], list[str]]:
+    """``cli.main(argv)`` in this process: its stdout and stderr lines
+    (the call must exit 0)."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli {' '.join(argv)} exited {rc}: {err.getvalue()}")
+    return out.getvalue().splitlines(), err.getvalue().splitlines()
+
+
+def scaling_cli_rank(mesh, argvs) -> list[list[str]]:
+    """One rank of phase 22b's scaling reports: each ``bench --scaling-report``
+    through the CLI on this group (rank 0 prints)."""
+    from binary_spgemm_tpu_torch import cli
+
+    return [cli_lines(cli, argv)[0] for argv in argvs]
+
+
+def bench_cli_phase(torch, card: str, *, api, path: str, reset_counts, read_counts,
+                    k1_by_variant, routes, e2e_ms: float, device: str = "cuda") -> dict:
+    """Phase 22b: ``cli.main(["bench", ...])`` on the bench ``.mtx`` (read as
+    written, ``--no-transpose``: the bench config itself)."""
+    cli, launch = api["cli"], api["launch"]
+    base = ["bench", path, "--no-transpose", "--device", device]
+    out = {}
+
+    def record(label, lines, csv_fields=11):
+        csv = [line for line in lines if line.count(",") == csv_fields - 1]
+        check(csv, f"bench {label} printed no CSV line")
+        for line in lines:
+            print(f"  {line}")
+        out[label] = {"csv": csv}
+        return csv
+
+    reset_counts()
+    t0 = time.perf_counter()
+    lines, _ = cli_lines(cli, base + ["--times", "5", "--json"])
+    wall = time.perf_counter() - t0
+    launches, variants, sort_routes = read_counts(), dict(k1_by_variant), dict(routes)
+    print(f"bench --times 5 --json ({wall:.2f} s with the warm-up): launches "
+          f"{launches}, K1 by variant {variants}")
+    csv = record("auto", lines)
+    rec = json.loads(lines[-1])
+    runs = 6  # the warm-up and 5 repeats
+    check(rec["output_nnz"] == EXPECTED_NNZ and int(csv[0].split(",")[7]) == EXPECTED_NNZ,
+          f"bench output nnz {rec['output_nnz']} != {EXPECTED_NNZ}")
+    check(launches["bitonic_sort_rows"] == 16 * runs and variants["reg"] == 16 * runs
+          and launches["class_gather_keys"] == 8 * runs
+          and launches["class_gather"] == 0 and sort_routes["torch_sort"] == 0,
+          f"bench: not 16 register-K1 and 8 P4 launches a run: {launches}, {variants}")
+    out["auto"].update(json=rec, launches=launches)
+    print(f"bench median {rec['median_s'] * 1e3:.2f} ms (fastest "
+          f"{rec['fastest_s'] * 1e3:.2f}) against phase 7's run() + assemble() median "
+          f"{e2e_ms:.2f} ms (CUDA events); {card}")
+
+    reset_counts()
+    lines, _ = cli_lines(cli, base + ["--times", "3", "--engine", "esc", "--json"])
+    launches = read_counts()
+    record("esc", lines)
+    check(json.loads(lines[-1])["output_nnz"] == EXPECTED_NNZ
+          and launches["bitonic_sort_rows"] == 0, f"bench --engine esc: {launches}")
+    out["esc"]["json"] = json.loads(lines[-1])
+
+    lines, err = cli_lines(cli, base + ["--times", "3", "--tune", "--json"])
+    record("tune", lines)
+    check(any(line.startswith("tuned: k=") for line in err)
+          and json.loads(lines[-1])["output_nnz"] == EXPECTED_NNZ, "bench --tune")
+    print(f"  (stderr) {' '.join(err)}")
+    out["tune"]["json"] = json.loads(lines[-1])
+
+    lines, _ = cli_lines(cli, base + ["--times", "2", "--sweep", BENCH_SWEEP])
+    csv = record("sweep", lines)
+    check([line.split(",")[3] for line in csv] == BENCH_SWEEP.split(",")
+          and all(int(line.split(",")[7]) == EXPECTED_NNZ for line in csv),
+          f"bench --sweep {BENCH_SWEEP}: {csv}")
+
+    t0 = time.perf_counter()
+    lines, _ = cli_lines(cli, base + ["--times", "3", "--devices", "2", "--json"])
+    print(f"bench --devices 2 (two gloo ranks on the one card): "
+          f"{time.perf_counter() - t0:.2f} s with the rank start; {card}")
+    csv = record("devices 2", lines)
+    check(csv[0].split(",")[0] == "2" and json.loads(lines[-1])["output_nnz"]
+          == EXPECTED_NNZ, f"bench --devices 2: {csv}")
+    out["devices 2"]["json"] = json.loads(lines[-1])
+
+    argvs = [base + ["--scaling-report", "--devices", "2", "--times", "3", "--json",
+                     "--engine", eng, "--b-layout", lay]
+             for eng, lay in (("esc", "replicated"), ("ell", "sharded"))]
+    t0 = time.perf_counter()
+    reports = launch(scaling_cli_rank, 2, argvs, device=device, timeout=DIST_TIMEOUT_S)
+    print(f"bench --scaling-report --devices 2 at esc x replicated and ell x sharded, "
+          f"one group of two gloo ranks on the one card: "
+          f"{time.perf_counter() - t0:.2f} s with the rank start; {card}")
+    check(all(lines == [] for lines in reports[1]), "rank 1 printed a report")
+    for (eng, lay), lines in zip((("esc", "replicated"), ("ell", "sharded")), reports[0]):
+        print(f"  {lines[-1]}")
+        rep = json.loads(lines[-1])
+        check(rep["kind"] == "scaling_report" and rep["bit_exact"] is True
+              and rep["platform"] == device and [r["devices"] for r in rep["rows"]]
+              == [1, 2] and (device == "cpu" or rep["cards"] == torch.cuda.device_count()),
+              f"scaling report {eng} x {lay}: {rep}")
+        check(all(r["compute_s"] is not None for r in rep["rows"]),
+              f"scaling report {eng} x {lay} has no compute-only time")
+        out[f"scaling {eng} x {lay}"] = rep
+    print("ranks share the one card, so the scaling rows measure card sharing, not "
+          "scaling")
+    return out
+
+
+def smem_phase(torch, card: str, *, bitonic, rng) -> dict:
+    """Phase 22c: K1's shared-memory kernel in its own window (L <= 128)."""
+    k, L = SMEM_SHAPE
+    check(bitonic.k1_variant(L) == "smem", f"K1 takes L = {L} with another kernel")
+    x = torch.from_numpy(rng.integers(INT32_MIN, INT32_MAX, (k, L), dtype=np.int64,
+                                      endpoint=True).astype(np.int32)).to("cuda")
+    x[0, :5] = INT32_MAX
+    got, want = bitonic.bitonic_sort_rows(x), bitonic.bitonic_sort_rows_plain(x)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    check(torch.equal(got, want), f"K1 (smem) differs from its plain version at {[k, L]}")
+    fns = [("k1", lambda: bitonic.bitonic_sort_rows(x)),
+           ("plain", lambda: bitonic.bitonic_sort_rows_plain(x)),
+           ("lib", lambda: torch.sort(x, dim=1))]
+    for _, fn in fns:
+        fn()
+    times: dict[str, list[float]] = {}
+    for name, fn in fns + fns[::-1]:
+        times.setdefault(name, []).append(event_ms(torch, fn, 50))
+    t = {name: min(v) for name, v in times.items()}
+    bound, bound_by = sort_bound_ms(x.numel(), L)
+    print(f"K1 (smem) at {[k, L]}: bit-equal to its plain version; {t['k1']:.4f} ms, "
+          f"plain {t['plain']:.4f} ms, torch.sort {t['lib']:.4f} ms, bound "
+          f"{bound:.4f} ms ({bound_by}); {card}")
+    return {"ms": t["k1"], "plain_ms": t["plain"], "library_ms": t["lib"],
+            "bound_ms": bound, "bound_by": bound_by, "shape": [k, L],
+            "max_abs_err": err}
 
 
 def run_smoke() -> dict:
@@ -2153,7 +2455,7 @@ def run_smoke() -> dict:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     sys.path.insert(0, ROOT)
-    from binary_spgemm_tpu_torch import BCSR, _build, auto_executor, spgemm
+    from binary_spgemm_tpu_torch import BCSR, _build, auto_executor, native, spgemm
     from binary_spgemm_tpu_torch.benchmarks import k1_wide_shapes
     from binary_spgemm_tpu_torch.ops import (
         bitonic, block_matmul, bsr, ell, gather, host)
@@ -2164,6 +2466,10 @@ def run_smoke() -> dict:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    native.lib()  # the native host tier (a C build with OpenMP)
+    print(f"native host tier: {native._target().name} ({' '.join(native.CFLAGS)}) "
+          f"in {time.perf_counter() - t0:.2f} s")
     for stem, rec in sorted(_build.build_log.items()):
         print(f"{stem}: nvcc {rec['seconds']:.2f} s")
         for line in rec["ptxas"].splitlines():
@@ -3047,6 +3353,26 @@ def run_smoke() -> dict:
                             closure=gr.pop("closure_input"))
     del op_results, count_results, bench_symmetric
 
+    phase("22. the native host tier, the CLI's bench and K1's shared-memory kernel")
+    from binary_spgemm_tpu_torch import cli, read_pattern
+    from binary_spgemm_tpu_torch.formats import bcsr as bcsr_mod
+    from binary_spgemm_tpu_torch.io import mmio
+
+    t22 = time.perf_counter()
+    path = os.path.join(ROOT, "build", "dist_bench.mtx")  # phase 21 wrote it
+    api.update(native=native, mmio=mmio, bcsr_mod=bcsr_mod, read_pattern=read_pattern,
+               cli=cli)
+    scale, ef, seed_r = RMAT16
+    native_rows = native_phase(torch, f"on {smi}", api=api, a=a,
+                               a16=BCSR.rmat(scale, ef, seed=seed_r), av=av, path=path)
+    bench_cli = bench_cli_phase(
+        torch, f"on {smi}", api=api, path=path, reset_counts=reset_counts,
+        read_counts=read_counts, k1_by_variant=k1_by_variant, routes=routes,
+        e2e_ms=statistics.median(e2e_ms))
+    os.remove(path)
+    smem = smem_phase(torch, f"on {smi}", bitonic=bitonic, rng=rng)
+    print(f"phase 22: {time.perf_counter() - t22:.2f} s on the host clock; {smi}")
+
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
     # K1's wide kernel: its own path is the op family's A ∪ A·A (run_or), the
     # op that sorts the most with it; every captured stream it sorts is a row
@@ -3092,6 +3418,14 @@ def run_smoke() -> dict:
                    for label, rec in (*ops["products"].items(), *cnt["products"].items(),
                                       *gr["products"].items())},
                 "distributed (per rank)": launches_on(dist_runs, "k1_wide")},
+        },
+        {
+            "name": "bitonic_sort_rows (smem)", "route": "cuda", "source": src,
+            "replaces": "binary_spgemm_tpu/ops/bitonic.py:114",
+            "launches": k1_variants["smem"], "max_abs_err": smem["max_abs_err"],
+            **{key: smem[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "shape")},
+            "on_main_path": False, "variant": "smem",
         },
         {
             "name": "fused_sort_compress", "route": "cuda", "source": src,
@@ -3207,8 +3541,8 @@ def run_smoke() -> dict:
             "on_main_path": False,
         },
     ]
-    phase("22. kernels")
-    paths = {"distributed": {run: {label: row["s"] for label, row in rows.items()}
+    phase("23. kernels")
+    paths = {"native": native_rows, "bench_cli": bench_cli, "distributed": {run: {label: row["s"] for label, row in rows.items()}
                              for run, rows in dist_runs.items()},"rmat-s16": times16, "rmat-s18-e8": times18, "random-32k": times32,
              "esc": esc, "op_family": {k: ops[k] for k in ("times", "cummax_ms")},
              "counting": cnt["times"],

@@ -150,3 +150,22 @@ def from_local(mesh, path: str, b, n: int) -> dict:
     out = run_cases(mesh, cases)
     multihost.barrier("post-local")
     return {"results": out, "ranges": ranges, "global": (g.rank, g.size, g.backend)}
+
+
+def scaling_reports(mesh, a, combos, kwargs) -> dict:
+    """``scaling_report`` of each ``(engine, b_layout)`` in ``combos`` on
+    this rank's group (every rank calls it; the report is rank 0's)."""
+    from binary_spgemm_tpu_torch.parallel.scaling import scaling_report
+
+    return {combo: scaling_report(a, engine=combo[0], b_layout=combo[1],
+                                  device=mesh.device, **kwargs)
+            for combo in combos}
+
+
+def native_threads(mesh) -> tuple:
+    """This rank's ``LOCAL_WORLD_SIZE`` and the native tier's thread count."""
+    import os
+
+    from binary_spgemm_tpu_torch import native
+
+    return os.environ.get("LOCAL_WORLD_SIZE"), native.threads()

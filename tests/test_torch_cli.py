@@ -1,10 +1,12 @@
 """The port's CLI (``binary_spgemm_tpu_torch.cli``: ``gen``, ``multiply``,
-``graph``) against the JAX package's, on the CPU (``--device cpu``): the same
-commands on the same files write byte-equal output files and print the same
-lines, whatever engine or route the port takes; the error exits (code 2)
-are the JAX CLI's; ``--resident`` is the JAX CLI's ``graph --device``;
-``validate`` over launched gloo ranks prints the JAX CLI's lines, and
-``bench`` is not registered yet."""
+``graph``, ``validate``, ``bench``) against the JAX package's, on the CPU
+(``--device cpu``): the same commands on the same files write byte-equal
+output files and print the same lines, whatever engine or route the port
+takes; the error exits (code 2) are the JAX CLI's; ``--resident`` is the JAX
+CLI's ``graph --device``; ``validate`` over launched gloo ranks prints the
+JAX CLI's lines; ``bench`` prints the JAX CLI's CSV fields and JSON keys,
+and its scaling report the JAX report's keys."""
+import json
 import os
 import subprocess
 import sys
@@ -188,9 +190,13 @@ def test_parser_names():
     args = p.parse_args(["validate", "a.mtx"])
     assert (args.device, args.devices, args.balance, args.b_layout, args.engine,
             args.oracle) == ("cuda", None, "flops", "replicated", "auto", False)
-    with pytest.raises(SystemExit):
-        p.parse_args(["bench", "a.mtx"])
-    assert "bench is not ported yet" in p.format_help()
+    # bench parses with the JAX CLI's defaults, plus --device
+    j = vars(jx_cli.build_parser().parse_args(["bench", "a.mtx"]))
+    t = vars(p.parse_args(["bench", "a.mtx"]))
+    assert t.pop("device") == "cuda"
+    assert {k: v for k, v in t.items() if k != "fn"} == {k: v for k, v in j.items()
+                                                          if k != "fn"}
+    assert t["fn"] is tp_cli.cmd_bench
 
 
 @pytest.mark.parametrize("argv", [
@@ -315,3 +321,75 @@ def test_module_entry_point_and_script(tmp_path):
     assert read_pattern(out, transpose=False).shape == (64, 64)
     with open(os.path.join(ROOT, "pyproject.toml")) as fh:
         assert 'binary-spgemm-tpu-torch = "binary_spgemm_tpu_torch.cli:main"' in fh.read()
+
+
+def bench_lines(capsys, jax_argv, port_argv):
+    """stdout lines of the JAX CLI's ``bench``, then the port's."""
+    j, t = both(capsys, ["bench", *jax_argv], ["bench", *port_argv, *CPU])
+    return j.strip().splitlines(), t.strip().splitlines()
+
+
+def test_bench_csv_schema(mtx, capsys):
+    j, t = bench_lines(capsys, [mtx, "--times", "2", "--json"],
+                       [mtx, "--times", "2", "--json"])
+    csv = t[0].split(",")
+    # tasks,threads,total_cpus,blocksize,path,n,input_nnz,output_nnz,mean,median,fastest
+    assert len(csv) == len(j[0].split(",")) == 11
+    assert csv[:8] == j[0].split(",")[:8] == ["1", "1", "1", "0", mtx, "200",
+                                               csv[6], csv[7]]
+    assert float(csv[8]) > 0 and float(csv[10]) <= float(csv[8]) * 1.5
+    rec, jrec = json.loads(t[1]), json.loads(j[1])
+    assert sorted(rec) == sorted(jrec)
+    assert rec["n"] == 200 and rec["output_nnz"] == int(csv[7]) == jrec["output_nnz"]
+    assert rec["output_nnz_per_s"] > 0 and rec["platform"] == "cpu"
+    assert (rec["flops"], rec["input_nnz"]) == (jrec["flops"], jrec["input_nnz"])
+
+
+def test_bench_multidevice(mtx, capsys):
+    """``--devices 4`` starts 4 gloo ranks; the CSV names 4 tasks and the
+    JAX CLI's output nnz."""
+    j, t = bench_lines(capsys, [mtx, "--times", "1", "--devices", "4"],
+                       [mtx, "--times", "1", "--devices", "4"])
+    csv = t[0].split(",")
+    assert csv[0] == "4" and csv[:8] == j[0].split(",")[:8]
+
+
+def test_bench_rejects_rectangular(tmp_path):
+    p = str(tmp_path / "r.mtx")
+    jx.write_pattern(p, jx.BCSR.random(20, 30, 1.0, seed=0))
+    assert jx_cli.main(["bench", p, "--no-transpose"]) == 2
+    assert tp_cli.main(["bench", p, "--no-transpose", *CPU]) == 2
+
+
+def test_bench_tune(mtx, capsys):
+    # --tune measures the model's plausibly best batched plans and benches
+    # the winner (a staged executor)
+    j, t = bench_lines(capsys, [mtx, "--tune", "--times", "1", "--json"],
+                       [mtx, "--tune", "--times", "1", "--json"])
+    assert len(t[0].split(",")) == len(j[0].split(",")) == 11
+    assert json.loads(t[1])["output_nnz"] == json.loads(j[1])["output_nnz"] > 0
+
+
+def test_bench_blocksize_sweep(mtx, capsys):
+    j, t = bench_lines(capsys, [mtx, "--times", "1", "--sweep", "4096,16384"],
+                       [mtx, "--times", "1", "--sweep", "4096,16384"])
+    lines = [line for line in t if "," in line]
+    assert len(lines) == 2
+    assert lines[0].split(",")[3] == "4096" and lines[1].split(",")[3] == "16384"
+    assert [x.split(",")[:8] for x in lines] == [x.split(",")[:8] for x in j if "," in x]
+
+
+def test_scaling_report_cli(tmp_path, capsys):
+    """``bench --scaling-report --devices 2 --json``: the JAX report's keys,
+    counts 1 and 2, bit-exact at 2 ranks."""
+    path = str(tmp_path / "m.mtx")
+    jx.write_pattern(path, jx.BCSR.random(500, 500, 3.0, seed=4))
+    j, t = bench_lines(capsys, [path, "--scaling-report", "--devices", "2", "--times",
+                                "1", "--json"],
+                       [path, "--scaling-report", "--devices", "2", "--times", "1",
+                        "--json"])
+    rep, jrep = json.loads(t[-1]), json.loads(j[-1])
+    assert rep["kind"] == "scaling_report" and sorted(rep) == sorted(jrep)
+    assert [r["devices"] for r in rep["rows"]] == [1, 2]
+    assert rep["bit_exact"] is True and rep["platform"] == "cpu"
+    assert sorted(rep["rows"][0]) == sorted(jrep["rows"][0])
