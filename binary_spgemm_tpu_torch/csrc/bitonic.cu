@@ -3,38 +3,64 @@
 // K1  bitonic_sort_rows(x)            replaces binary_spgemm_tpu/ops/bitonic.py::bitonic_sort_rows
 //     Each row of an int32 [k, L] array sorted ascending (signed compares).  Three
 //     kernels, chosen by L alone (ops/bitonic.py::k1_variant):
+//       "warp"  sort_rows_warp_kernel   1 <= L <= 128        one warp a row: registers
+//                                                            and warp shuffles only
 //       "reg"   sort_rows_reg_kernel    129 <= L <= 4096     registers and warp shuffles
 //       "wide"  sort_rows_wide_kernel   4097 <= L <= 32768   one row a block: registers,
 //                                                            shuffles, shared memory
 //                                                            across warps
-//       "smem"  sort_rows_kernel        L <= 128             the whole network in shared
+//     and the yardstick they are timed against, launched by no path:
+//       "smem"  sort_rows_kernel        1 <= L <= 32768      the whole network in shared
 //                                                            memory
 //     The TPU kernel takes L = 4096 only; the JAX package sorts longer rows with lax.sort.
 // K2  fused_sort_compress(x, limit)   replaces binary_spgemm_tpu/ops/bitonic.py::fused_sort_compress
 //     Sort the row; keep an entry if it differs from its left neighbour (position 0
-//     always) and is below `limit`; set the rest to INT32_MAX; sort again.
+//     always) and is below `limit`; set the rest to INT32_MAX; sort again.  After the
+//     first sort the kept entries are ascending and distinct and every other entry
+//     becomes INT32_MAX, so the second sort's result is the kept entries packed to the
+//     front of the row in the same order, then INT32_MAX up to L: a stream compaction.
+//     K2 is K1's kernel for the row's window (the same k1_variant) with the kCompress
+//     epilogue in place of the store, on the sorted slots still in registers: the keep
+//     mask (a slot's left neighbour is in the same thread's registers, except for its
+//     first slot's: from the lane before by __shfl_up_sync in the warp kernel, from
+//     shared memory, which holds the sorted row for the store, in the block kernels),
+//     an exclusive scan of the kept counts over the row's threads (shuffles in a warp,
+//     shared memory across the warps of a row), then the kept values written to their
+//     packed places and INT32_MAX from the row's count to L.  The earlier design,
+//     fused_sort_compress_kernel (two whole networks in shared memory with a dedup pass
+//     between), is the "smem" yardstick, launched by no path.
 // P1  bitonic_network_rows(x, 1)      replaces benchmarks/pallas_sort.py::make_bitonic
 // P2  bitonic_network_rows(x, lk0)    replaces benchmarks/ab_wruns.py::make_kernel
 //     The same network over rows of a power-of-two length L, run only from the merge of
 //     size 2^lk0 on: lk0 = 1 is the whole network (a sort); lk0 = log2(2w) skips the
 //     merges that w-aligned sorted runs of alternating direction already satisfy.  K1's
-//     kernels run it, chosen by L as K1 chooses (bitonic_network_rows,
+//     kernels run it, chosen by L as K1 chooses (bitonic_network_rows_warp,
 //     bitonic_network_rows_reg and bitonic_network_rows_wide); K1 and K2 pass
 //     lk0 = 1.  A merge is skipped whole by a test that is the same for every thread
 //     of the block, so the guard adds no divergence and no template instantiation.
 //
 // Design.  The TPU kernel held [B, L] row blocks in VMEM and found bitonic partners
-// with two lane rotations per stage.  Here a thread block owns whole rows.  It loads
-// them into shared memory, pads each row to the next power of two P with INT32_MAX,
-// runs the ascending bitonic network, and writes back the first L entries of each row:
-// the padding is the largest value, so those are the sorted row.
+// with two lane rotations per stage.  Here a warp or a thread block owns whole rows,
+// pads each row to the next power of two P with INT32_MAX, runs the ascending bitonic
+// network, and writes back the first L entries of each row: the padding is the largest
+// value, so those are the sorted row.
 //
-// sort_rows_kernel (K1 "smem", K2, and the yardstick the other two are timed against
-// at their lengths) runs every step of the network in shared memory
-// with __syncthreads between steps: one block owns R rows (R = 1 from L = 2049 up), L
-// may be anything from 1 up to 32768 (P * 4 bytes = 128 KB of shared memory).  K2 runs
-// the network twice in the same block with the keep/demote pass between them, so the
-// row makes one device-memory round trip instead of three.
+// sort_rows_kernel (the "smem" yardstick, K1's earlier design) runs every step of the network in
+// shared memory with __syncthreads between steps: one block owns R rows (R = 1 from L =
+// 2049 up), L may be anything from 1 up to 32768 (P * 4 bytes = 128 KB of shared
+// memory).  fused_sort_compress_kernel runs it twice in the same block with the
+// keep/demote pass between them.
+//
+// sort_rows_warp_kernel (K1 "warp", P = 2^0 ... 2^7) holds a row in one warp's
+// registers: lane l holds the N = max(1, P / 32) contiguous slots N l + e of its warp's
+// slots (one row from P = 32 up, 32 / P rows below), partner distances below N run
+// inside the lane and the rest by __shfl_xor_sync, so it uses no shared memory and no
+// barrier.  Steps by place at P = 128: 13 register, 15 shuffle; P = 64: 6 register, 15
+// shuffle; P <= 32: every step a shuffle.  A block is 8 independent warps.  Rows whose
+// start is (4 N)-byte aligned (L % N == 0) load and store N slots a lane as one vector.
+// Its time goes to instructions (a few a slot and step), so K1 and K2 run the wide
+// kernel's all-ascending form, which has no direction selects (chip_smoke.py times it
+// beside the alternating form, the network's, at [65536, 128]).
 //
 // sort_rows_reg_kernel (K1 "reg", P = 2^8 ... 2^12) keeps the network out of shared
 // memory where it can.  One block of 512 threads sorts 4096 slots (4096 / P rows);
@@ -70,11 +96,12 @@
 // 2 * 4 * k * L bytes over 3.35 TB/s.  The kernels do log2(P) * (log2(P) + 1) / 2 steps
 // of P / 2 compare-exchanges per row, so they are bound by that work (shuffles and
 // shared-memory accesses, which share one pipe, integer compares and barriers), not by
-// device memory.
+// device memory.  K2's epilogue adds O(P) work a row to one sort.
 //
 // Every entry point returns cudaGetLastError() after its launch; 0 means launched.
 
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
@@ -174,6 +201,59 @@ __global__ void fused_sort_compress_kernel(const int* __restrict__ x, int* __res
   dedup_demote(s, log_p, n, limit);
   bitonic_network(s, log_p, n, 1);
   store_rows(out, s, k, L, log_p, n, row0);
+}
+
+// ---- K2's epilogue, shared by the warp, register and wide kernels --------------------
+
+// Bit e: keep slot e of a thread's N sorted slots: it is the first slot of its row
+// (`first`, for e = 0) or differs from its left neighbour (`left`, the slot before the
+// thread's first), and it is below `limit`.  INT32_MAX is never below an int32 limit,
+// so the padding is never kept.
+template <int N>
+__device__ __forceinline__ unsigned keep_mask(const int (&r)[N], int left, bool first,
+                                              int limit) {
+  static_assert(N <= 32, "a thread's keep mask is 32 bits");
+  unsigned keep = 0;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const bool differs = e ? r[e] != r[e - 1] : (first || r[0] != left);
+    keep |= (unsigned)(differs && r[e] < limit) << e;
+  }
+  return keep;
+}
+
+// Inclusive sum of v over aligned groups of WIDTH lanes.
+template <int WIDTH>
+__device__ __forceinline__ int inclusive_sum(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < WIDTH; d <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, v, d, WIDTH);
+    if ((lane & (WIDTH - 1)) >= d) v += o;
+  }
+  return v;
+}
+
+// The kept slots of a thread to their packed places put(p, value), p = from, from + 1, ...
+template <int N, typename Put>
+__device__ __forceinline__ void scatter_kept(const int (&r)[N], unsigned keep, int from,
+                                             Put put) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    if (keep >> e & 1) put(from++, r[e]);
+  }
+}
+
+// store_rows for K2: column c of a row is its packed slot below the row's kept count,
+// INT32_MAX from there to L.
+__device__ __forceinline__ void store_packed(int* __restrict__ out, const int* s,
+                                             const int* row_kept, long long k, int L,
+                                             int log_p, int n, long long row0) {
+  const int P = 1 << log_p;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const long long row = row0 + (e >> log_p);
+    const int c = e & (P - 1);
+    if (c < L && row < k) out[row * L + c] = c < row_kept[e >> log_p] ? s[e] : INT_MAX;
+  }
 }
 
 // ---- K1 "reg": registers and warp shuffles -------------------------------------------
@@ -300,10 +380,12 @@ __device__ __forceinline__ void sort_network(int (&r)[kRegPerThread], int* s, in
   if constexpr (LK < LOG_P) sort_network<LOG_P, LK + 1>(r, s, t, lk0);
 }
 
-template <int LOG_P>
+// kCompress: K2.  A row is P / 8 >= 32 threads, so whole warps; the left neighbour of a
+// thread's first slot is read back from shared memory, where the sorted slots are.
+template <int LOG_P, bool kCompress>
 __global__ void __launch_bounds__(kRegThreads)
     sort_rows_reg_kernel(const int* __restrict__ x, int* __restrict__ out, long long k, int L,
-                         int lk0) {
+                         int lk0, int limit) {
   __shared__ __align__(16) int s[kRegSlots];
   const int t = threadIdx.x;
   const long long row0 = (long long)blockIdx.x * (kRegSlots >> LOG_P);
@@ -313,15 +395,43 @@ __global__ void __launch_bounds__(kRegThreads)
   sort_network<LOG_P, 1>(r, s, t, lk0);
   to_shared(r, s, t);
   __syncthreads();
-  store_rows(out, s, k, L, LOG_P, kRegSlots, row0);
+  if constexpr (kCompress) {
+    constexpr int kRowThreads = (1 << LOG_P) / kRegPerThread;
+    constexpr int kRowWarps = kRowThreads / 32;
+    __shared__ int warp_kept[kRegThreads / 32];
+    __shared__ int row_kept[kRegSlots >> kRegMinLogP];
+    const int lane = t & 31, warp = t >> 5;
+    const bool first = (t & (kRowThreads - 1)) == 0;
+    const unsigned keep =
+        keep_mask(r, first ? 0 : s[kRegPerThread * t - 1], first, limit);
+    const int kept = __popc(keep);
+    const int inc = inclusive_sum<32>(kept, lane);
+    if (lane == 31) warp_kept[warp] = inc;
+    __syncthreads();  // every left neighbour read, every warp's count written
+    const int w0 = warp & ~(kRowWarps - 1);
+    int before = inc - kept, total = 0;
+#pragma unroll
+    for (int w = 0; w < kRowWarps; ++w) {
+      const int v = warp_kept[w0 + w];
+      total += v;
+      if (w0 + w < warp) before += v;
+    }
+    int* row_s = s + ((kRegPerThread * t) & ~((1 << LOG_P) - 1));
+    scatter_kept(r, keep, before, [&](int p, int v) { row_s[p] = v; });
+    if (first) row_kept[t / kRowThreads] = total;
+    __syncthreads();
+    store_packed(out, s, row_kept, k, L, LOG_P, kRegSlots, row0);
+  } else {
+    store_rows(out, s, k, L, LOG_P, kRegSlots, row0);
+  }
 }
 
-template <int LOG_P>
-cudaError_t launch_reg(const int* x, int* out, long long k, int L, int lk0,
+template <int LOG_P, bool kCompress>
+cudaError_t launch_reg(const int* x, int* out, long long k, int L, int lk0, int limit,
                        cudaStream_t stream) {
   constexpr long long rows = kRegSlots >> LOG_P;
-  sort_rows_reg_kernel<LOG_P><<<(unsigned)((k + rows - 1) / rows), kRegThreads, 0, stream>>>(
-      x, out, k, L, lk0);
+  sort_rows_reg_kernel<LOG_P, kCompress>
+      <<<(unsigned)((k + rows - 1) / rows), kRegThreads, 0, stream>>>(x, out, k, L, lk0, limit);
   return cudaGetLastError();
 }
 
@@ -411,7 +521,10 @@ template <int LOG_P, int LOG_N, bool kSort, int LK, int LJ>
 __device__ __forceinline__ void wide_shuffle_step(int (&r)[1 << LOG_N], int t) {
   constexpr int N = 1 << LOG_N;
   const bool lower = (t & (1 << (LJ - LOG_N))) == 0;
-  if constexpr (kSort && LJ == LK - 1) {
+  if constexpr (kSort && LJ == LK - 1 && N == 1) {
+    const int o = __shfl_xor_sync(0xffffffffu, r[0], (1 << LK) - 1);
+    r[0] = lower ? min(r[0], o) : max(r[0], o);
+  } else if constexpr (kSort && LJ == LK - 1) {
     constexpr int m = (1 << (LK - LOG_N)) - 1;
 #pragma unroll
     for (int e = 0; e < N / 2; ++e) {
@@ -497,9 +610,11 @@ __device__ __forceinline__ void wide_network(int (&r)[1 << LOG_N], int* s, int t
   if constexpr (LK < LOG_P) wide_network<LOG_P, LOG_N, kSort, LK + 1>(r, s, t, L, active, lk0);
 }
 
-template <int LOG_P, int LOG_N, bool kSort>
+// kCompress (with kSort): K2.  The row is the whole block; an idle warp keeps nothing.
+template <int LOG_P, int LOG_N, bool kSort, bool kCompress>
 __global__ void __launch_bounds__(1 << (LOG_P - LOG_N))
-    sort_rows_wide_kernel(const int* __restrict__ x, int* __restrict__ out, int L, int lk0) {
+    sort_rows_wide_kernel(const int* __restrict__ x, int* __restrict__ out, int L, int lk0,
+                          int limit) {
   constexpr int N = 1 << LOG_N, T = 1 << (LOG_P - LOG_N);
   extern __shared__ __align__(16) int ws[];
   const int t = threadIdx.x;
@@ -521,17 +636,39 @@ __global__ void __launch_bounds__(1 << (LOG_P - LOG_N))
   wide_network<LOG_P, LOG_N, kSort, 1>(r, ws, t, L, active, lk0);
   if (active) wide_to_shared<LOG_N>(r, ws, t);
   __syncthreads();
-  for (int c = t; c < L; c += T) out[base + c] = ws[swz<LOG_N>(c)];
+  if constexpr (kCompress) {
+    static_assert(kSort, "K2 runs the all-ascending form");
+    __shared__ int warp_kept[32];
+    const int lane = t & 31, warp = t >> 5;
+    const unsigned keep =
+        active ? keep_mask(r, t ? ws[swz<LOG_N>((t << LOG_N) - 1)] : 0, t == 0, limit) : 0u;
+    const int kept = __popc(keep);
+    const int inc = inclusive_sum<32>(kept, lane);
+    if (lane == 31) warp_kept[warp] = inc;
+    __syncthreads();  // every left neighbour read, every warp's count written
+    int before = inc - kept, total = 0;
+#pragma unroll
+    for (int w = 0; w < T / 32; ++w) {
+      const int v = warp_kept[w];
+      total += v;
+      if (w < warp) before += v;
+    }
+    scatter_kept(r, keep, before, [&](int p, int v) { ws[swz<LOG_N>(p)] = v; });
+    __syncthreads();
+    for (int c = t; c < L; c += T) out[base + c] = c < total ? ws[swz<LOG_N>(c)] : INT_MAX;
+  } else {
+    for (int c = t; c < L; c += T) out[base + c] = ws[swz<LOG_N>(c)];
+  }
 }
 
-template <int LOG_P, int LOG_N, bool kSort>
-cudaError_t launch_wide_shape(const int* x, int* out, long long k, int L, int lk0,
+template <int LOG_P, int LOG_N, bool kSort, bool kCompress = false>
+cudaError_t launch_wide_shape(const int* x, int* out, long long k, int L, int lk0, int limit,
                               cudaStream_t stream) {
   constexpr size_t smem = sizeof(int) << LOG_P;
-  const auto kernel = sort_rows_wide_kernel<LOG_P, LOG_N, kSort>;
+  const auto kernel = sort_rows_wide_kernel<LOG_P, LOG_N, kSort, kCompress>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)k, 1 << (LOG_P - LOG_N), smem, stream>>>(x, out, L, lk0);
+  kernel<<<(unsigned)k, 1 << (LOG_P - LOG_N), smem, stream>>>(x, out, L, lk0, limit);
   return cudaGetLastError();
 }
 
@@ -541,10 +678,11 @@ cudaError_t launch_wide_shape(const int* x, int* out, long long k, int L, int lk
 // (ops/bitonic.py::wide_block, from the times of benchmarks/k1_wide_shapes.py); the
 // switches below are the block shapes built, and any other is refused.  The network
 // form's direction selects take more registers: it spills at 512 x 32 (P = 16384)
-// and 1024 x 32 (P = 32768), so it is built at 1024 x 16 and 512 x 64 there.
-template <bool kSort>
-cudaError_t launch_wide(const void* x, void* out, long long k, int L, int lk0, int log_n,
-                        void* stream) {
+// and 1024 x 32 (P = 32768), so it is built at 1024 x 16 and 512 x 64 there.  K2
+// (kCompress) is built at the K1 shapes that wide_block picks.
+template <bool kSort, bool kCompress>
+cudaError_t launch_wide(const void* x, void* out, long long k, int L, int lk0, int limit,
+                        int log_n, void* stream) {
   if (k <= 0 || k > INT_MAX || L <= (1 << (kWideMinLogP - 1)) || L > (1 << kWideMaxLogP) ||
       log_n < 0 || log_n > 7)
     return cudaErrorInvalidValue;
@@ -554,23 +692,163 @@ cudaError_t launch_wide(const void* x, void* out, long long k, int L, int lk0, i
   const int* xi = (const int*)x;
   int* o = (int*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  if constexpr (kSort) {
+  if constexpr (kCompress) {
     switch (log_p * 8 + log_n) {
-      case 13 * 8 + 4: return launch_wide_shape<13, 4, true>(xi, o, k, L, lk0, st);
-      case 13 * 8 + 5: return launch_wide_shape<13, 5, true>(xi, o, k, L, lk0, st);
-      case 14 * 8 + 4: return launch_wide_shape<14, 4, true>(xi, o, k, L, lk0, st);
-      case 14 * 8 + 5: return launch_wide_shape<14, 5, true>(xi, o, k, L, lk0, st);
-      case 15 * 8 + 5: return launch_wide_shape<15, 5, true>(xi, o, k, L, lk0, st);
-      case 15 * 8 + 6: return launch_wide_shape<15, 6, true>(xi, o, k, L, lk0, st);
+      case 13 * 8 + 4: return launch_wide_shape<13, 4, true, true>(xi, o, k, L, 1, limit, st);
+      case 13 * 8 + 5: return launch_wide_shape<13, 5, true, true>(xi, o, k, L, 1, limit, st);
+      case 14 * 8 + 5: return launch_wide_shape<14, 5, true, true>(xi, o, k, L, 1, limit, st);
+      case 15 * 8 + 5: return launch_wide_shape<15, 5, true, true>(xi, o, k, L, 1, limit, st);
+    }
+  } else if constexpr (kSort) {
+    switch (log_p * 8 + log_n) {
+      case 13 * 8 + 4: return launch_wide_shape<13, 4, true>(xi, o, k, L, lk0, 0, st);
+      case 13 * 8 + 5: return launch_wide_shape<13, 5, true>(xi, o, k, L, lk0, 0, st);
+      case 14 * 8 + 4: return launch_wide_shape<14, 4, true>(xi, o, k, L, lk0, 0, st);
+      case 14 * 8 + 5: return launch_wide_shape<14, 5, true>(xi, o, k, L, lk0, 0, st);
+      case 15 * 8 + 5: return launch_wide_shape<15, 5, true>(xi, o, k, L, lk0, 0, st);
+      case 15 * 8 + 6: return launch_wide_shape<15, 6, true>(xi, o, k, L, lk0, 0, st);
     }
   } else {
     switch (log_p * 8 + log_n) {
-      case 13 * 8 + 5: return launch_wide_shape<13, 5, false>(xi, o, k, L, lk0, st);
-      case 14 * 8 + 4: return launch_wide_shape<14, 4, false>(xi, o, k, L, lk0, st);
-      case 15 * 8 + 6: return launch_wide_shape<15, 6, false>(xi, o, k, L, lk0, st);
+      case 13 * 8 + 5: return launch_wide_shape<13, 5, false>(xi, o, k, L, lk0, 0, st);
+      case 14 * 8 + 4: return launch_wide_shape<14, 4, false>(xi, o, k, L, lk0, 0, st);
+      case 15 * 8 + 6: return launch_wide_shape<15, 6, false>(xi, o, k, L, lk0, 0, st);
     }
   }
   return cudaErrorInvalidValue;
+}
+
+// ---- K1 "warp": one warp a row, in registers -----------------------------------------
+//
+// Rows of 1 <= L <= 128 slots, padded to P = 2^LOG_P <= 128.  Lane l of a warp holds the
+// N = max(1, P / 32) contiguous slots N l + e of the warp's 32 N slots: one row from
+// P = 32 up, 32 / P rows below.  Merge 2^LK runs its steps 2^(LK-1) ... 1 as the wide
+// kernel's lane steps: slot bits below LOG_N inside the lane, the rest (at most the 5
+// lane bits, the row being at most 32 N slots) by __shfl_xor_sync; kSort (K1, K2) in the
+// all-ascending form, where the padding, INT32_MAX, stays at the end, !kSort (P1/P2) in
+// the alternating form from the merge of size 2^lk0 on.
+// kCompress: K2, the row's lanes a segment of the warp, so the keep mask, the scan of
+// the kept counts and the row's count are shuffles, and the kept values go straight to
+// device memory at their packed places.
+
+constexpr int kWarpThreads = 256;  // 8 independent warps a block
+constexpr int kWarpMaxLogP = 7;    // P = 128: L up to 128
+
+template <int N>
+__device__ __forceinline__ void load_vec(int (&r)[N], const int* p) {
+  if constexpr (N == 4) {
+    const int4 v = *reinterpret_cast<const int4*>(p);
+    r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+  } else if constexpr (N == 2) {
+    const int2 v = *reinterpret_cast<const int2*>(p);
+    r[0] = v.x, r[1] = v.y;
+  } else {
+    r[0] = *p;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(int* p, const int (&r)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<int4*>(p) = make_int4(r[0], r[1], r[2], r[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<int2*>(p) = make_int2(r[0], r[1]);
+  } else {
+    *p = r[0];
+  }
+}
+
+template <int LOG_P, int LOG_N, bool kSort, int LK>
+__device__ __forceinline__ void warp_network(int (&r)[1 << LOG_N], int lane, int lk0) {
+  if constexpr (LK <= LOG_P) {
+    if (LK >= lk0) wide_lane_steps<LOG_P, LOG_N, kSort, LK, LK - 1>(r, lane);
+    warp_network<LOG_P, LOG_N, kSort, LK + 1>(r, lane, lk0);
+  }
+}
+
+// `vec`: every row starts 4 N-byte aligned (L % N == 0 and aligned arrays), so a lane
+// whose first column is below L loads and stores its N slots as one vector.
+template <int LOG_P, bool kSort, bool kCompress>
+__global__ void __launch_bounds__(kWarpThreads)
+    sort_rows_warp_kernel(const int* __restrict__ x, int* __restrict__ out, long long k, int L,
+                          int lk0, int limit, bool vec) {
+  constexpr int LOG_N = LOG_P > 5 ? LOG_P - 5 : 0, N = 1 << LOG_N;
+  constexpr int kRowLanes = (1 << LOG_P) / N;  // 32 from P = 32 up, else P
+  const int lane = threadIdx.x & 31;
+  const long long warp = (long long)blockIdx.x * (kWarpThreads / 32) + (threadIdx.x >> 5);
+  const long long row = warp * (32 / kRowLanes) + lane / kRowLanes;
+  const int c0 = (lane & (kRowLanes - 1)) << LOG_N;  // the lane's first column
+  const bool live = row < k;                          // rows past k: INT32_MAX, no store
+  int r[N];
+  if (live && vec && c0 < L) {
+    load_vec(r, x + row * L + c0);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) r[e] = live && c0 + e < L ? x[row * L + c0 + e] : INT_MAX;
+  }
+  warp_network<LOG_P, LOG_N, kSort, 1>(r, lane, lk0);
+  if constexpr (kCompress) {
+    const int left = __shfl_up_sync(0xffffffffu, r[N - 1], 1);
+    const unsigned keep = keep_mask(r, left, c0 == 0, limit);
+    const int kept = __popc(keep);
+    const int inc = inclusive_sum<kRowLanes>(kept, lane);
+    const int total = __shfl_sync(0xffffffffu, inc, kRowLanes - 1, kRowLanes);
+    if (!live) return;
+    int* o = out + row * L;
+    scatter_kept(r, keep, inc - kept, [&](int p, int v) { o[p] = v; });
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      if (c0 + e >= total && c0 + e < L) o[c0 + e] = INT_MAX;
+    }
+  } else {
+    if (!live) return;
+    int* o = out + row * L + c0;
+    if (vec) {
+      if (c0 < L) store_vec(o, r);
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        if (c0 + e < L) o[e] = r[e];
+      }
+    }
+  }
+}
+
+template <int LOG_P, bool kSort, bool kCompress>
+cudaError_t launch_warp(const int* x, int* out, long long k, int L, int lk0, int limit,
+                        cudaStream_t stream) {
+  constexpr int N = LOG_P > 5 ? 1 << (LOG_P - 5) : 1;
+  constexpr long long rows = (kWarpThreads / 32) * (32 * N >> LOG_P);
+  const long long blocks = (k + rows - 1) / rows;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const bool vec = L % N == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) &
+                    (4 * N - 1)) == 0;
+  sort_rows_warp_kernel<LOG_P, kSort, kCompress>
+      <<<(unsigned)blocks, kWarpThreads, 0, stream>>>(x, out, k, L, lk0, limit, vec);
+  return cudaGetLastError();
+}
+
+// K1 "warp" (and K2, the network) for 1 <= L <= 128.
+template <bool kSort, bool kCompress>
+cudaError_t launch_warp_any(const void* x, void* out, long long k, int L, int lk0, int limit,
+                            void* stream) {
+  if (k <= 0 || L <= 0 || L > (1 << kWarpMaxLogP)) return cudaErrorInvalidValue;
+  int log_p = 0;
+  while ((1 << log_p) < L) ++log_p;
+  const int* xi = (const int*)x;
+  int* o = (int*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (log_p) {
+    case 0: return launch_warp<0, kSort, kCompress>(xi, o, k, L, lk0, limit, st);
+    case 1: return launch_warp<1, kSort, kCompress>(xi, o, k, L, lk0, limit, st);
+    case 2: return launch_warp<2, kSort, kCompress>(xi, o, k, L, lk0, limit, st);
+    case 3: return launch_warp<3, kSort, kCompress>(xi, o, k, L, lk0, limit, st);
+    case 4: return launch_warp<4, kSort, kCompress>(xi, o, k, L, lk0, limit, st);
+    case 5: return launch_warp<5, kSort, kCompress>(xi, o, k, L, lk0, limit, st);
+    case 6: return launch_warp<6, kSort, kCompress>(xi, o, k, L, lk0, limit, st);
+    default: return launch_warp<7, kSort, kCompress>(xi, o, k, L, lk0, limit, st);
+  }
 }
 
 struct Launch {
@@ -603,7 +881,8 @@ bool plan_launch(long long k, int L, Launch* p) {
   return true;
 }
 
-// K1 "smem" over rows of any L up to kMaxPow2, from the merge of size 2^log_kk0 on.
+// K1 "smem" (the yardstick) over rows of any L up to kMaxPow2, from the merge of size
+// 2^log_kk0 on.
 cudaError_t launch_smem(const void* x, void* out, long long k, int L, int log_kk0,
                         void* stream) {
   Launch p;
@@ -615,8 +894,9 @@ cudaError_t launch_smem(const void* x, void* out, long long k, int L, int log_kk
   return cudaGetLastError();
 }
 
-// K1 "reg": 129 <= L <= 4096 only (rows padded to P = 2^8 ... 2^12).
-cudaError_t launch_reg_any(const void* x, void* out, long long k, int L, int lk0,
+// K1 "reg" (and K2, the network): 129 <= L <= 4096 only (rows padded to P = 2^8 ... 2^12).
+template <bool kCompress>
+cudaError_t launch_reg_any(const void* x, void* out, long long k, int L, int lk0, int limit,
                            void* stream) {
   if (k <= 0 || L <= (1 << (kRegMinLogP - 1)) || L > (1 << kRegMaxLogP))
     return cudaErrorInvalidValue;
@@ -626,11 +906,11 @@ cudaError_t launch_reg_any(const void* x, void* out, long long k, int L, int lk0
   int* o = (int*)out;
   cudaStream_t st = (cudaStream_t)stream;
   switch (log_p) {
-    case 8: return launch_reg<8>(xi, o, k, L, lk0, st);
-    case 9: return launch_reg<9>(xi, o, k, L, lk0, st);
-    case 10: return launch_reg<10>(xi, o, k, L, lk0, st);
-    case 11: return launch_reg<11>(xi, o, k, L, lk0, st);
-    default: return launch_reg<12>(xi, o, k, L, lk0, st);
+    case 8: return launch_reg<8, kCompress>(xi, o, k, L, lk0, limit, st);
+    case 9: return launch_reg<9, kCompress>(xi, o, k, L, lk0, limit, st);
+    case 10: return launch_reg<10, kCompress>(xi, o, k, L, lk0, limit, st);
+    case 11: return launch_reg<11, kCompress>(xi, o, k, L, lk0, limit, st);
+    default: return launch_reg<12, kCompress>(xi, o, k, L, lk0, limit, st);
   }
 }
 
@@ -642,12 +922,29 @@ bool network_args(int L, int log_kk0) {
 
 }  // namespace
 
+// K1 "smem", the yardstick.
 extern "C" int bitonic_sort_rows(const void* x, void* out, long long k, int L, void* stream) {
   return (int)launch_smem(x, out, k, L, 1, stream);
 }
 
-extern "C" int fused_sort_compress(const void* x, void* out, long long k, int L, int limit,
-                                   void* stream) {
+extern "C" int bitonic_sort_rows_warp(const void* x, void* out, long long k, int L,
+                                      void* stream) {
+  return (int)launch_warp_any<true, false>(x, out, k, L, 1, 0, stream);
+}
+
+extern "C" int bitonic_sort_rows_reg(const void* x, void* out, long long k, int L,
+                                     void* stream) {
+  return (int)launch_reg_any<false>(x, out, k, L, 1, 0, stream);
+}
+
+extern "C" int bitonic_sort_rows_wide(const void* x, void* out, long long k, int L,
+                                      int log_n, void* stream) {
+  return (int)launch_wide<true, false>(x, out, k, L, 1, 0, log_n, stream);
+}
+
+// K2 "smem", the earlier design: the yardstick.
+extern "C" int fused_sort_compress_smem(const void* x, void* out, long long k, int L,
+                                        int limit, void* stream) {
   Launch p;
   if (!plan_launch(k, L, &p)) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(fused_sort_compress_kernel, p.smem);
@@ -657,33 +954,46 @@ extern "C" int fused_sort_compress(const void* x, void* out, long long k, int L,
   return (int)cudaGetLastError();
 }
 
-extern "C" int bitonic_sort_rows_reg(const void* x, void* out, long long k, int L,
-                                     void* stream) {
-  return (int)launch_reg_any(x, out, k, L, 1, stream);
+// K2 through K1's kernel for the row's window, with the compaction epilogue.
+extern "C" int fused_sort_compress_warp(const void* x, void* out, long long k, int L,
+                                        int limit, void* stream) {
+  return (int)launch_warp_any<true, true>(x, out, k, L, 1, limit, stream);
 }
 
-// P1/P2 through K1's shared-memory kernel (the L that k1_variant gives "smem").
+extern "C" int fused_sort_compress_reg(const void* x, void* out, long long k, int L,
+                                       int limit, void* stream) {
+  return (int)launch_reg_any<true>(x, out, k, L, 1, limit, stream);
+}
+
+extern "C" int fused_sort_compress_wide(const void* x, void* out, long long k, int L,
+                                        int limit, int log_n, void* stream) {
+  return (int)launch_wide<true, true>(x, out, k, L, 1, limit, log_n, stream);
+}
+
+// P1/P2 through K1's shared-memory kernel: the yardstick for the network.
 extern "C" int bitonic_network_rows(const void* x, void* out, long long k, int L, int log_kk0,
                                     void* stream) {
   if (!network_args(L, log_kk0)) return (int)cudaErrorInvalidValue;
   return (int)launch_smem(x, out, k, L, log_kk0, stream);
 }
 
+// P1/P2 through K1's warp kernel (L <= 128).
+extern "C" int bitonic_network_rows_warp(const void* x, void* out, long long k, int L,
+                                         int log_kk0, void* stream) {
+  if (!network_args(L, log_kk0)) return (int)cudaErrorInvalidValue;
+  return (int)launch_warp_any<false, false>(x, out, k, L, log_kk0, 0, stream);
+}
+
 // P1/P2 through K1's register kernel (128 < L <= 4096).
 extern "C" int bitonic_network_rows_reg(const void* x, void* out, long long k, int L,
                                         int log_kk0, void* stream) {
   if (!network_args(L, log_kk0)) return (int)cudaErrorInvalidValue;
-  return (int)launch_reg_any(x, out, k, L, log_kk0, stream);
-}
-
-extern "C" int bitonic_sort_rows_wide(const void* x, void* out, long long k, int L,
-                                      int log_n, void* stream) {
-  return (int)launch_wide<true>(x, out, k, L, 1, log_n, stream);
+  return (int)launch_reg_any<false>(x, out, k, L, log_kk0, 0, stream);
 }
 
 // P1/P2 through K1's wide kernel, in the alternating form (L = 8192, 16384, 32768).
 extern "C" int bitonic_network_rows_wide(const void* x, void* out, long long k, int L,
                                          int log_kk0, int log_n, void* stream) {
   if (!network_args(L, log_kk0)) return (int)cudaErrorInvalidValue;
-  return (int)launch_wide<false>(x, out, k, L, log_kk0, log_n, stream);
+  return (int)launch_wide<false, false>(x, out, k, L, log_kk0, 0, log_n, stream);
 }

@@ -4,20 +4,28 @@ Two kernels written by hand for Hopper live in ``csrc/bitonic.cu``:
 
 * K1 :func:`bitonic_sort_rows` — each row sorted ascending (replaces
   ``binary_spgemm_tpu/ops/bitonic.py::bitonic_sort_rows``), by one of three
-  kernels that :func:`k1_variant` picks from the row length alone: ``"reg"``
-  (registers and warp shuffles, 129 <= L <= 4096), ``"wide"`` (one row a
-  block in registers, shuffles and shared memory across warps, the padding
-  left untouched, 4097 <= L <= 32768) or ``"smem"`` (the whole network in
-  shared memory, L <= 128);
+  kernels that :func:`k1_variant` picks from the row length alone:
+  ``"warp"`` (one warp a row, registers and shuffles only, 1 <= L <= 128),
+  ``"reg"`` (registers and warp shuffles, 129 <= L <= 4096) or ``"wide"``
+  (one row a block in registers, shuffles and shared memory across warps,
+  the padding left untouched, 4097 <= L <= 32768);
 * K2 :func:`fused_sort_compress` — sort, left-neighbour dedup with
   demote-to-``INT32_MAX`` of everything at or above ``limit``, sort again, in
-  one pass over each row (replaces ``fused_sort_compress`` there);
+  one pass over each row (replaces ``fused_sort_compress`` there): K1's
+  kernel for the row length with a compaction epilogue in place of the
+  second sort, since the second sort only packs the kept entries, already
+  ascending, to the front of the row;
 * P1/P2 :func:`bitonic_network_rows` — the bitonic network over rows of a
   power-of-two length, run from a given merge size on: from the first, a
   sort (replaces ``benchmarks/pallas_sort.py::make_bitonic``); from merge
   ``2w``, the shortcut for streams of w-aligned sorted runs of alternating
   direction (replaces ``benchmarks/ab_wruns.py::make_kernel``).  K1's
   kernels run it, chosen by the row length as :func:`k1_variant` chooses.
+
+``"smem"`` names the earlier designs of K1 and K2 (the whole network in
+shared memory), kept as the yardstick the others are timed against:
+``_sort_rows_variant(x, "smem")`` and ``_fused_sort_compress_variant(x,
+limit, "smem")`` launch them, and no path does.
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in
 its ``launches`` attribute; for a CPU tensor it computes the plain PyTorch
@@ -53,42 +61,51 @@ INT32_MAX = (1 << 31) - 1
 # power of two under the 227 KB a block may use.
 MAX_L = 1 << 15
 
+# Row lengths K1's warp kernel takes: rows padded to P = 2^0 ... 2^7, one warp
+# holding a row (32 / P rows below P = 32) in registers.
+WARP_MAX_L = 1 << 7
 # Row lengths K1's register kernel takes: rows padded to P = 2^8 ... 2^12, one
 # block of 512 threads holding 8 slots each.
-REG_MIN_L, REG_MAX_L = (1 << 7) + 1, 1 << 12
+REG_MIN_L, REG_MAX_L = WARP_MAX_L + 1, 1 << 12
 # Row lengths K1's wide kernel takes: rows padded to P = 2^13 ... 2^15, one row a
 # block.
 WIDE_MIN_L, WIDE_MAX_L = REG_MAX_L + 1, MAX_L
-_VARIANT_L = {"reg": (REG_MIN_L, REG_MAX_L), "wide": (WIDE_MIN_L, WIDE_MAX_L)}
+_VARIANT_L = {"warp": (1, WARP_MAX_L), "reg": (REG_MIN_L, REG_MAX_L),
+              "wide": (WIDE_MIN_L, WIDE_MAX_L)}
 # rows up to this length take the wide kernel's 512 x 16 block at P = 8192
 # (its idle warps then cover more of the padding), longer ones 256 x 32
 WIDE_SHORT_L = 4608
 
-# K1's C entry point for each variant, and the network's (P1/P2)
-_K1_ENTRY = {"reg": "bitonic_sort_rows_reg", "wide": "bitonic_sort_rows_wide",
-             "smem": "bitonic_sort_rows"}
-_NETWORK_ENTRY = {"reg": "bitonic_network_rows_reg", "wide": "bitonic_network_rows_wide",
-                  "smem": "bitonic_network_rows"}
+# K1's and K2's C entry point for each variant, and the network's (P1/P2)
+_K1_ENTRY = {"warp": "bitonic_sort_rows_warp", "reg": "bitonic_sort_rows_reg",
+             "wide": "bitonic_sort_rows_wide", "smem": "bitonic_sort_rows"}
+_K2_ENTRY = {"warp": "fused_sort_compress_warp", "reg": "fused_sort_compress_reg",
+             "wide": "fused_sort_compress_wide", "smem": "fused_sort_compress_smem"}
+_NETWORK_ENTRY = {"warp": "bitonic_network_rows_warp", "reg": "bitonic_network_rows_reg",
+                  "wide": "bitonic_network_rows_wide"}
 
 _SORT_SIG = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
     ctypes.c_void_p,
 ]
-_NETWORK_SIG = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p,
-]
+# (x, out, k, L, one int, stream): the int is log2 of the slots a thread holds
+# (K1 wide), the first merge (the network) or the limit (K2); two ints: the
+# network's or K2's, then the wide kernel's slots a thread
+_INT_SIG = [*_SORT_SIG[:4], ctypes.c_int, ctypes.c_void_p]
+_INT2_SIG = [*_SORT_SIG[:4], ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _SIG = {
     "bitonic_sort_rows": _SORT_SIG,
+    "bitonic_sort_rows_warp": _SORT_SIG,
     "bitonic_sort_rows_reg": _SORT_SIG,
-    "bitonic_sort_rows_wide": _NETWORK_SIG,  # its int: log2 of the slots a thread holds
-    "bitonic_network_rows": _NETWORK_SIG,
-    "bitonic_network_rows_reg": _NETWORK_SIG,
-    "bitonic_network_rows_wide": [*_NETWORK_SIG[:5], ctypes.c_int, ctypes.c_void_p],
-    "fused_sort_compress": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ],
+    "bitonic_sort_rows_wide": _INT_SIG,
+    "bitonic_network_rows": _INT_SIG,
+    "bitonic_network_rows_warp": _INT_SIG,
+    "bitonic_network_rows_reg": _INT_SIG,
+    "bitonic_network_rows_wide": _INT2_SIG,
+    "fused_sort_compress_smem": _INT_SIG,
+    "fused_sort_compress_warp": _INT_SIG,
+    "fused_sort_compress_reg": _INT_SIG,
+    "fused_sort_compress_wide": _INT2_SIG,
 }
 
 
@@ -136,9 +153,11 @@ def bitonic_sort_rows_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def k1_variant(L: int) -> str:
-    """The K1 kernel that sorts rows of length ``L``: ``"reg"`` for
-    ``REG_MIN_L <= L <= REG_MAX_L``, ``"wide"`` for ``WIDE_MIN_L <= L <=
-    WIDE_MAX_L``, else ``"smem"``."""
+    """The K1 kernel that sorts rows of length ``L`` (and K2's): ``"warp"``
+    for ``1 <= L <= WARP_MAX_L``, ``"reg"`` for ``REG_MIN_L <= L <=
+    REG_MAX_L``, ``"wide"`` for ``WIDE_MIN_L <= L <= WIDE_MAX_L``, else
+    ``"smem"`` (rows no kernel sorts: empty ones, launched by nothing, and
+    rows past :data:`MAX_L`, which the wrappers refuse)."""
     for variant, (lo, hi) in _VARIANT_L.items():
         if lo <= L <= hi:
             return variant
@@ -193,7 +212,7 @@ def _sort_rows_variant(x: torch.Tensor, variant: str) -> torch.Tensor:
 
 
 bitonic_sort_rows.launches = 0
-bitonic_sort_rows.launches_by_variant = {"reg": 0, "wide": 0, "smem": 0}
+bitonic_sort_rows.launches_by_variant = {"warp": 0, "reg": 0, "wide": 0, "smem": 0}
 
 
 def fused_sort_compress_plain(x: torch.Tensor, limit: int) -> torch.Tensor:
@@ -207,22 +226,40 @@ def fused_sort_compress_plain(x: torch.Tensor, limit: int) -> torch.Tensor:
 
 
 def fused_sort_compress(x: torch.Tensor, limit: int) -> torch.Tensor:
-    """K2: the packed sort-dedup-sort step as one kernel.  Returns the
-    compacted sorted keys (valid ascending prefix, ``INT32_MAX`` fill); the
-    per-row valid count is ``(out < limit).sum(1)``."""
+    """K2: the packed sort-dedup-sort step as one kernel, K1's kernel for
+    the row length (:func:`k1_variant`) with a compaction epilogue.  Returns
+    the compacted sorted keys (valid ascending prefix, ``INT32_MAX`` fill);
+    the per-row valid count is ``(out < limit).sum(1)``."""
+    _check(x, "fused_sort_compress")
+    return _fused_sort_compress_variant(x, limit, k1_variant(x.shape[1]))
+
+
+def _fused_sort_compress_variant(x: torch.Tensor, limit: int, variant: str) -> torch.Tensor:
+    """K2 through the named kernel: what :func:`fused_sort_compress` runs,
+    and a way to time the shared-memory kernel (``"smem"``, every length)
+    against it."""
     _check(x, "fused_sort_compress")
     limit = int(limit)
     if not -(1 << 31) <= limit <= INT32_MAX:
         raise ValueError(f"fused_sort_compress: limit {limit} is not int32")
+    if variant not in _K2_ENTRY:
+        raise ValueError(f"unknown K2 variant {variant!r}")
+    L = x.shape[1]
+    lo, hi = _VARIANT_L.get(variant, (0, MAX_L))
+    if not lo <= L <= hi:
+        raise ValueError(f"K2 variant {variant!r} takes rows of {lo} to {hi}, got {L}")
     if x.device.type == "cpu":
         return fused_sort_compress_plain(x, limit)
-    out = _launch("fused_sort_compress", x, limit)
+    extra = (_log2(wide_block(L)[1]),) if variant == "wide" else ()
+    out = _launch(_K2_ENTRY[variant], x, limit, *extra)
     if x.numel():
         fused_sort_compress.launches += 1
+        fused_sort_compress.launches_by_variant[variant] += 1
     return out
 
 
 fused_sort_compress.launches = 0
+fused_sort_compress.launches_by_variant = {"warp": 0, "reg": 0, "wide": 0, "smem": 0}
 
 
 def _stages(L: int) -> list[tuple[int, int]]:

@@ -8,8 +8,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. the build of every kernel source (``csrc/*.cu``): seconds and ptxas report,
    and of the native host tier (``native/mmparse.c``, ``cc -fopenmp``);
-   K1's register and wide kernels, K3's pipe kernel and the P3/P4 group
-   kernel must show no stack frame and no spills in any instantiation;
+   K1's warp, register and wide kernels (K2's with them), K3's pipe kernel
+   and the P3/P4 group kernel must show no stack frame and no spills in any
+   instantiation;
 3. K1 (bitonic_sort_rows) and K2 (fused_sort_compress) bit-equal to their
    plain PyTorch versions at the main path's shape, a power-of-two length,
    a short odd length, the longest length the kernels take, and the lengths
@@ -31,9 +32,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
    scipy, with the launch counts set to 0 just before ``auto_executor`` and
    read just after ``assemble()`` (K1 twice per dispatch group, every time as
    its register variant; P4 once per dispatch group; P3 never);
-6. K2 on the main path's real key streams, equal to K1 twice plus the dedup;
-7. times from CUDA events: ``run()``, ``run()`` + ``assemble()``, each kernel,
-   its plain version and ``torch.sort`` at the main path's shape, with K1's
+6. K2 on the main path's real key streams, equal to its plain version,
+   to K2's shared-memory kernel (the "smem" yardstick) and to K1 twice plus the
+   dedup, and its counts and columns to ``run()``'s; K2 timed in turns with
+   that kernel, K1 + dedup + K1 and its plain version on the first group
+   stream (``[1024, 3968]``, the register window), at ``[512, 7232]`` (the
+   wide window) and at ``[65536, 128]`` (the warp window);
+7. times from CUDA events: ``run()``, ``run()`` + ``assemble()``, K1, its
+   plain version and ``torch.sort`` at the main path's shape, with K1's
    shared-memory variant beside its register variant; K1 against
    ``torch.sort`` at three more shapes; the host clock's split of
    ``assemble()`` into pull and host assembly; a ``torch.profiler`` breakdown
@@ -206,8 +212,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
     peak device memory, K1's, P3's and P4's counts set to 0 just before the
     call and read just after.  A rank's failure or a launch past its time
     limit fails the phase;
-22. the native host tier, the CLI's ``bench`` and K1's shared-memory
-    kernel: (a) each native helper (``native/``, built in phase 2) equal,
+22. the native host tier, the CLI's ``bench`` and K1's warp kernel:
+    (a) each native helper (``native/``, built in phase 2) equal,
     array for array, to its numpy branch at full size, both timed in turns
     on the host clock: the parse of phase 21's bench ``.mtx`` (1,047,402
     entries) and ``read_pattern`` of it, ``coo2csr`` on its entries, the
@@ -222,14 +228,17 @@ Phases, each reported on its own lines; any failure exits non-zero:
     chunk sizes and ``--devices 2`` (two gloo ranks on the one card), then
     ``--scaling-report --devices 2 --json`` at esc x replicated and ell x
     sharded in one group of two gloo ranks, each ``bit_exact``; every CSV
-    and JSON line printed; (c) K1's shared-memory kernel at ``[65536,
-    128]`` against its plain version, timed beside it and ``torch.sort``;
+    and JSON line printed; (c) K1's warp kernel (L <= 128, no serving
+    path's rows) at ``[65536, 128]``, ``[65536, 64]`` and ``[65536, 16]``,
+    bit-equal to its plain version, timed in turns with K1's shared-memory
+    kernel (its earlier route), the same kernel in the network's alternating
+    form, the plain version and ``torch.sort``;
 23. a ``{"kernels": [...]}`` line (the graph ops' K1, P3 and P4 launches
     under ``launches_by_path["graph"]``, the distributed ones per rank under
-    ``launches_by_path["distributed (per rank)"]``; K1's wide and
-    shared-memory kernels as entries of their own, the wide one launched on
-    the op family's ``run_or``, with every captured stream it sorts), then,
-    last, the ``{"ok": true, ...}`` line.
+    ``launches_by_path["distributed (per rank)"]``; K1's wide and warp
+    kernels as entries of their own, the wide one launched on the op
+    family's ``run_or``, with every captured stream it sorts; K2 with its
+    three windows), then, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -969,6 +978,63 @@ def capture_sort_inputs(sp, fn, max_len: int | None = None) -> dict:
     return seen
 
 
+def k1_dedup_k1(torch, bitonic, x, limit: int):
+    """K2's function from K1: sort, keep the first of equal neighbours below
+    ``limit``, demote the rest to INT32_MAX, sort again."""
+    s = bitonic.bitonic_sort_rows(x)
+    differs = torch.ones_like(s, dtype=torch.bool)  # the first slot of a row
+    differs[:, 1:] = s[:, 1:] != s[:, :-1]
+    return bitonic.bitonic_sort_rows(torch.where(differs & (s < limit), s, INT32_MAX))
+
+
+def k2_input(torch, rng, k: int, L: int):
+    """Random int32 rows of ``[k, L]`` with many duplicates (values below L)
+    and the int32 extremes."""
+    x = rng.integers(-8, L, (k, L)).astype(np.int32)
+    x[0, :3] = INT32_MAX
+    x[1, :2] = INT32_MIN
+    return torch.from_numpy(x).to("cuda")
+
+
+def timed_in_turns(torch, fns: list, reps: int = 20) -> dict[str, float]:
+    """Device ms a call of each ``(name, fn)``: CUDA-graph replays of
+    ``reps`` calls (at these shapes a launch is shorter than its host time),
+    in turns forward then back, the fastest of the two."""
+    timers = [(name, graph_timer(torch, fn, reps)) for name, fn in fns]
+    times: dict[str, list[float]] = {}
+    for name, timer in timers + timers[::-1]:
+        times.setdefault(name, []).append(timer())
+    return {name: min(v) for name, v in times.items()}
+
+
+def time_k2(torch, bitonic, x, limit: int, label: str, card: str) -> dict:
+    """K2 at ``x``'s shape, bit-equal to its plain version, its shared-memory kernel
+    and K1 + dedup + K1, then timed in turns with each of them and with one
+    K1 sort (``timed_in_turns``)."""
+    fns = [("k2", lambda: bitonic.fused_sort_compress(x, limit)),
+           ("smem", lambda: bitonic._fused_sort_compress_variant(x, limit, "smem")),
+           ("k1_dedup_k1", lambda: k1_dedup_k1(torch, bitonic, x, limit)),
+           ("plain", lambda: bitonic.fused_sort_compress_plain(x, limit))]
+    outs = {name: fn() for name, fn in fns}
+    torch.cuda.synchronize()
+    err = max(int((outs["k2"].long() - o.long()).abs().max()) for o in outs.values())
+    for name, o in outs.items():
+        check(torch.equal(outs["k2"], o), f"K2 differs from {name} at {list(x.shape)}")
+    del outs
+    t = timed_in_turns(torch, fns + [("k1", lambda: bitonic.bitonic_sort_rows(x))])
+    bound, bound_by = sort_bound_ms(x.numel(), x.shape[1], sorts=2)
+    variant = bitonic.k1_variant(x.shape[1])
+    print(f"K2 ({variant}) at {list(x.shape)} ({label}): bit-equal to its plain version, "
+          f"its smem kernel and K1 + dedup + K1; {t['k2']:.4f} ms ({t['k2'] / bound:.2f}x "
+          f"its bound, {t['k2'] / t['k1']:.2f}x one K1 sort's {t['k1']:.4f} ms), its smem "
+          f"kernel {t['smem']:.4f} ms, K1 + dedup + K1 {t['k1_dedup_k1']:.4f} ms, plain "
+          f"{t['plain']:.4f} ms, bound {bound:.4f} ms ({bound_by}); {card}")
+    return {"ms": t["k2"], "previous_ms": t["smem"], "k1_dedup_k1_ms": t["k1_dedup_k1"],
+            "k1_ms": t["k1"], "plain_ms": t["plain"], "library_ms": None,
+            "bound_ms": bound, "bound_by": bound_by, "shape": list(x.shape),
+            "variant": variant, "label": label, "max_abs_err": err}
+
+
 def time_k1_stream(torch, bitonic, x, label: str, card: str) -> dict:
     """K1 on a captured stream ``x``: bit-equal to its plain version (and PR
     1's shared-memory kernel, where K1 takes another kernel at this length,
@@ -1068,7 +1134,8 @@ def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     print(f"  masked plan: k={exm.n_chunks} groups={exm.n_groups}x{exm.group_size} "
           f"rows_pad={exm.rows_pad} sort_pad={exm.sort_pad} mask pad "
           f"{exm.staged_nnz_pad(a)}")
-    check(exm.batched and k1v == {"reg": 0, "wide": 2 * exm.n_groups, "smem": 0}
+    check(exm.batched
+          and k1v == {"warp": 0, "reg": 0, "wide": 2 * exm.n_groups, "smem": 0}
           and launches["class_gather_keys"] == exm.n_groups
           and launches["class_gather"] == 0,
           "the bench masked product did not sort with K1's wide kernel and P4")
@@ -1076,13 +1143,13 @@ def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
                                lambda: api["spgemm_or"](a, a, a), or_ref, BENCH_OR_NNZ,
                                keep="or")
     exo = ell.cached_executor(a, a)
-    check(k1v == {"reg": 0, "wide": 2 * exo.n_groups, "smem": 0}
+    check(k1v == {"warp": 0, "reg": 0, "wide": 2 * exo.n_groups, "smem": 0}
           and launches["class_gather_keys"] == exo.n_groups,
           "bench A ∪ A·A did not sort with K1's wide kernel and P4")
     launches, rts, k1v = drive("bench spgemm_or(A, A, A, mask=A)",
                                lambda: api["spgemm_or"](a, a, a, mask=a),
                                a.sum_duplicates(), a.sum_duplicates().nnz, keep="or-masked")
-    check(k1v == {"reg": 0, "wide": 2 * exm.n_groups, "smem": 0}
+    check(k1v == {"warp": 0, "reg": 0, "wide": 2 * exm.n_groups, "smem": 0}
           and launches["class_gather_keys"] == exm.n_groups,
           "the bench masked A ∪ A·A did not sort with K1's wide kernel and P4")
     drive("bench spm_or(A, C)", lambda: api["spm_or"](a, c), or_ref, BENCH_OR_NNZ)
@@ -1095,7 +1162,7 @@ def op_family_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
     print(f"bench run_padded() -> assemble_padded(): launches {launches}; K1 by "
           f"variant {k1v}; sort_rows routes {rts}")
     check(cp.equals(c), "assemble_padded(run_padded()) differs from phase 5's product")
-    check(k1v == {"reg": ex.n_groups, "wide": 0, "smem": 0}
+    check(k1v == {"warp": 0, "reg": ex.n_groups, "wide": 0, "smem": 0}
           and launches["class_gather_keys"] == ex.n_groups,
           "run_padded did not sort once a group with K1's register kernel")
     print(f"  equal to phase 5's product (bit-exact against scipy): output nnz {cp.nnz}")
@@ -1292,9 +1359,10 @@ def counting_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
         g = e.n_groups
         gather = "class_gather_keys" if e.batched else "class_gather"
         if row_len > bitonic.MAX_L:
-            want_k1, want_rts = {"reg": 0, "wide": 0, "smem": 0}, {"k1": 0, "torch_sort": g}
+            want_k1, want_rts = ({"warp": 0, "reg": 0, "wide": 0, "smem": 0},
+                                 {"k1": 0, "torch_sort": g})
         else:
-            want_k1 = {"reg": 0, "wide": 0, "smem": 0}
+            want_k1 = {"warp": 0, "reg": 0, "wide": 0, "smem": 0}
             want_k1[bitonic.k1_variant(row_len)] = g
             want_rts = {"k1": g, "torch_sort": 0}
         print(f"  plan: {'batched' if e.batched else 'unrolled'} k={e.n_chunks} "
@@ -1514,9 +1582,9 @@ def graph_phase(torch, card: str, *, api, reset_counts, read_counts, routes,
 
     def wide_k1(label, launches):
         """K1's launches on a graph op whose joins sort rows past 4096 slots:
-        the wide kernel, never the shared-memory one."""
+        the wide kernel, never the warp or the shared-memory one."""
         k1v = out["products"][label]["k1_by_variant"]
-        check(k1v["wide"] > 0 and k1v["smem"] == 0
+        check(k1v["wide"] > 0 and k1v["warp"] == k1v["smem"] == 0
               and sum(k1v.values()) == launches["bitonic_sort_rows"],
               f"{label}: K1 by variant {k1v}, expected the wide kernel")
 
@@ -2160,10 +2228,10 @@ def launches_on(dist: dict, key: str) -> dict:
 
 # phase 22: the bench config's set-up on record before the native host tier
 # (git show 4357949:PERF.md, line 110), the CLI's two --chunk-flops values,
-# and the shape that puts K1 in its shared-memory window (L <= 128)
+# and the shapes that put K1 in its warp window (L <= 128)
 SETUP_ON_RECORD = "1.34-1.40 s (git show 4357949:PERF.md, line 110)"
 BENCH_SWEEP = "4194304,16777216"
-SMEM_SHAPE = (65536, 128)
+WARP_SHAPES = ((65536, 128), (65536, 64), (65536, 16))
 
 
 def in_turns(fns: dict, rounds: int = 1) -> dict:
@@ -2411,33 +2479,43 @@ def bench_cli_phase(torch, card: str, *, api, path: str, reset_counts, read_coun
     return out
 
 
-def smem_phase(torch, card: str, *, bitonic, rng) -> dict:
-    """Phase 22c: K1's shared-memory kernel in its own window (L <= 128)."""
-    k, L = SMEM_SHAPE
-    check(bitonic.k1_variant(L) == "smem", f"K1 takes L = {L} with another kernel")
-    x = torch.from_numpy(rng.integers(INT32_MIN, INT32_MAX, (k, L), dtype=np.int64,
-                                      endpoint=True).astype(np.int32)).to("cuda")
-    x[0, :5] = INT32_MAX
-    got, want = bitonic.bitonic_sort_rows(x), bitonic.bitonic_sort_rows_plain(x)
-    torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max())
-    check(torch.equal(got, want), f"K1 (smem) differs from its plain version at {[k, L]}")
-    fns = [("k1", lambda: bitonic.bitonic_sort_rows(x)),
-           ("plain", lambda: bitonic.bitonic_sort_rows_plain(x)),
-           ("lib", lambda: torch.sort(x, dim=1))]
-    for _, fn in fns:
-        fn()
-    times: dict[str, list[float]] = {}
-    for name, fn in fns + fns[::-1]:
-        times.setdefault(name, []).append(event_ms(torch, fn, 50))
-    t = {name: min(v) for name, v in times.items()}
-    bound, bound_by = sort_bound_ms(x.numel(), L)
-    print(f"K1 (smem) at {[k, L]}: bit-equal to its plain version; {t['k1']:.4f} ms, "
-          f"plain {t['plain']:.4f} ms, torch.sort {t['lib']:.4f} ms, bound "
-          f"{bound:.4f} ms ({bound_by}); {card}")
-    return {"ms": t["k1"], "plain_ms": t["plain"], "library_ms": t["lib"],
-            "bound_ms": bound, "bound_by": bound_by, "shape": [k, L],
-            "max_abs_err": err}
+def warp_phase(torch, card: str, *, bitonic, rng) -> list[dict]:
+    """Phase 22c: K1's warp kernel in its own window (L <= 128), at each of
+    WARP_SHAPES in turns with K1's shared-memory kernel (its earlier route),
+    the same kernel in the network's alternating form (``bitonic_network_rows(x,
+    2)``, a sort too), the plain version and ``torch.sort``
+    (``timed_in_turns``); every output bit-equal."""
+    rows = []
+    for k, L in WARP_SHAPES:
+        check(bitonic.k1_variant(L) == "warp", f"K1 takes L = {L} with another kernel")
+        x = torch.from_numpy(rng.integers(INT32_MIN, INT32_MAX, (k, L), dtype=np.int64,
+                                          endpoint=True).astype(np.int32)).to("cuda")
+        x[0, :5] = INT32_MAX
+        x[1, : L // 2] = x[1, 0]  # duplicates
+        fns = [("k1", lambda: bitonic.bitonic_sort_rows(x)),
+               ("smem", lambda: bitonic._sort_rows_variant(x, "smem")),
+               ("alternating", lambda: bitonic.bitonic_network_rows(x, 2)),
+               ("plain", lambda: bitonic.bitonic_sort_rows_plain(x)),
+               ("lib", lambda: torch.sort(x, dim=1).values)]
+        outs = {name: fn() for name, fn in fns}
+        torch.cuda.synchronize()
+        err = max(int((outs[name].long() - outs["plain"].long()).abs().max())
+                  for name in ("k1", "smem", "alternating", "lib"))
+        for name in ("k1", "smem", "alternating", "lib"):
+            check(torch.equal(outs[name], outs["plain"]),
+                  f"K1 ({name}) differs from its plain version at {[k, L]}")
+        del outs
+        t = timed_in_turns(torch, fns)
+        bound, bound_by = sort_bound_ms(x.numel(), L)
+        print(f"K1 (warp) at {[k, L]}: bit-equal to its plain version; {t['k1']:.4f} ms "
+              f"({t['k1'] / bound:.2f}x its bound), K1 (smem) {t['smem']:.4f} ms, the "
+              f"alternating form {t['alternating']:.4f} ms, plain {t['plain']:.4f} ms, "
+              f"torch.sort {t['lib']:.4f} ms, bound {bound:.4f} ms ({bound_by}); {card}")
+        rows.append({"ms": t["k1"], "previous_ms": t["smem"],
+                     "alternating_ms": t["alternating"], "plain_ms": t["plain"],
+                     "library_ms": t["lib"], "bound_ms": bound, "bound_by": bound_by,
+                     "shape": [k, L], "max_abs_err": err})
+    return rows
 
 
 def run_smoke() -> dict:
@@ -2478,8 +2556,9 @@ def run_smoke() -> dict:
     if not _build.build_log:
         print("libraries were already built from the same sources")
     # kernels that must keep everything in registers: (source, name, count)
-    for stem, kernel, count in (("bitonic", "sort_rows_reg_kernel", 5),
-                                ("bitonic", "sort_rows_wide_kernel", 9),
+    for stem, kernel, count in (("bitonic", "sort_rows_warp_kernel", 24),
+                                ("bitonic", "sort_rows_reg_kernel", 10),
+                                ("bitonic", "sort_rows_wide_kernel", 13),
                                 ("block_matmul", "grouped_block_matmul_pipe_kernel", 8),
                                 ("gather", "class_gather_group_kernel", 2)):
         if stem not in _build.build_log:
@@ -2640,12 +2719,13 @@ def run_smoke() -> dict:
     routes = bitonic.sort_rows.routes
 
     k1_by_variant = bitonic.bitonic_sort_rows.launches_by_variant
+    k2_by_variant = bitonic.fused_sort_compress.launches_by_variant
     k3_by_variant = block_matmul.grouped_block_matmul.launches_by_variant
 
     def reset_counts() -> None:
         for fn in counters.values():
             fn.launches = 0
-        for by_variant in (k1_by_variant, k3_by_variant, routes):
+        for by_variant in (k1_by_variant, k2_by_variant, k3_by_variant, routes):
             for variant in by_variant:
                 by_variant[variant] = 0
 
@@ -2666,6 +2746,7 @@ def run_smoke() -> dict:
     c = ex.assemble(out)
     launches = read_counts()
     k1_variants = dict(k1_by_variant)
+    launches_k2 = dict(k2_by_variant)
     main_routes = dict(routes)
     check(isinstance(ex, ell.EllSpGEMMExecutor) and ex.batched, "not batched")
     print(f"input nnz {a.nnz}; plan + stage {plan_s:.2f} s: k={ex.n_chunks} "
@@ -2678,7 +2759,7 @@ def run_smoke() -> dict:
     check(launches["bitonic_sort_rows"] == 2 * ex.n_groups,
           f"K1 launched {launches['bitonic_sort_rows']} times, "
           f"expected {2 * ex.n_groups}")
-    check(k1_variants == {"reg": 2 * ex.n_groups, "wide": 0, "smem": 0},
+    check(k1_variants == {"warp": 0, "reg": 2 * ex.n_groups, "wide": 0, "smem": 0},
           f"K1 variants {k1_variants}: expected the register kernel every time")
     check(launches["grouped_block_matmul"] == 0, "K3 ran on the ELL path")
     gathered_main = sum(s is not None for s in ex.table_shapes)
@@ -2714,24 +2795,34 @@ def run_smoke() -> dict:
             ex.widths, ex.pads, ex.sort_pad, shift=shift,
         )
         keys.append(key)
-        s = bitonic.bitonic_sort_rows(key)
-        prev = torch.cat([torch.full_like(s[:, :1], -1), s[:, :-1]], dim=1)
-        keep = (s != prev) & (s < limit)
-        want = bitonic.bitonic_sort_rows(torch.where(keep, s, INT32_MAX))
+        want = k1_dedup_k1(torch, bitonic, key, limit)
         got = bitonic.fused_sort_compress(key, limit)
         torch.cuda.synchronize()
-        errs["fused_sort_compress"] = max(
-            errs["fused_sort_compress"], int((got.long() - want.long()).abs().max())
-        )
-        check(torch.equal(got, want), f"K2 differs from K1+dedup, group at {row0}")
+        for label, ref in (("K1 + dedup + K1", want),
+                           ("its plain version", bitonic.fused_sort_compress_plain(key, limit)),
+                           ("K2's smem kernel",
+                            bitonic._fused_sort_compress_variant(key, limit, "smem"))):
+            errs["fused_sort_compress"] = max(
+                errs["fused_sort_compress"], int((got.long() - ref.long()).abs().max()))
+            check(torch.equal(got, ref), f"K2 differs from {label}, group at {row0}")
         g = slice(row0, row0 + ex.group_size)
         check(torch.equal((got < limit).sum(1, dtype=torch.int32), nnz_run[g]),
               "K2 valid counts differ from run()")
         mask = (1 << shift) - 1
         check(torch.equal(got[:, : ex.out_pad] & mask, idx_run[g]),
               "K2 columns differ from run()")
-    print(f"K2 equal to K1 + dedup + K1 on all {len(keys)} group streams "
+    print(f"K2 ({bitonic.k1_variant(keys[0].shape[1])}) equal to K1 + dedup + K1, its "
+          f"plain version and K2's smem kernel on all {len(keys)} group streams "
           f"{tuple(keys[0].shape)}, and to run()'s outputs")
+    k2_rows = []
+    for label, x, lim in (
+            ("bench group stream", keys[0], limit),
+            ("random, wide window", k2_input(torch, rng, *OP_SHAPES["masked"]), None),
+            ("random, warp window", k2_input(torch, rng, *WARP_SHAPES[0]), None)):
+        lim = lim if lim is not None else x.shape[1] // 2
+        row = time_k2(torch, bitonic, x, lim, label, f"on {smi}")
+        errs["fused_sort_compress"] = max(errs["fused_sort_compress"], row["max_abs_err"])
+        k2_rows.append(row)
 
     phase("7. times (CUDA events)")
     for _ in range(3):
@@ -2774,26 +2865,20 @@ def run_smoke() -> dict:
     k1_smem = lambda: bitonic._sort_rows_variant(x, "smem")
     k1_plain = lambda: bitonic.bitonic_sort_rows_plain(x)
     k1_lib = lambda: torch.sort(x, dim=1)
-    k2 = lambda: bitonic.fused_sort_compress(x, limit)
-    k2_plain = lambda: bitonic.fused_sort_compress_plain(x, limit)
     check(torch.equal(k1_smem(), k1_plain()),
           "K1's shared-memory variant differs at the main path's shape")
-    for fn in (k1, k1_smem, k1_plain, k1_lib, k2, k2_plain):
+    for fn in (k1, k1_smem, k1_plain, k1_lib):
         fn()
     times: dict[str, list[float]] = {}
-    order = [("k1", k1), ("k1_smem", k1_smem), ("k1_plain", k1_plain),
-             ("k1_lib", k1_lib), ("k2", k2), ("k2_plain", k2_plain)]
+    order = [("k1", k1), ("k1_smem", k1_smem), ("k1_plain", k1_plain), ("k1_lib", k1_lib)]
     for name, fn in order + order[::-1]:  # in turns: forward, then back
         times.setdefault(name, []).append(event_ms(torch, fn, 50))
     t = {name: min(v) for name, v in times.items()}
     bound, bound_by = sort_bound_ms(x.numel(), x.shape[1])
-    bound2, bound2_by = sort_bound_ms(x.numel(), x.shape[1], sorts=2)
     shape = list(x.shape)
     print(f"at {shape}: K1 ({k1_variant}) {t['k1']:.4f} ms, K1 (smem) "
           f"{t['k1_smem']:.4f} ms, plain {t['k1_plain']:.4f} ms, "
-          f"torch.sort {t['k1_lib']:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
-          f"K2 {t['k2']:.4f} ms, plain {t['k2_plain']:.4f} ms, "
-          f"bound {bound2:.4f} ms ({bound2_by})")
+          f"torch.sort {t['k1_lib']:.4f} ms, bound {bound:.4f} ms ({bound_by})")
     # K1 against torch.sort on random int32 rows at other lengths it takes
     k1_shapes = []
     for k, L in [(4096, 256), (2048, 1024), (1024, 2048)]:
@@ -2837,7 +2922,7 @@ def run_smoke() -> dict:
     cb = bex.assemble(counts)
     launches_b = read_counts()
     k3_variants = dict(k3_by_variant)
-    check(k1_by_variant == {"reg": 0, "wide": 0, "smem": 0},
+    check(k1_by_variant == {"warp": 0, "reg": 0, "wide": 0, "smem": 0},
           f"K1 ran on the blocked path: {k1_by_variant}")
     check(isinstance(bex, bsr.BsrStagedExecutor),
           f"auto_executor took {type(bex).__name__}, not the blocked route")
@@ -3353,7 +3438,7 @@ def run_smoke() -> dict:
                             closure=gr.pop("closure_input"))
     del op_results, count_results, bench_symmetric
 
-    phase("22. the native host tier, the CLI's bench and K1's shared-memory kernel")
+    phase("22. the native host tier, the CLI's bench and K1's warp kernel")
     from binary_spgemm_tpu_torch import cli, read_pattern
     from binary_spgemm_tpu_torch.formats import bcsr as bcsr_mod
     from binary_spgemm_tpu_torch.io import mmio
@@ -3370,7 +3455,7 @@ def run_smoke() -> dict:
         read_counts=read_counts, k1_by_variant=k1_by_variant, routes=routes,
         e2e_ms=statistics.median(e2e_ms))
     os.remove(path)
-    smem = smem_phase(torch, f"on {smi}", bitonic=bitonic, rng=rng)
+    warp = warp_phase(torch, f"on {smi}", bitonic=bitonic, rng=rng)
     print(f"phase 22: {time.perf_counter() - t22:.2f} s on the host clock; {smi}")
 
     src = "binary_spgemm_tpu_torch/csrc/bitonic.cu"
@@ -3420,20 +3505,25 @@ def run_smoke() -> dict:
                 "distributed (per rank)": launches_on(dist_runs, "k1_wide")},
         },
         {
-            "name": "bitonic_sort_rows (smem)", "route": "cuda", "source": src,
+            "name": "bitonic_sort_rows (warp)", "route": "cuda", "source": src,
             "replaces": "binary_spgemm_tpu/ops/bitonic.py:114",
-            "launches": k1_variants["smem"], "max_abs_err": smem["max_abs_err"],
-            **{key: smem[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms", "shape")},
-            "on_main_path": False, "variant": "smem",
+            "launches": k1_variants["warp"],
+            "max_abs_err": max(r["max_abs_err"] for r in warp),
+            **{key: warp[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "previous_ms", "alternating_ms",
+                                             "shape")},
+            "on_main_path": False, "variant": "warp", "other_shapes": warp[1:],
         },
         {
             "name": "fused_sort_compress", "route": "cuda", "source": src,
             "replaces": "binary_spgemm_tpu/ops/bitonic.py:225",
             "launches": launches["fused_sort_compress"],
-            "max_abs_err": errs["fused_sort_compress"], "ms": t["k2"],
-            "plain_ms": t["k2_plain"], "bound_ms": bound2, "bound_by": bound2_by,
-            "library_ms": None, "shape": shape, "on_main_path": False,
+            "launches_by_variant": launches_k2,
+            "max_abs_err": errs["fused_sort_compress"],
+            **{key: k2_rows[0][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms",
+                "k1_dedup_k1_ms", "k1_ms", "shape", "variant")},
+            "on_main_path": False, "other_shapes": k2_rows[1:],
         },
         {
             "name": "grouped_block_matmul", "route": "cuda",

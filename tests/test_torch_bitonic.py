@@ -2,9 +2,10 @@
 against the JAX package's Pallas kernels in interpret mode and its
 ``sort_rows`` fallback, the wrappers' contract (no launch and no count on
 a CPU tensor, raise on what the kernels do not take), K1's choice of kernel,
-and numpy models of K1's register kernel and wide kernel (``csrc/bitonic.cu``,
-``sort_rows_reg_kernel`` and ``sort_rows_wide_kernel``) that run their
-schedules step by step."""
+numpy models of K1's warp, register and wide kernels (``csrc/bitonic.cu``,
+``sort_rows_warp_kernel``, ``sort_rows_reg_kernel`` and
+``sort_rows_wide_kernel``) that run their schedules step by step, and a
+numpy model of K2's compaction epilogue on each of their thread layouts."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -142,7 +143,7 @@ def test_sort_rows_route_is_a_function_of_the_row_length(L, route):
 
 @pytest.mark.parametrize(
     "L,variant",
-    [(1, "smem"), (2, "smem"), (128, "smem"), (129, "reg"), (255, "reg"),
+    [(1, "warp"), (2, "warp"), (128, "warp"), (129, "reg"), (255, "reg"),
      (256, "reg"), (257, "reg"), (3968, "reg"), (4095, "reg"), (4096, "reg"),
      (4097, "wide"), (32768, "wide"), (4352, "wide"), (8192, "wide"), (8193, "wide"),
      (16384, "wide"), (16385, "wide"), (32767, "wide"), (32769, "smem")],
@@ -156,14 +157,18 @@ def test_k1_variants_on_the_cpu_are_the_plain_version():
     by_variant = dict(bitonic.bitonic_sort_rows.launches_by_variant)
     x = torch.from_numpy(stream(5, 300, 2))
     xw = torch.from_numpy(stream(3, 5000, 2, hi=1 << 20))
-    for variant, xs in (("reg", x), ("smem", x), ("wide", xw), ("smem", xw)):
+    xs_ = torch.from_numpy(stream(7, 100, 2))
+    for variant, xs in (("reg", x), ("smem", x), ("wide", xw), ("smem", xw),
+                        ("warp", xs_), ("smem", xs_)):
         assert torch.equal(bitonic._sort_rows_variant(xs, variant),
                            torch.sort(xs, dim=1).values)
     assert bitonic.bitonic_sort_rows.launches == 0
     assert bitonic.bitonic_sort_rows.launches_by_variant == by_variant
-    assert set(by_variant) == {"reg", "wide", "smem"}
+    assert set(by_variant) == {"warp", "reg", "wide", "smem"}
     with pytest.raises(ValueError, match="'reg' takes rows"):
         bitonic._sort_rows_variant(torch.from_numpy(stream(4, 128, 2)), "reg")
+    with pytest.raises(ValueError, match="'warp' takes rows"):
+        bitonic._sort_rows_variant(x, "warp")
     with pytest.raises(ValueError, match="'wide' takes rows"):
         bitonic._sort_rows_variant(torch.from_numpy(stream(4, 4096, 2)), "wide")
     with pytest.raises(ValueError, match="'reg' takes rows"):
@@ -592,3 +597,297 @@ def test_wide_model_shared_memory_is_free_of_bank_conflicts(shape):
                     for s_ in (i, u):
                         b = (wide_swz(s_, log_n) % 32).reshape(-1, 32)
                         assert all(len(set(row)) == 32 for row in b)
+
+
+# --- numpy model of sort_rows_warp_kernel ------------------------------------
+# One warp a row (P >= 32) or 32 / P rows (P < 32): lane l holds the N = max(1,
+# P / 32) contiguous slots N l ... N l + N - 1 of its warp's 32 N slots.  Steps
+# with partner distance below N run inside the lane, the rest by shuffle.
+# sort=True is K1's (and K2's) all-ascending form, each merge opening with the
+# mirror step; sort=False the alternating form from merge 2^lk0 (P1/P2).
+
+
+def _jax_padded(fn, x):
+    """The JAX package's Pallas kernel ``fn`` (interpret mode) on ``x``'s rows
+    padded with INT32_MAX to a power of two, and its row count to a multiple
+    of 8 (the kernel's row block): the first L columns of the first k rows.
+    The padding is the largest value, so these are the rows' own result."""
+    k, L = x.shape
+    P = 1 << (L - 1).bit_length()
+    xp = np.full((-(-k // 8) * 8, P), I32_MAX, np.int32)
+    xp[:k, :L] = x
+    return np.asarray(fn(jnp.asarray(xp)))[:k, :L]
+
+
+def warp_kernel_model(x, sort=True, lk0=1):
+    """Run sort_rows_warp_kernel's schedule on int32 ``[k, L]`` ``x`` (L <=
+    128), from the merge of size 2^lk0 on, holding every step against the
+    whole network on the padded rows.  Returns the output, the padded rows
+    as the registers hold them ([k, P], for K2's epilogue) and the steps run
+    in each place."""
+    k, L = x.shape
+    log_p = (L - 1).bit_length()
+    assert 0 <= log_p <= 7
+    P = 1 << log_p
+    log_n = max(0, log_p - 5)
+    N = 1 << log_n
+    row_lanes = P // N  # 32 from P = 32 up, else P
+    lane = np.arange(32)
+    n_warps = -(-k // (32 // row_lanes))
+    row = np.arange(n_warps)[:, None] * (32 // row_lanes) + lane // row_lanes  # [W, 32]
+    col = ((lane % row_lanes) << log_n)[:, None] + np.arange(N)  # [32, N]
+    rows = np.broadcast_to(row[:, :, None], (n_warps, 32, N))
+    cols = np.broadcast_to(col[None], rows.shape)
+    ok = (rows < k) & (cols < L)
+    r = np.full(rows.shape, I32_MAX, np.int32)  # rows past k: INT32_MAX
+    r[ok] = x[rows[ok], cols[ok]]
+    steps = {"register": 0, "shuffle": 0}
+    ref = np.full((k, P), I32_MAX, np.int32)
+    ref[:, :L] = x
+    live = rows < k
+
+    def ascending(i, lk):
+        return np.ones(np.shape(i), bool) if sort or lk == log_p else (i & (1 << lk)) == 0
+
+    for lk in range(lk0, log_p + 1):
+        for lj in range(lk - 1, -1, -1):
+            mirror = sort and lj == lk - 1
+            if lj >= log_n:
+                m = (1 << (lk - log_n)) - 1 if mirror else 1 << (lj - log_n)
+                partner = lane ^ m  # __shfl_xor_sync(..., m)
+                assert (partner // row_lanes == lane // row_lanes).all()  # inside the row
+                o = r[:, partner, ::-1] if mirror else r[:, partner]
+                lower = (lane & (1 << (lj - log_n))) == 0
+                keep_min = lower == ascending(lane << log_n, lk)
+                r = np.where(keep_min[None, :, None], np.minimum(r, o), np.maximum(r, o))
+                steps["shuffle"] += 1
+            else:
+                j = 1 << lj
+                new = r.copy()
+                for e in range(N):
+                    if e & j:
+                        continue
+                    f = e ^ ((1 << lk) - 1) if mirror else e | j
+                    a, b = r[:, :, e], r[:, :, f]
+                    up = ascending((lane << log_n) + e, lk)[None]
+                    new[:, :, e] = np.where(up, np.minimum(a, b), np.maximum(a, b))
+                    new[:, :, f] = np.where(up, np.maximum(a, b), np.minimum(a, b))
+                r = new
+                steps["register"] += 1
+            _reference_step(ref, P, lk, lj, sort)
+            held = np.full((k, P), I32_MAX, np.int32)
+            held[rows[live], cols[live]] = r[live]
+            assert np.array_equal(held, ref), (lk, lj)
+    out = np.empty_like(x)
+    out[rows[ok], cols[ok]] = r[ok]
+    padded = np.full((k, P), I32_MAX, np.int32)
+    padded[rows[live], cols[live]] = r[live]
+    return out, padded, steps
+
+
+WARP_LENGTHS = [1, 2, 3, 16, 37, 100, 128]
+
+
+def _sort_case(k, L, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(I32_MIN, I32_MAX, (k, L), dtype=np.int64, endpoint=True)
+    x = x.astype(np.int32)
+    x[0, : min(3, L)] = I32_MAX
+    x[-1, : min(2, L)] = I32_MIN
+    x[k // 2, : max(1, L // 2)] = x[k // 2, 0]  # duplicates
+    return x
+
+
+@pytest.mark.parametrize("L", WARP_LENGTHS)
+def test_warp_kernel_model_sorts_like_np_sort_and_jax(L):
+    k = 13  # not a multiple of the rows a warp or a block holds
+    x = _sort_case(k, L, L)
+    assert bitonic.k1_variant(L) == "warp"
+    got, padded, _ = warp_kernel_model(x)
+    want = np.sort(x, axis=1)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, _jax_padded(
+        lambda v: jx_bitonic.bitonic_sort_rows(v, interpret=True), x))
+    assert np.array_equal(bitonic.bitonic_sort_rows(torch.from_numpy(x)).numpy(), want)
+    assert (padded[:, L:] == I32_MAX).all()  # the padding sorts to the end
+
+
+def test_warp_kernel_model_steps_match_the_source_note():
+    note = " ".join(_wide_source().replace("//", " ").split())
+    line = "Steps by place at P = 128: {} register, {} shuffle; P = 64: {} register, {} shuffle"
+    steps = [warp_kernel_model(stream(2, P, P, hi=1 << 20))[2] for P in (128, 64)]
+    assert line.format(*(v for st in steps for v in (st["register"], st["shuffle"]))) in note
+
+
+@pytest.mark.parametrize("log_p", range(8))
+def test_warp_kernel_model_step_placement(log_p):
+    P = 1 << log_p
+    x = stream(3, P, log_p) if P >= 3 else np.arange(3 * P, dtype=np.int32)[::-1].reshape(3, P)
+    got, _, steps = warp_kernel_model(x)
+    assert np.array_equal(got, np.sort(x, axis=1))
+    log_n = max(0, log_p - 5)
+    assert steps["register"] == sum(min(lk, log_n) for lk in range(1, log_p + 1))
+    assert steps["register"] + steps["shuffle"] == log_p * (log_p + 1) // 2
+    assert steps["shuffle"] <= 15  # the lane's five bits, at most 1 + 2 + ... + 5
+    if log_p == 7:  # the window's longest row
+        assert (steps["register"], steps["shuffle"]) == (13, 15)
+
+
+@pytest.mark.parametrize("L", [1, 2, 16, 64, 128])
+@pytest.mark.parametrize("first", ["2", "4", "32", "L", "2L"])
+def test_warp_kernel_model_network_form_is_the_plain_network(L, first):
+    from binary_spgemm_tpu_torch.benchmarks.ab_wruns import alternating_runs
+
+    min_kk = {"L": L, "2L": 2 * L}.get(first) or int(first)
+    x = torch.from_numpy(stream(9, L, L + min_kk, hi=1 << 30) if L >= 3 else
+                         np.arange(9 * L, dtype=np.int32)[::-1].reshape(9, L).copy())
+    runs = alternating_runs(x, max(1, min(16, L // 2)))
+    lk0 = bitonic._first_merge(min_kk, L)
+    for inp in (x, runs):
+        got, _, _ = warp_kernel_model(inp.numpy(), sort=False, lk0=lk0)
+        assert np.array_equal(got, bitonic.bitonic_network_rows_plain(inp, min_kk).numpy())
+        assert np.array_equal(got, bitonic.bitonic_network_rows(inp, min_kk).numpy())
+
+
+# --- numpy model of K2's epilogue ---------------------------------------------
+# After K1's network the row's P slots lie sorted in its threads' registers,
+# T = P / N threads of N contiguous slots (the warp kernel: N = max(1, P / 32),
+# T <= 32 lanes of one warp; the register kernel: N = 8, T = P / 8 threads,
+# whole warps; the wide kernel: bitonic.wide_block(L), the whole block).  Each
+# thread keeps the slots that start the row or differ from their left
+# neighbour and lie below the limit, counts them, and takes an exclusive scan
+# of the counts over the row's threads: shuffles inside a warp (a segment of
+# min(T, 32) lanes), then the warps' totals through shared memory; then it
+# writes its kept values to their packed places, and INT32_MAX fills the row
+# from its count to L.
+
+
+def k2_epilogue_model(padded, L, limit, N, wide=False):
+    """K2's epilogue on sorted padded rows ``padded`` [k, P] laid out in
+    threads of N slots; ``wide``: the wide kernel, whose idle warps (every
+    slot at or past L) keep nothing.  Returns the output rows and the
+    number of shuffle rounds of the scan and of warps a row."""
+    k, P = padded.shape
+    T = P // N
+    r = padded.reshape(k, T, N)
+    t = np.arange(T)
+    left = np.concatenate([np.zeros((k, 1), np.int32), r[:, :-1, N - 1]], axis=1)
+    prev = np.concatenate([left[:, :, None], r[:, :, :-1]], axis=2)
+    differs = r != prev
+    differs[:, 0, 0] = True  # the row's first slot
+    keep = differs & (r < limit)
+    if wide:
+        keep[:, ((t & ~31) * N) >= L] = False
+    kept = keep.sum(axis=2)
+    width = min(T, 32)
+    inc, rounds, d = kept.copy(), 0, 1
+    while d < width:  # __shfl_up_sync(..., d, width), every lane at once
+        up = np.where((t % width >= d)[None], np.roll(inc, d, axis=1), 0)
+        inc, rounds, d = inc + up, rounds + 1, 2 * d
+    warp_total = inc[:, width - 1 :: width]
+    before = np.cumsum(warp_total, axis=1) - warp_total  # through shared memory
+    start = before[:, t // width] + inc - kept
+    total = warp_total.sum(axis=1)
+    hole = 1 << 40  # a place no kept value reached (not an int32)
+    out = np.full((k, P), hole, np.int64)
+    rank = np.cumsum(keep, axis=2) - keep
+    rr, tt, ee = np.nonzero(keep)
+    places = start[rr, tt] + rank[rr, tt, ee]
+    assert len(set(zip(rr.tolist(), places.tolist()))) == len(places)  # no collision
+    out[rr, places] = r[rr, tt, ee]
+    c = np.arange(L)[None]
+    assert (out[:, :L][c < total[:, None]] != hole).all()  # no hole below the count
+    res = np.where(c < total[:, None], out[:, :L], I32_MAX).astype(np.int32)
+    return res, rounds, T // width
+
+
+K2_LAYOUTS = [("warp", L) for L in (1, 2, 3, 16, 37, 100, 128)] + [
+    ("reg", L) for L in (129, 256, 700, 3968, 4096)] + [
+    ("wide", L) for L in (4097, 4608, 7232, 8192, 16385, 32768)]
+
+
+def _k2_case(L, seed):
+    rng = np.random.default_rng(seed)
+    k = 9
+    x = rng.integers(-40, 3 * L + 40, (k, L)).astype(np.int32)  # duplicates
+    x[0, : min(3, L)] = I32_MAX
+    x[1, : min(2, L)] = I32_MIN
+    x[2] = I32_MAX  # a row of nothing but the padding value
+    x[3] = x[3, 0]  # a row of a single value
+    return x
+
+
+@pytest.mark.parametrize("limit", ["0", "mid", "max"])
+@pytest.mark.parametrize("window,L", K2_LAYOUTS)
+def test_k2_epilogue_model_equals_the_plain_version(window, L, limit):
+    x = _k2_case(L, L)
+    lim = {"0": 0, "mid": int(1.5 * L), "max": I32_MAX}[limit]
+    assert bitonic.k1_variant(L) == window
+    P = 1 << (L - 1).bit_length()
+    if window == "warp":
+        _, padded, _ = warp_kernel_model(x)
+        N = max(1, P // 32)
+    else:
+        s = (reg_kernel_model(x) if window == "reg" else wide_kernel_model(x))[0]
+        padded = np.concatenate([s, np.full((x.shape[0], P - L), I32_MAX, np.int32)], 1)
+        N = 8 if window == "reg" else bitonic.wide_block(L)[1]
+    got, rounds, warps = k2_epilogue_model(padded, L, lim, N, wide=window == "wide")
+    want = bitonic.fused_sort_compress_plain(torch.from_numpy(x), lim).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(bitonic.fused_sort_compress(torch.from_numpy(x), lim).numpy(), want)
+    assert (got[2] == I32_MAX).all()
+    assert rounds == (P // N).bit_length() - 1 if P // N <= 32 else rounds == 5
+    assert warps == max(1, P // N // 32)
+
+
+@pytest.mark.parametrize("L", [1, 3, 37, 128, 256, 700, 4097])
+def test_k2_epilogue_model_equals_jax_interpret(L):
+    x = _k2_case(L, L + 1)
+    P = 1 << (L - 1).bit_length()
+    window = bitonic.k1_variant(L)
+    for lim in (0, int(1.5 * L), I32_MAX):
+        if window == "warp":
+            padded, N = warp_kernel_model(x)[1], max(1, P // 32)
+        else:
+            padded, N = np.sort(np.concatenate(
+                [x, np.full((x.shape[0], P - L), I32_MAX, np.int32)], 1), axis=1), (
+                8 if window == "reg" else bitonic.wide_block(L)[1])
+        got, _, _ = k2_epilogue_model(padded, L, lim, N, wide=window == "wide")
+        want = _jax_padded(
+            lambda v: jx_bitonic.fused_sort_compress(v, lim, interpret=True), x)
+        assert np.array_equal(got, want), lim
+
+
+def test_k2_variants_on_the_cpu_are_the_plain_version():
+    bitonic.fused_sort_compress.launches = 0
+    by_variant = dict(bitonic.fused_sort_compress.launches_by_variant)
+    assert set(by_variant) == {"warp", "reg", "wide", "smem"}
+    for L, variant in ((100, "warp"), (700, "reg"), (5000, "wide")):
+        x = torch.from_numpy(_k2_case(L, 3))
+        want = bitonic.fused_sort_compress_plain(x, L)
+        for v in (variant, "smem"):
+            assert torch.equal(bitonic._fused_sort_compress_variant(x, L, v), want)
+    assert bitonic.fused_sort_compress.launches == 0
+    assert bitonic.fused_sort_compress.launches_by_variant == by_variant
+    x = torch.from_numpy(_k2_case(700, 3))
+    with pytest.raises(ValueError, match="'warp' takes rows"):
+        bitonic._fused_sort_compress_variant(x, 5, "warp")
+    with pytest.raises(ValueError, match="unknown K2 variant"):
+        bitonic._fused_sort_compress_variant(x, 5, "cub")
+    with pytest.raises(ValueError, match="int32"):
+        bitonic._fused_sort_compress_variant(x, -(1 << 31) - 1, "reg")
+
+
+def test_k2_wide_shapes_built_are_the_ones_wide_block_picks():
+    """The wrappers pass K2's wide kernel wide_block(L)'s shape, which the
+    source builds in its compaction form."""
+    import re
+
+    src = _wide_source()
+    body = src[src.index("cudaError_t launch_wide(const void*"):]
+    body = body[: body.index("\n}\n")]
+    built = {(int(lp), int(ln)) for lp, ln in
+             re.findall(r"launch_wide_shape<(\d+), (\d+), true, true>", body)}
+    picked = {((L - 1).bit_length(), bitonic.wide_block(L)[1].bit_length() - 1)
+              for L in range(bitonic.WIDE_MIN_L, bitonic.WIDE_MAX_L + 1, 64)}
+    assert built == picked == {(13, 4), (13, 5), (14, 5), (15, 5)}

@@ -65,8 +65,7 @@ def test_k1_variants_equal_the_plain_version(cuda_device, k, L):
     x[1] = x[1, 0]  # one row of a single value
     xt = torch.from_numpy(x).to(cuda_device)
     variant = bitonic.k1_variant(L)
-    assert variant == ("reg" if 129 <= L <= 4096 else "wide" if 4097 <= L <= 32768
-                       else "smem")
+    assert variant == ("warp" if L <= 128 else "reg" if L <= 4096 else "wide")
     before = dict(bitonic.bitonic_sort_rows.launches_by_variant)
     got = bitonic.bitonic_sort_rows(xt)
     torch.cuda.synchronize()
@@ -76,6 +75,78 @@ def test_k1_variants_equal_the_plain_version(cuda_device, k, L):
     assert sum(after.values()) == sum(before.values()) + 1
     if variant != "smem":  # the shared-memory kernel still takes these rows
         assert torch.equal(bitonic._sort_rows_variant(xt, "smem"), got)
+
+
+WARP_LENGTHS = [1, 2, 3, 16, 37, 64, 100, 128]
+
+
+@pytest.mark.parametrize("k", [1, 7, 65537])
+@pytest.mark.parametrize("L", WARP_LENGTHS)
+def test_warp_kernel_equals_the_plain_version(cuda_device, L, k):
+    rng = np.random.default_rng(L * k)
+    x = rng.integers(I32_MIN, I32_MAX, (k, L), dtype=np.int64, endpoint=True)
+    x = x.astype(np.int32)
+    x[0, : min(3, L)] = I32_MAX
+    x[-1, : min(2, L)] = I32_MIN
+    x[k // 2, : max(1, L // 2)] = x[k // 2, 0]  # duplicates
+    xt = torch.from_numpy(x).to(cuda_device)
+    assert bitonic.k1_variant(L) == "warp"
+    n, before = bitonic.bitonic_sort_rows.launches, dict(
+        bitonic.bitonic_sort_rows.launches_by_variant)
+    got = bitonic.bitonic_sort_rows(xt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bitonic.bitonic_sort_rows_plain(xt))
+    before["warp"] += 1
+    assert bitonic.bitonic_sort_rows.launches == n + 1
+    assert bitonic.bitonic_sort_rows.launches_by_variant == before
+    # a row start that is not 16-byte aligned: the scalar loads and stores
+    view = torch.empty(k * L + 1, dtype=torch.int32, device=cuda_device)[1:].view(k, L)
+    view.copy_(xt)
+    assert torch.equal(bitonic.bitonic_sort_rows(view), got)
+
+
+@pytest.mark.parametrize("L", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_warp_network_at_every_first_merge(cuda_device, L):
+    k = max(8, (1 << 15) // L)
+    x, runs = runs_input(k, L, max(1, min(16, L // 2)), seed=L) if L > 1 else (
+        torch.arange(k, dtype=torch.int32, device=cuda_device).view(k, 1), None)
+    n = bitonic.bitonic_network_rows.launches
+    for log_kk in range(1, L.bit_length() + 2):
+        for inp in (x, runs) if runs is not None else (x,):
+            got = bitonic.bitonic_network_rows(inp, 1 << log_kk)
+            torch.cuda.synchronize()
+            assert torch.equal(got, bitonic.bitonic_network_rows_plain(inp, 1 << log_kk)), (
+                log_kk)
+    assert bitonic.bitonic_network_rows.launches == n + (L.bit_length() + 1) * (
+        2 if runs is not None else 1)
+
+
+@pytest.mark.parametrize(
+    "k,L", [(1024, 3968), (512, 7232), (333, 37), (16, bitonic.MAX_L), (7, 1), (64, 128),
+            (65537, 16), (40, 129), (24, 4096), (16, 4097), (8, 16385)])
+def test_k2_equals_its_plain_version_the_old_kernel_and_k1_twice(cuda_device, k, L):
+    rng = np.random.default_rng(k + L)
+    x = rng.integers(-5, max(L // 2, 2), (k, L)).astype(np.int32)  # duplicates
+    x[0, : min(3, L)] = I32_MAX
+    x[-1, : min(2, L)] = I32_MIN
+    x[k // 2] = I32_MAX  # nothing kept
+    xt = torch.from_numpy(x).to(cuda_device)
+    variant = bitonic.k1_variant(L)
+    for limit in (0, max(L // 3, 1), I32_MAX):
+        n, before = bitonic.fused_sort_compress.launches, dict(
+            bitonic.fused_sort_compress.launches_by_variant)
+        got = bitonic.fused_sort_compress(xt, limit)
+        torch.cuda.synchronize()
+        before[variant] += 1
+        assert bitonic.fused_sort_compress.launches == n + 1
+        assert bitonic.fused_sort_compress.launches_by_variant == before
+        assert torch.equal(got, bitonic.fused_sort_compress_plain(xt, limit)), limit
+        assert torch.equal(bitonic._fused_sort_compress_variant(xt, limit, "smem"), got)
+        s = bitonic.bitonic_sort_rows(xt)
+        differs = torch.ones_like(s, dtype=torch.bool)  # the first slot of a row
+        differs[:, 1:] = s[:, 1:] != s[:, :-1]
+        keep = differs & (s < limit)
+        assert torch.equal(bitonic.bitonic_sort_rows(torch.where(keep, s, I32_MAX)), got)
 
 
 def test_kernels_raise_past_shared_memory(cuda_device):
