@@ -41,6 +41,8 @@ import ctypes
 
 import torch
 
+from ..utils.trace import count
+
 __all__ = [
     "MAX_L",
     "bitonic_network_rows",
@@ -342,7 +344,9 @@ def sort_rows(x: torch.Tensor) -> torch.Tensor:
     as the JAX package's is: rows up to :data:`MAX_L` through K1, longer rows
     through ``torch.sort``, the op for the XLA sort the JAX package runs
     outside its kernel's window.  ``sort_rows.routes`` counts the calls by
-    route, on every device."""
+    route, on every device; while tracing is on, the slots go to the
+    ``sort.slots`` count."""
+    count("sort.slots", x.numel())
     if x.dim() == 2 and x.shape[1] > MAX_L:
         sort_rows.routes["torch_sort"] += 1
         return torch.sort(x, dim=1).values

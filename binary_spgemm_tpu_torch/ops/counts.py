@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..formats.bcsr import BCSR
+from ..utils.trace import span
 from .spgemm import (
     DEFAULT_CHUNK_FLOPS,
     INT,
@@ -48,6 +49,7 @@ from .spgemm import (
     _row_ids,
     _running_max,
     _shr_logical,
+    _sort,
     _sort_keys,
     _sort_tagged,
     _stitch_pipelined,
@@ -91,7 +93,7 @@ _LOW32 = 0xFFFFFFFF
 def _sort_payload(keys: torch.Tensor, payload: torch.Tensor):
     """``lax.sort((keys, payload), num_keys=1)`` along the last axis: the
     sorted keys and the payload in their order."""
-    keys, perm = torch.sort(keys, dim=-1)
+    keys, perm = _sort(keys, dim=-1)
     return keys, torch.gather(payload, -1, perm)
 
 
@@ -130,7 +132,7 @@ def _counts_compress(row, col, n_rows: int, n_cols: int, key=None):
                                             INT32_MAX)
         return (_shr_logical(c_keys, shift), c_keys & ((1 << shift) - 1),
                 counts, nnz)
-    key_s = torch.sort(_pair_key(row, col), dim=-1).values
+    key_s = _sort(_pair_key(row, col), dim=-1).values
     c_keys, counts, nnz = _counts_stage(key_s, (key_s >> 32) < n_rows,
                                         (n_rows << 32) | n_cols)
     return c_keys >> 32, (c_keys & _LOW32).to(INT), counts, nnz
@@ -274,23 +276,29 @@ def _masked_counts_sum(row, col, f_row, f_col, n_rows: int, n_cols: int, key=Non
     pair (i, j), one int32 per stream along the last axis: one tagged sort
     (mask pairs first within an equal run), the run marks, and the count of
     marked candidates.  Separators ``(r, n_cols)`` match no mask pair."""
-    if packable(n_rows, 2 * n_cols + 1):
-        shift = int(n_cols).bit_length() + 1
-        if key is None:
-            key = (row << (shift - 1)) | col
-        key_s = _sort_keys(torch.cat([(key << 1) | 1,
-                                      (f_row << shift) | (f_col << 1)], dim=-1))
-        is_mask = (key_s & 1) == 0
-        new = (key_s >> 1) != (_prev(key_s, -2) >> 1)
-        in_range = key_s < (n_rows << shift)
-    else:
-        rs, cs, ts = _sort_tagged([(row, col, 1), (f_row, f_col, 0)],
-                                  n_rows, n_cols, 1)
-        is_mask = ts == 0
-        new = (rs != _prev(rs, -1)) | (cs != _prev(cs, -1))
-        in_range = rs < n_rows
-    counted = ~is_mask & _masked_run_marks(is_mask, new) & in_range
-    return counted.sum(-1, dtype=INT)
+    packed = packable(n_rows, 2 * n_cols + 1)
+    shift = int(n_cols).bit_length() + 1
+    with span("sort"):
+        if packed:
+            if key is None:
+                key = (row << (shift - 1)) | col
+            # the joined stream is freed as the sort returns, before the marks
+            key_s = _sort_keys(torch.cat([(key << 1) | 1,
+                                          (f_row << shift) | (f_col << 1)], dim=-1))
+        else:
+            rs, cs, ts = _sort_tagged([(row, col, 1), (f_row, f_col, 0)],
+                                      n_rows, n_cols, 1)
+    with span("compress"):
+        if packed:
+            is_mask = (key_s & 1) == 0
+            new = (key_s >> 1) != (_prev(key_s, -2) >> 1)
+            in_range = key_s < (n_rows << shift)
+        else:
+            is_mask = ts == 0
+            new = (rs != _prev(rs, -1)) | (cs != _prev(cs, -1))
+            in_range = rs < n_rows
+        counted = ~is_mask & _masked_run_marks(is_mask, new) & in_range
+        return counted.sum(-1, dtype=INT)
 
 
 def masked_counts_sum(row, col, f_indptr, f_indices, f_nnz, n_rows: int,
@@ -528,40 +536,46 @@ def triangle_count_device(
     them as int64.  Routes to the ``masked=True`` ELL plan while it fits
     ``AUTO_ELL_MAX_SLOTS``, else (or with ``chunk_flops``) to ESC.  Raises
     ``ValueError`` when the sum is not divisible by 6."""
-    if a.n_rows != a.n_cols:
-        raise ValueError("triangles need a square matrix")
-    require_int32_operands(a)
-    if a.nnz == 0:
-        return 0
-    a = a.sum_duplicates()
-    n = a.n_rows
+    with span("call.triangle_count"):
+        with span("call.check"):
+            if a.n_rows != a.n_cols:
+                raise ValueError("triangles need a square matrix")
+            require_int32_operands(a)
+            a = a.sum_duplicates()
+        if a.nnz == 0:
+            return 0
+        n = a.n_rows
 
-    if chunk_flops is None:
-        from .ell import AUTO_ELL_MAX_SLOTS, cached_executor
+        if chunk_flops is None:
+            from .ell import AUTO_ELL_MAX_SLOTS, cached_executor
 
-        try:
-            ex = cached_executor(a, a, masked=True, device=device)
-        except OverflowError:
-            ex = None
-        if ex is not None and ex.total_slots <= AUTO_ELL_MAX_SLOTS:
-            sums = ex.run_counts_sum(a).cpu().numpy()
-            # trailing dummy group-fill chunks sum to 0; drop them anyway
-            return _triangles(int(sums[: ex.n_chunks].astype(np.int64).sum()))
+            try:
+                ex = cached_executor(a, a, masked=True, device=device)
+            except OverflowError:
+                ex = None
+            if ex is not None and ex.total_slots <= AUTO_ELL_MAX_SLOTS:
+                sums = ex.run_counts_sum(a)
+                with span("sync.sums"):
+                    sums = sums.cpu().numpy()
+                # trailing dummy group-fill chunks sum to 0; drop them anyway
+                return _triangles(int(sums[: ex.n_chunks].astype(np.int64).sum()))
 
-    device = resolve_device(device)
-    rf = row_flops(a, a)
-    # (row, col, tag) packs into one key only under the wider masked bound
-    chunks, rows_pad, nnz_pad, flops_pad = uniform_chunk_plan(
-        a, rf, chunk_flops or DEFAULT_CHUNK_FLOPS, 2 * n + 1)
-    f_nnz_pad = pad_bucket(max(int(a.indptr[r1] - a.indptr[r0]) for r0, r1 in chunks))
-    b_indptr = _upload(a.indptr.astype(np.int32), device)
-    b_indices = _upload(a.indices.astype(np.int32), device)
-    total = torch.zeros((), dtype=torch.int64, device=device)
-    for r0, r1 in chunks:
-        ptr, idx, nnz_local = pad_chunk_csr(a, r0, r1, rows_pad, nnz_pad)
-        f_ptr, f_idx, f_local = pad_chunk_csr(a, r0, r1, rows_pad, f_nnz_pad, fill=n)
-        total += _masked_counts_sum_padded(
-            _upload(f_ptr, device), _upload(f_idx, device), f_local,
-            _upload(ptr, device), _upload(idx, device), nnz_local, b_indptr,
-            b_indices, n_cols=n, flops_pad=flops_pad, check_total=False)
-    return _triangles(int(total))
+        device = resolve_device(device)
+        rf = row_flops(a, a)
+        # (row, col, tag) packs into one key only under the wider masked bound
+        chunks, rows_pad, nnz_pad, flops_pad = uniform_chunk_plan(
+            a, rf, chunk_flops or DEFAULT_CHUNK_FLOPS, 2 * n + 1)
+        f_nnz_pad = pad_bucket(max(int(a.indptr[r1] - a.indptr[r0]) for r0, r1 in chunks))
+        b_indptr = _upload(a.indptr.astype(np.int32), device)
+        b_indices = _upload(a.indices.astype(np.int32), device)
+        total = torch.zeros((), dtype=torch.int64, device=device)
+        for r0, r1 in chunks:
+            ptr, idx, nnz_local = pad_chunk_csr(a, r0, r1, rows_pad, nnz_pad)
+            f_ptr, f_idx, f_local = pad_chunk_csr(a, r0, r1, rows_pad, f_nnz_pad, fill=n)
+            total += _masked_counts_sum_padded(
+                _upload(f_ptr, device), _upload(f_idx, device), f_local,
+                _upload(ptr, device), _upload(idx, device), nnz_local, b_indptr,
+                b_indices, n_cols=n, flops_pad=flops_pad, check_total=False)
+        with span("sync.total"):
+            total = int(total)
+        return _triangles(total)

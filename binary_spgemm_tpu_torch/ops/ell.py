@@ -41,6 +41,7 @@ import torch
 from .. import native
 from ..formats.bcsr import BCSR
 from ..utils.timers import bench_fn, event_seconds
+from ..utils.trace import span
 from .bitonic import sort_rows as sort_rows_1key
 from .counts import (
     _masked_counts,
@@ -470,12 +471,14 @@ def _ell_spgemm_sep(
     ``_ell_or_jit``), D's pairs join each stream before the separators and
     the union is the sort's dedup.  Returns the compacted column streams
     (truncated to ``out_pad``) and the per-chunk valid counts."""
-    extra = () if d_ptr is None else (_staged_pairs_2d(d_ptr, d_idx, rows_pad, n_cols),)
-    row, col = _chunk_pair_streams(
-        tables, entry_rows, entry_pos, n_chunks=n_chunks, rows_pad=rows_pad,
-        n_cols=n_cols, widths=widths, pads=pads, sort_pad=sort_pad,
-        extra=extra, device=device,
-    )
+    with span("expand"):
+        extra = () if d_ptr is None else (
+            _staged_pairs_2d(d_ptr, d_idx, rows_pad, n_cols),)
+        row, col = _chunk_pair_streams(
+            tables, entry_rows, entry_pos, n_chunks=n_chunks, rows_pad=rows_pad,
+            n_cols=n_cols, widths=widths, pads=pads, sort_pad=sort_pad,
+            extra=extra, device=device,
+        )
     idx, nnz = sort_compress_seps_2d(row, col, rows_pad, n_cols)
     if out_pad is not None and out_pad < sort_pad:
         idx = idx[:, :out_pad]
@@ -494,15 +497,17 @@ def _ell_spgemm_sep2d(
     ``out_pad``) and the per-bin valid counts."""
     args = (tables, entry_rows, entry_pos, n_chunks, rows_pad, n_cols, widths,
             pads, sort_pad)
-    extra = () if d_ptr is None else (_staged_pairs_2d(d_ptr, d_idx, rows_pad, n_cols),)
-    if packable(rows_pad, n_cols):
-        key = _assemble_stream_2d(
-            *args, extra=extra, shift=int(n_cols).bit_length(), device=device
-        )
-        idx, nnz = sort_compress_seps_2d_keys(key, rows_pad, n_cols)
+    packed = packable(rows_pad, n_cols)
+    with span("expand"):
+        extra = () if d_ptr is None else (
+            _staged_pairs_2d(d_ptr, d_idx, rows_pad, n_cols),)
+        stream = _assemble_stream_2d(
+            *args, extra=extra, shift=int(n_cols).bit_length() if packed else None,
+            device=device)
+    if packed:
+        idx, nnz = sort_compress_seps_2d_keys(stream, rows_pad, n_cols)
     else:
-        row, col = _assemble_stream_2d(*args, extra=extra, device=device)
-        idx, nnz = sort_compress_seps_2d(row, col, rows_pad, n_cols)
+        idx, nnz = sort_compress_seps_2d(*stream, rows_pad, n_cols)
     if out_pad is not None and out_pad < sort_pad:
         idx = idx[:, :out_pad]
     return idx, nnz
@@ -668,8 +673,9 @@ def _ell_counts_sum2d(tables, entry_rows, entry_pos, f_ptr, f_idx, **kw):
     """The batched masked counts sum: one int32 per bin
     (:func:`..counts._masked_counts_sum` over the group's stream, whose
     separators match no mask pair)."""
-    row, col, key, f_row, f_col = _masked_stream_2d(
-        tables, entry_rows, entry_pos, f_ptr, f_idx, **kw)
+    with span("expand"):
+        row, col, key, f_row, f_col = _masked_stream_2d(
+            tables, entry_rows, entry_pos, f_ptr, f_idx, **kw)
     return _masked_counts_sum(row, col, f_row, f_col, kw["rows_pad"], kw["n_cols"],
                               key=key)
 
@@ -707,8 +713,9 @@ def _ell_masked_counts(tables, entry_rows, entry_pos, f_ptr, f_idx, **kw):
 
 def _ell_counts_sum(tables, entry_rows, entry_pos, f_ptr, f_idx, **kw):
     """The unrolled masked counts sum: one int32 per chunk."""
-    row, col = _chunk_pair_streams(tables, entry_rows, entry_pos, seps=False, **kw)
-    f_row, f_col = _staged_pairs_2d(f_ptr, f_idx, kw["rows_pad"], kw["n_cols"])
+    with span("expand"):
+        row, col = _chunk_pair_streams(tables, entry_rows, entry_pos, seps=False, **kw)
+        f_row, f_col = _staged_pairs_2d(f_ptr, f_idx, kw["rows_pad"], kw["n_cols"])
     return _masked_counts_sum(row, col, f_row, f_col, kw["rows_pad"], kw["n_cols"])
 
 
@@ -811,206 +818,208 @@ def _batched_deal_plan(
     Returns ``None`` when the input is degenerate (no flops), else
     ``(ell, rows_pc, pos_pc, assign, k, pads, slots, rows_pad,
     model_ranking)``."""
-    n = a.n_rows
-    w = np.diff(b.indptr).astype(np.int64)
-    nz = w > 0
-    if not nz.any() or a.nnz == 0:
-        return None
-    # fine eighth-octave width classes (= EllB.build's bucketing), no tables
-    wb = np.zeros(b.n_rows, np.int64)
-    wn = w[nz]
-    p2 = np.left_shift(1, np.frexp(wn.astype(np.float64) * 2 - 1)[1] - 1)
-    step = np.maximum(p2 // 8, 1)
-    wb[nz] = ((wn + step - 1) // step) * step
-    classes = np.unique(wb[nz])
-    C = len(classes)
-    cls_of_row = np.full(b.n_rows, -1, np.int32)
-    cls_of_row[nz] = np.searchsorted(classes, wb[nz]).astype(np.int32)
-    # per-fine-class B-row counts -> prefix (prices inlined groups)
-    cls_rows_pref = np.zeros(C + 1, np.int64)
-    np.cumsum(np.bincount(cls_of_row[nz], minlength=C), out=cls_rows_pref[1:])
+    with span("plan.search", always=True):
+        n = a.n_rows
+        w = np.diff(b.indptr).astype(np.int64)
+        nz = w > 0
+        if not nz.any() or a.nnz == 0:
+            return None
+        # fine eighth-octave width classes (= EllB.build's bucketing), no tables
+        wb = np.zeros(b.n_rows, np.int64)
+        wn = w[nz]
+        p2 = np.left_shift(1, np.frexp(wn.astype(np.float64) * 2 - 1)[1] - 1)
+        step = np.maximum(p2 // 8, 1)
+        wb[nz] = ((wn + step - 1) // step) * step
+        classes = np.unique(wb[nz])
+        C = len(classes)
+        cls_of_row = np.full(b.n_rows, -1, np.int32)
+        cls_of_row[nz] = np.searchsorted(classes, wb[nz]).astype(np.int32)
+        # per-fine-class B-row counts -> prefix (prices inlined groups)
+        cls_rows_pref = np.zeros(C + 1, np.int64)
+        np.cumsum(np.bincount(cls_of_row[nz], minlength=C), out=cls_rows_pref[1:])
 
-    ecls = cls_of_row[a.indices]
-    live = ecls >= 0
-    rr = np.repeat(
-        np.arange(n, dtype=np.int32), np.diff(a.indptr).astype(np.int64)
-    )
-    ew_full = np.where(live, classes[np.clip(ecls, 0, None)], 0)
-    cum = np.zeros(a.nnz + 1, np.int64)
-    np.cumsum(ew_full, out=cum[1:])
-    rfp = cum[a.indptr[1:]] - cum[a.indptr[:-1]]
-    if not int(rfp.sum()):
-        return None
-    if not live.all():
-        ecls = ecls[live]
-        rr = rr[live]
+        ecls = cls_of_row[a.indices]
+        live = ecls >= 0
+        rr = np.repeat(
+            np.arange(n, dtype=np.int32), np.diff(a.indptr).astype(np.int64)
+        )
+        ew_full = np.where(live, classes[np.clip(ecls, 0, None)], 0)
+        cum = np.zeros(a.nnz + 1, np.int64)
+        np.cumsum(ew_full, out=cum[1:])
+        rfp = cum[a.indptr[1:]] - cum[a.indptr[:-1]]
+        if not int(rfp.sum()):
+            return None
+        if not live.all():
+            ecls = ecls[live]
+            rr = rr[live]
 
-    # dominant class per row = class of its widest entry
-    dom = np.zeros(n, np.int64)
-    nonempty = np.diff(a.indptr) > 0
-    if nonempty.any():
-        starts = a.indptr[:-1][nonempty]
-        maxw = np.maximum.reduceat(ew_full, starts.astype(np.int64))
-        dom[nonempty] = np.searchsorted(classes, maxw)
-    # one argsort on a composite key = lexsort((-rfp, dom))
-    order = np.argsort((dom << 48) - rfp, kind="stable")
+        # dominant class per row = class of its widest entry
+        dom = np.zeros(n, np.int64)
+        nonempty = np.diff(a.indptr) > 0
+        if nonempty.any():
+            starts = a.indptr[:-1][nonempty]
+            maxw = np.maximum.reduceat(ew_full, starts.astype(np.int64))
+            dom[nonempty] = np.searchsorted(classes, maxw)
+        # one argsort on a composite key = lexsort((-rfp, dom))
+        order = np.argsort((dom << 48) - rfp, kind="stable")
 
-    def snake(k):
-        pos = np.arange(n, dtype=np.int64)
-        if k & (k - 1) == 0:
-            lane = (pos & (k - 1)).astype(np.int32)
-            fwd = (pos >> k.bit_length() - 1) & 1 == 0
-        else:
-            lane = (pos % k).astype(np.int32)
-            fwd = (pos // k) % 2 == 0
-        asg = np.empty(n, np.int32)
-        asg[order] = np.where(fwd, lane, k - 1 - lane)
-        return asg
-
-    SORT_W = 1.0
-
-    def dp_merge(cnt_pref, k):
-        """Optimal contiguous class grouping: min sum of slots x per-slot cost."""
-        best = [float("inf")] * (C + 1)
-        best[0] = 0.0
-        choice = [0] * (C + 1)
-        for i in range(1, C + 1):
-            w = int(classes[i - 1])
-            weight = _gather_rate_ns(w) + SORT_W
-            for j in range(i):
-                gmax = int((cnt_pref[i] - cnt_pref[j]).max())
-                cost = (
-                    best[j]
-                    + pad_bucket(max(gmax, 8), div=32) * w * weight
-                    + DP_GROUP_NS
-                )
-                if cost < best[i]:
-                    best[i] = cost
-                    choice[i] = j
-        groups = []
-        i = C
-        while i:
-            groups.append((choice[i], i))
-            i = choice[i]
-        groups.reverse()
-        return groups
-
-    def forced_groups(gw):
-        """Contiguous class grouping at caller-forced width levels."""
-        gw = sorted(int(x) for x in gw)
-        if gw[-1] < int(classes[-1]):
-            raise ValueError(
-                f"merge_widths {gw} do not cover max class {classes[-1]}"
-            )
-        groups, j = [], 0
-        for lvl in gw:
-            i = int(np.searchsorted(classes, lvl, side="right"))
-            if i > j:
-                groups.append((j, i))
-                j = i
-        return groups
-
-    def groups_stats(cnt_pref, groups):
-        """(padded slots, gather ns/chunk) for a grouping."""
-        slots, gather = 0, 0.0
-        for j, i in groups:
-            w = int(classes[i - 1])
-            s = pad_bucket(
-                max(int((cnt_pref[i] - cnt_pref[j]).max()), 8), div=32
-            ) * w
-            slots += s
-            rows_g = int(cls_rows_pref[i] - cls_rows_pref[j])
-            inl = w <= INLINE_TABLE_W_MAX and rows_g > INLINE_TABLE_ROWS
-            if inl:
-                rate = 0.05
-            elif discount_sorts:
-                rate = 3.2 / w + 0.05  # the plain family's fused rate
+        def snake(k):
+            pos = np.arange(n, dtype=np.int64)
+            if k & (k - 1) == 0:
+                lane = (pos & (k - 1)).astype(np.int32)
+                fwd = (pos >> k.bit_length() - 1) & 1 == 0
             else:
-                rate = _gather_rate_ns(w)
-            gather += s * rate
-        return slots, gather
+                lane = (pos % k).astype(np.int32)
+                fwd = (pos // k) % 2 == 0
+            asg = np.empty(n, np.int32)
+            asg[order] = np.where(fwd, lane, k - 1 - lane)
+            return asg
 
-    if deal_k:
-        ks = [int(deal_k)]
-    else:
-        k_pack = 1 << max(int(n / max(cap, 1) - 1e-9).bit_length(), 6)
-        ks = sorted(
-            {
-                min(max(k, 64), 1 << 17)
-                for k in (
-                    k_pack // 4, k_pack // 2, k_pack,
-                    2 * k_pack, 4 * k_pack, 8 * k_pack, 16 * k_pack,
-                    32 * k_pack, 64 * k_pack, 128 * k_pack, 256 * k_pack,
+        SORT_W = 1.0
+
+        def dp_merge(cnt_pref, k):
+            """Optimal contiguous class grouping: min sum of slots x per-slot cost."""
+            best = [float("inf")] * (C + 1)
+            best[0] = 0.0
+            choice = [0] * (C + 1)
+            for i in range(1, C + 1):
+                w = int(classes[i - 1])
+                weight = _gather_rate_ns(w) + SORT_W
+                for j in range(i):
+                    gmax = int((cnt_pref[i] - cnt_pref[j]).max())
+                    cost = (
+                        best[j]
+                        + pad_bucket(max(gmax, 8), div=32) * w * weight
+                        + DP_GROUP_NS
+                    )
+                    if cost < best[i]:
+                        best[i] = cost
+                        choice[i] = j
+            groups = []
+            i = C
+            while i:
+                groups.append((choice[i], i))
+                i = choice[i]
+            groups.reverse()
+            return groups
+
+        def forced_groups(gw):
+            """Contiguous class grouping at caller-forced width levels."""
+            gw = sorted(int(x) for x in gw)
+            if gw[-1] < int(classes[-1]):
+                raise ValueError(
+                    f"merge_widths {gw} do not cover max class {classes[-1]}"
                 )
-            }
-        )
-    ecls64 = ecls.astype(np.int64)
+            groups, j = [], 0
+            for lvl in gw:
+                i = int(np.searchsorted(classes, lvl, side="right"))
+                if i > j:
+                    groups.append((j, i))
+                    j = i
+            return groups
 
-    def eval_k(k, sample_step=1, cliff=False):
-        asg = snake(k)
-        e, r = (ecls64, rr) if sample_step == 1 else (
-            ecls64[::sample_step], rr[::sample_step]
-        )
-        cnt = np.bincount(e * k + asg[r], minlength=C * k).reshape(C, k)
-        pref = np.zeros((C + 1, k), np.int64)
-        np.cumsum(cnt, axis=0, out=pref[1:])
-        groups = (
-            forced_groups(merge_widths)
-            if merge_widths is not None
-            else dp_merge(pref, k)
-        )
-        slots, gather = groups_stats(pref, groups)
-        rows_pad = pad_bucket(
-            int(np.bincount(asg, minlength=k).max()) or 1, minimum=1, div=32
-        )
-        L = int(slots) * sample_step + rows_pad
-        packed = packable(rows_pad, key_cols)
-        BIN_NS = 100.0  # fixed per-bin device cost, verbatim
-        Lp = pad_bucket(max(L, 8), div=32)
-        p2 = 1 << (Lp - 1).bit_length()
-        if cliff:
-            # power-of-two cliff pricing: a non-pow2 row costs about
-            # rate(next_pow2) * L
-            sort_cost = 2.0 * _sort_rate_ns(p2, packed) * L
+        def groups_stats(cnt_pref, groups):
+            """(padded slots, gather ns/chunk) for a grouping."""
+            slots, gather = 0, 0.0
+            for j, i in groups:
+                w = int(classes[i - 1])
+                s = pad_bucket(
+                    max(int((cnt_pref[i] - cnt_pref[j]).max()), 8), div=32
+                ) * w
+                slots += s
+                rows_g = int(cls_rows_pref[i] - cls_rows_pref[j])
+                inl = w <= INLINE_TABLE_W_MAX and rows_g > INLINE_TABLE_ROWS
+                if inl:
+                    rate = 0.05
+                elif discount_sorts:
+                    rate = 3.2 / w + 0.05  # the plain family's fused rate
+                else:
+                    rate = _gather_rate_ns(w)
+                gather += s * rate
+            return slots, gather
+
+        if deal_k:
+            ks = [int(deal_k)]
         else:
-            sort_cost = 2.0 * _sort_rate_ns(L, packed) * L
-        cost = (sort_cost + gather * sample_step + BIN_NS) * k
-        return cost, k, asg, groups, rows_pad, pref
+            k_pack = 1 << max(int(n / max(cap, 1) - 1e-9).bit_length(), 6)
+            ks = sorted(
+                {
+                    min(max(k, 64), 1 << 17)
+                    for k in (
+                        k_pack // 4, k_pack // 2, k_pack,
+                        2 * k_pack, 4 * k_pack, 8 * k_pack, 16 * k_pack,
+                        32 * k_pack, 64 * k_pack, 128 * k_pack, 256 * k_pack,
+                    )
+                }
+            )
+        ecls64 = ecls.astype(np.int64)
 
-    if len(ks) == 1:
-        plans = [eval_k(ks[0])]
-        model_ranking = [(plans[0][0], ks[0])]
-    elif not discount_sorts:
-        step = 4 if len(rr) > (1 << 24) else 1
-        evals = sorted((eval_k(k, step) for k in ks), key=lambda t: t[0])
-        model_ranking = [(c, kk) for c, kk, *_ in evals]
-        plans = [evals[0] if step == 1 else eval_k(evals[0][1])]
-    else:
-        # full resolution up to 2^24 entries, a 1/4 sample beyond
-        step = 4 if len(rr) > (1 << 24) else 1
-        evals = sorted((eval_k(k, step) for k in ks), key=lambda t: t[0])
-        k0 = evals[0][1]
-        # re-rank fractional multiples of the coarse winner under cliff
-        # pricing (lands sort_pad just under a power of two)
-        gran = max(k0 // 8, 32)
-        cands = sorted(
-            {min(k0 + j * gran, 1 << 17) for j in range(9)}
-            | {min(k0 * m // 4, 1 << 17) for m in range(9, 17)}
-        )
-        refined = sorted(
-            (eval_k(kk, step, cliff=True) for kk in cands),
-            key=lambda t: t[0],
-        )
-        model_ranking = [(c, kk) for c, kk, *_ in refined] + [
-            (c, kk) for c, kk, *_ in evals if kk not in cands
-        ]
-        ranked = refined[0]
-        plans = [ranked if step == 1 else eval_k(ranked[1], cliff=True)]
-    cost, k, assign, groups, rows_pad, pref = plans[0]
+        def eval_k(k, sample_step=1, cliff=False):
+            asg = snake(k)
+            e, r = (ecls64, rr) if sample_step == 1 else (
+                ecls64[::sample_step], rr[::sample_step]
+            )
+            cnt = np.bincount(e * k + asg[r], minlength=C * k).reshape(C, k)
+            pref = np.zeros((C + 1, k), np.int64)
+            np.cumsum(cnt, axis=0, out=pref[1:])
+            groups = (
+                forced_groups(merge_widths)
+                if merge_widths is not None
+                else dp_merge(pref, k)
+            )
+            slots, gather = groups_stats(pref, groups)
+            rows_pad = pad_bucket(
+                int(np.bincount(asg, minlength=k).max()) or 1, minimum=1, div=32
+            )
+            L = int(slots) * sample_step + rows_pad
+            packed = packable(rows_pad, key_cols)
+            BIN_NS = 100.0  # fixed per-bin device cost, verbatim
+            Lp = pad_bucket(max(L, 8), div=32)
+            p2 = 1 << (Lp - 1).bit_length()
+            if cliff:
+                # power-of-two cliff pricing: a non-pow2 row costs about
+                # rate(next_pow2) * L
+                sort_cost = 2.0 * _sort_rate_ns(p2, packed) * L
+            else:
+                sort_cost = 2.0 * _sort_rate_ns(L, packed) * L
+            cost = (sort_cost + gather * sample_step + BIN_NS) * k
+            return cost, k, asg, groups, rows_pad, pref
 
-    group_widths = tuple(int(classes[i - 1]) for _, i in groups)
-    ell = EllB.build(b, group_widths if len(groups) < C else None)
-    rows_pc, pos_pc = _build_class_entries(a, ell)
+        if len(ks) == 1:
+            plans = [eval_k(ks[0])]
+            model_ranking = [(plans[0][0], ks[0])]
+        elif not discount_sorts:
+            step = 4 if len(rr) > (1 << 24) else 1
+            evals = sorted((eval_k(k, step) for k in ks), key=lambda t: t[0])
+            model_ranking = [(c, kk) for c, kk, *_ in evals]
+            plans = [evals[0] if step == 1 else eval_k(evals[0][1])]
+        else:
+            # full resolution up to 2^24 entries, a 1/4 sample beyond
+            step = 4 if len(rr) > (1 << 24) else 1
+            evals = sorted((eval_k(k, step) for k in ks), key=lambda t: t[0])
+            k0 = evals[0][1]
+            # re-rank fractional multiples of the coarse winner under cliff
+            # pricing (lands sort_pad just under a power of two)
+            gran = max(k0 // 8, 32)
+            cands = sorted(
+                {min(k0 + j * gran, 1 << 17) for j in range(9)}
+                | {min(k0 * m // 4, 1 << 17) for m in range(9, 17)}
+            )
+            refined = sorted(
+                (eval_k(kk, step, cliff=True) for kk in cands),
+                key=lambda t: t[0],
+            )
+            model_ranking = [(c, kk) for c, kk, *_ in refined] + [
+                (c, kk) for c, kk, *_ in evals if kk not in cands
+            ]
+            ranked = refined[0]
+            plans = [ranked if step == 1 else eval_k(ranked[1], cliff=True)]
+        cost, k, assign, groups, rows_pad, pref = plans[0]
+
+    with span("plan.tables", always=True):
+        group_widths = tuple(int(classes[i - 1]) for _, i in groups)
+        ell = EllB.build(b, group_widths if len(groups) < C else None)
+        rows_pc, pos_pc = _build_class_entries(a, ell)
     pads = tuple(
         pad_bucket(int((pref[i] - pref[j]).max()), minimum=8, div=32)
         for j, i in groups
@@ -1057,299 +1066,304 @@ class EllSpGEMMExecutor:
         batched_slots_cap: int | None = None,
         device: str | torch.device = "cuda",
     ):
-        if a.n_cols != b.n_rows:
-            raise ValueError(f"shape mismatch: {a.shape} @ {b.shape}")
-        require_int32_operands(a, b)
-        self.device = resolve_device(device)
-        self.shape = (a.n_rows, b.n_cols)
-        self.n_rows, self.n_cols = a.n_rows, b.n_cols
-        rf = row_flops(a, b)
-        # chunks stay small enough for the packed sort key to fit one int32;
-        # a mask-serving plan packs one more (tag) bit
-        shift = int(self.n_cols).bit_length() + (1 if masked else 0)
-        cap = 1 << max(0, 30 - shift)
-        n = self.n_rows
-        key_cols = 2 * self.n_cols + 1 if masked else self.n_cols
-        self.batched = bool(batched)
-        dealt = None
-        if batched:
-            planned = _batched_deal_plan(
-                a, b, rf, cap, deal_k, key_cols, merge_widths=merge_widths,
-                discount_sorts=not masked,
-            )
-            if planned is None:
-                self.batched = False  # degenerate input: unrolled is fine
-            else:
-                (ell, rows_pc, pos_pc, assign, k_d, pads_d, slots_d,
-                 rows_pad_d, model_ranking) = planned
-                if slots_d > np.iinfo(np.int32).max:
-                    raise OverflowError(
-                        f"batched ELL expansion {slots_d} slots/bin "
-                        "exceeds int32"
-                    )
-                dealt = (assign, k_d, pads_d, slots_d, rows_pad_d)
-                self.widths = tuple(ell.widths)
-                self.k_ranking = list(model_ranking)
-        if dealt is None:
-            ell = EllB.build(b)
-            rows_pc, pos_pc = _build_class_entries(a, ell)
-            self.widths = tuple(ell.widths)
-        # balance chunks on padded expansion slots: per-row weight = sum over
-        # its entries of the B-row's class width
-        padded_w = np.zeros(len(ell.widths) + 1, np.int64)
-        for ci, wc in enumerate(ell.widths):
-            padded_w[ci] = wc
-        rfp = np.zeros(a.n_rows, np.int64)
-        if a.nnz:
-            entry_w = padded_w[ell.class_of_row[a.indices]]
-            cum = np.zeros(a.nnz + 1, np.int64)
-            np.cumsum(entry_w, out=cum[1:])
-            rfp = cum[a.indptr[1:]] - cum[a.indptr[:-1]]
-        total_flops = int(rfp.sum())
-
-        def plan(bounds):
-            """A contiguous chunk plan's per-class cuts and pads, padded
-            slots per chunk and in all."""
-            k = len(bounds) - 1
-            cuts_pc, pads = [], []
-            for rcls in rows_pc:
-                cuts = np.searchsorted(rcls, np.asarray(bounds))
-                cuts_pc.append(cuts)
-                pads.append(
-                    pad_bucket(max(int(np.diff(cuts).max()), 1), minimum=8)
+        with span("plan", always=True):
+            if a.n_cols != b.n_rows:
+                raise ValueError(f"shape mismatch: {a.shape} @ {b.shape}")
+            require_int32_operands(a, b)
+            self.device = resolve_device(device)
+            self.shape = (a.n_rows, b.n_cols)
+            self.n_rows, self.n_cols = a.n_rows, b.n_cols
+            with span("plan.search", always=True):
+                rf = row_flops(a, b)
+            # chunks stay small enough for the packed sort key to fit one int32;
+            # a mask-serving plan packs one more (tag) bit
+            shift = int(self.n_cols).bit_length() + (1 if masked else 0)
+            cap = 1 << max(0, 30 - shift)
+            n = self.n_rows
+            key_cols = 2 * self.n_cols + 1 if masked else self.n_cols
+            self.batched = bool(batched)
+            dealt = None
+            if batched:
+                planned = _batched_deal_plan(
+                    a, b, rf, cap, deal_k, key_cols, merge_widths=merge_widths,
+                    discount_sorts=not masked,
                 )
-            slots = sum(p * w for p, w in zip(pads, self.widths))
-            return cuts_pc, tuple(pads), slots, slots * k
-
-        force = row_chunks if isinstance(row_chunks, str) else None
-        if force in ("auto", "contig", "deal"):
-            # ~32 slot-balanced chunks; the packed-key row cap is kept only
-            # when its padded total stays within 2x the uncapped plan's
-            budget = max(total_flops // 32, 1 << 19)
-            bounds = _chunk_bounds(rfp, budget, max(n, 1))
-            if cap >= 512 and -(-n // cap) <= 160:
-                capped = _chunk_bounds(rfp, budget, cap)
-                if len(capped) > len(bounds):
-                    _, _, _, tot_c = plan(capped)
-                    _, _, _, tot_u = plan(bounds)
-                    if tot_c <= 2 * tot_u:
-                        bounds = capped
-        elif row_chunks == 1:
-            bounds = [0, n]
-        else:
-            budget = max(total_flops // int(row_chunks), 1)
-            bounds = _chunk_bounds(rfp, budget, -(-n // int(row_chunks)))
-        chunks_c = list(zip(bounds, bounds[1:]))
-        rows_pad_c = pad_bucket(
-            max(r1 - r0 for r0, r1 in chunks_c) if n else 1, minimum=1
-        )
-        cuts_pc, pads_c, slots_c, _ = plan(bounds)
-
-        # dealt plan: rows snake-dealt into k_d bins by descending padded
-        # weight, which evens every class's per-bin counts at once
-        if dealt is None and (
-            force in ("auto", "deal") or deal_k
-        ) and n > 0 and self.widths and total_flops:
-            if deal_k:
-                k_d = int(deal_k)
-            else:
-                m_pack = -(-n // cap) if cap >= 512 else 257
-                k_d = max(32, min(2 * m_pack, 256)) if m_pack <= 256 else 48
-            order = np.argsort(-rfp, kind="stable")
-            pos = np.arange(n)
-            lane = (pos % k_d).astype(np.int32)
-            assign = np.empty(n, np.int32)
-            assign[order] = np.where((pos // k_d) % 2 == 0, lane, k_d - 1 - lane)
-
-            def eval_assign(asg):
-                pads = tuple(
-                    pad_bucket(
-                        int(np.bincount(asg[rcls], minlength=k_d).max())
-                        if len(rcls)
-                        else 1,
-                        minimum=8,
-                    )
-                    for rcls in rows_pc
-                )
-                slots = sum(p * w for p, w in zip(pads, self.widths))
-                rp = pad_bucket(
-                    int(np.bincount(asg, minlength=k_d).max()) or 1, minimum=1
-                )
-                return pads, slots, rp
-
-            pads_d, slots_d, rows_pad_d = eval_assign(assign)
-            if slots_d <= np.iinfo(np.int32).max:
-                dealt = (assign, k_d, pads_d, slots_d, rows_pad_d)
-
-        def sort_cost(slots, k, rows_pad):
-            # the JAX package's relative weight of an unpacked 2-key sort
-            rate = 1.0 if packable(rows_pad, key_cols) else 1.36
-            return pad_bucket(max(slots, 8)) * k * rate
-
-        use_dealt = (
-            self.batched or force == "deal" or deal_k is not None
-        ) and dealt is not None
-        if (
-            force == "auto" and deal_k is None and not self.batched
-        ) and dealt is not None:
-            assign, k_d, pads_d, slots_d, rows_pad_d = dealt
-            use_dealt = sort_cost(slots_d, k_d, rows_pad_d) < 0.9 * sort_cost(
-                slots_c, len(chunks_c), rows_pad_c
-            )
-
-        if use_dealt:
-            assign, k, self.pads, slots, self.rows_pad = dealt
-            self.chunks = None
-            self.bounds = None
-            # bins grouped by bin, ascending row within a bin, and each row's
-            # bin-local id
-            order2 = np.argsort(assign, kind="stable")
-            binsz = np.bincount(assign, minlength=k)
-            starts = np.concatenate([[0], np.cumsum(binsz)])
-            self.row_sets = [
-                order2[starts[i] : starts[i + 1]] for i in range(k)
-            ]
-            self._assign = assign  # each row's bin, for staged_nnz_pad
-            local_id = np.empty(n, np.int32)
-            local_id[order2] = (
-                np.arange(n) - np.repeat(starts[:-1], binsz)
-            ).astype(np.int32)
-            max_chunk_flops = (
-                int(np.bincount(assign, weights=rf, minlength=k).max())
-                if a.nnz
-                else 0
-            )
-        else:
-            self.bounds = np.asarray(bounds, np.int64)
-            self.chunks = chunks_c
-            self.row_sets = None
-            self.rows_pad = rows_pad_c
-            self.pads = pads_c
-            slots = slots_c
-            k = len(chunks_c)
-            max_chunk_flops = max(
-                (int(rf[r0:r1].sum()) for r0, r1 in chunks_c), default=0
-            )
-        self.n_chunks = k
-        if slots > np.iinfo(np.int32).max:
-            raise OverflowError(
-                f"ELL chunk expansion {slots} slots exceeds int32; "
-                "use the chunked ESC engine for this product"
-            )
-        # + rows_pad separator slots per chunk; 32nd-octave bucket.  No
-        # power-of-two rounding: that rule serves only the TPU's bitonic
-        # window, and the plan here is the JAX package's off-TPU plan.
-        self.sort_pad = pad_bucket(max(slots + self.rows_pad, 8), div=32)
-        self.total_slots = self.sort_pad * k
-        if (
-            self.batched
-            and batched_slots_cap is not None
-            and self.total_slots > batched_slots_cap
-        ):
-            raise OverflowError(
-                f"batched stream {self.total_slots} slots exceeds the "
-                f"auto-route cap {batched_slots_cap}"
-            )
-        # valid outputs per chunk never exceed its true flops + separators
-        self.out_pad = min(
-            pad_bucket(max_chunk_flops + self.rows_pad), self.sort_pad
-        )
-        self.resident_slots = self.out_pad * k
-        # uniform dispatch groups; the last is padded with all-sentinel
-        # dummy chunks (assemble() walks only the real ones)
-        self.group_size = max(min(k, DISPATCH_SLOT_BUDGET // self.sort_pad), 1)
-        if (
-            self.batched
-            and self.total_slots <= SMALL_PLAN_SLOTS
-            and self.group_size >= SMALL_PLAN_GROUPS
-        ):
-            self.group_size = min(self.group_size, -(-k // SMALL_PLAN_GROUPS))
-        self.n_groups = -(-k // self.group_size)
-
-        # Flat staging: the tables concatenate into one flat array and the
-        # per-(class, chunk) entry arrays into one [k_tot, sum(pads)] array
-        # each.  Narrow classes (and classes with big tables) are INLINED:
-        # the staged entry "position" is B's row values themselves.
-        self.inline = tuple(
-            w == 1
-            or (
-                w <= 2
-                and len(pos_pc[ci]) * (w - 1) <= ell.tables[ci].shape[0] * w
-            )
-            or (
-                w <= INLINE_TABLE_W_MAX
-                and ell.tables[ci].shape[0] > INLINE_TABLE_ROWS
-            )
-            for ci, w in enumerate(self.widths)
-        )
-        self.table_shapes = tuple(
-            None if inl else t.shape for inl, t in zip(self.inline, ell.tables)
-        )
-        live_tables = [t for inl, t in zip(self.inline, ell.tables) if not inl]
-        tables_flat = (
-            np.concatenate([t.reshape(-1) for t in live_tables])
-            if live_tables
-            else np.zeros(0, np.int32)
-        )
-        k_tot = self.n_groups * self.group_size
-        ep_spans = np.array(
-            [
-                p * w if inl else p
-                for p, w, inl in zip(self.pads, self.widths, self.inline)
-            ],
-            np.int64,
-        )
-        P = sum(self.pads)
-        P_ep = int(ep_spans.sum())
-        offs = np.concatenate([[0], np.cumsum(self.pads)]).astype(np.int64)
-        offs_ep = np.concatenate([[0], np.cumsum(ep_spans)]).astype(np.int64)
-        er_all = np.full((k_tot, P), self.rows_pad, np.int32)
-        ep_all = np.zeros((k_tot, P_ep), np.int32)  # 0: in range of every table
-        if self.row_sets is not None:
-            # per-class partition of A's entries by dealt chunk; within a
-            # chunk entries keep ascending global-row order (local_id)
-            er_flat, ep_flat = er_all.reshape(-1), ep_all.reshape(-1)
-            for ci, (rcls, pcls) in enumerate(zip(rows_pc, pos_pc)):
-                ch = assign[rcls]
-                ordc = np.argsort(ch, kind="stable")
-                cnt = np.bincount(ch, minlength=k)
-                cst = np.concatenate([[0], np.cumsum(cnt)])
-                rs, ps = rcls[ordc], pcls[ordc]
-                rank = np.arange(len(rs), dtype=np.int64) - np.repeat(
-                    cst[:-1], cnt
-                )
-                er_flat[ch[ordc].astype(np.int64) * P + offs[ci] + rank] = (
-                    local_id[rs]
-                )
-                base_ep = ch[ordc].astype(np.int64) * P_ep + offs_ep[ci]
-                if self.inline[ci]:
-                    w = self.widths[ci]
-                    dst = (base_ep + rank * w)[:, None] + np.arange(w)
-                    ep_flat[dst.reshape(-1)] = ell.tables[ci][ps].reshape(-1)
+                if planned is None:
+                    self.batched = False  # degenerate input: unrolled is fine
                 else:
-                    ep_flat[base_ep + rank] = ps
-        else:
-            for ci, (rcls, pcls) in enumerate(zip(rows_pc, pos_pc)):
-                cuts = cuts_pc[ci]
-                o, o_ep = offs[ci], offs_ep[ci]
-                w = self.widths[ci] if self.inline[ci] else 1
-                ps_all = (
-                    ell.tables[ci][pcls].reshape(-1)
-                    if self.inline[ci]
-                    else pcls
+                    (ell, rows_pc, pos_pc, assign, k_d, pads_d, slots_d,
+                     rows_pad_d, model_ranking) = planned
+                    if slots_d > np.iinfo(np.int32).max:
+                        raise OverflowError(
+                            f"batched ELL expansion {slots_d} slots/bin "
+                            "exceeds int32"
+                        )
+                    dealt = (assign, k_d, pads_d, slots_d, rows_pad_d)
+                    self.widths = tuple(ell.widths)
+                    self.k_ranking = list(model_ranking)
+            if dealt is None:
+                with span("plan.tables", always=True):
+                    ell = EllB.build(b)
+                    rows_pc, pos_pc = _build_class_entries(a, ell)
+                self.widths = tuple(ell.widths)
+            with span("plan.search", always=True):
+                # balance chunks on padded expansion slots: per-row weight = sum over
+                # its entries of the B-row's class width
+                padded_w = np.zeros(len(ell.widths) + 1, np.int64)
+                for ci, wc in enumerate(ell.widths):
+                    padded_w[ci] = wc
+                rfp = np.zeros(a.n_rows, np.int64)
+                if a.nnz:
+                    entry_w = padded_w[ell.class_of_row[a.indices]]
+                    cum = np.zeros(a.nnz + 1, np.int64)
+                    np.cumsum(entry_w, out=cum[1:])
+                    rfp = cum[a.indptr[1:]] - cum[a.indptr[:-1]]
+                total_flops = int(rfp.sum())
+
+                def plan(bounds):
+                    """A contiguous chunk plan's per-class cuts and pads, padded
+                    slots per chunk and in all."""
+                    k = len(bounds) - 1
+                    cuts_pc, pads = [], []
+                    for rcls in rows_pc:
+                        cuts = np.searchsorted(rcls, np.asarray(bounds))
+                        cuts_pc.append(cuts)
+                        pads.append(
+                            pad_bucket(max(int(np.diff(cuts).max()), 1), minimum=8)
+                        )
+                    slots = sum(p * w for p, w in zip(pads, self.widths))
+                    return cuts_pc, tuple(pads), slots, slots * k
+
+                force = row_chunks if isinstance(row_chunks, str) else None
+                if force in ("auto", "contig", "deal"):
+                    # ~32 slot-balanced chunks; the packed-key row cap is kept only
+                    # when its padded total stays within 2x the uncapped plan's
+                    budget = max(total_flops // 32, 1 << 19)
+                    bounds = _chunk_bounds(rfp, budget, max(n, 1))
+                    if cap >= 512 and -(-n // cap) <= 160:
+                        capped = _chunk_bounds(rfp, budget, cap)
+                        if len(capped) > len(bounds):
+                            _, _, _, tot_c = plan(capped)
+                            _, _, _, tot_u = plan(bounds)
+                            if tot_c <= 2 * tot_u:
+                                bounds = capped
+                elif row_chunks == 1:
+                    bounds = [0, n]
+                else:
+                    budget = max(total_flops // int(row_chunks), 1)
+                    bounds = _chunk_bounds(rfp, budget, -(-n // int(row_chunks)))
+                chunks_c = list(zip(bounds, bounds[1:]))
+                rows_pad_c = pad_bucket(
+                    max(r1 - r0 for r0, r1 in chunks_c) if n else 1, minimum=1
                 )
-                for kk, (r0, r1) in enumerate(self.chunks):
-                    lo, hi = cuts[kk], cuts[kk + 1]
-                    # chunk-local row ids
-                    er_all[kk, o : o + hi - lo] = rcls[lo:hi] - r0
-                    ep_all[kk, o_ep : o_ep + (hi - lo) * w] = ps_all[
-                        lo * w : hi * w
+                cuts_pc, pads_c, slots_c, _ = plan(bounds)
+
+                # dealt plan: rows snake-dealt into k_d bins by descending padded
+                # weight, which evens every class's per-bin counts at once
+                if dealt is None and (
+                    force in ("auto", "deal") or deal_k
+                ) and n > 0 and self.widths and total_flops:
+                    if deal_k:
+                        k_d = int(deal_k)
+                    else:
+                        m_pack = -(-n // cap) if cap >= 512 else 257
+                        k_d = max(32, min(2 * m_pack, 256)) if m_pack <= 256 else 48
+                    order = np.argsort(-rfp, kind="stable")
+                    pos = np.arange(n)
+                    lane = (pos % k_d).astype(np.int32)
+                    assign = np.empty(n, np.int32)
+                    assign[order] = np.where((pos // k_d) % 2 == 0, lane, k_d - 1 - lane)
+
+                    def eval_assign(asg):
+                        pads = tuple(
+                            pad_bucket(
+                                int(np.bincount(asg[rcls], minlength=k_d).max())
+                                if len(rcls)
+                                else 1,
+                                minimum=8,
+                            )
+                            for rcls in rows_pc
+                        )
+                        slots = sum(p * w for p, w in zip(pads, self.widths))
+                        rp = pad_bucket(
+                            int(np.bincount(asg, minlength=k_d).max()) or 1, minimum=1
+                        )
+                        return pads, slots, rp
+
+                    pads_d, slots_d, rows_pad_d = eval_assign(assign)
+                    if slots_d <= np.iinfo(np.int32).max:
+                        dealt = (assign, k_d, pads_d, slots_d, rows_pad_d)
+
+                def sort_cost(slots, k, rows_pad):
+                    # the JAX package's relative weight of an unpacked 2-key sort
+                    rate = 1.0 if packable(rows_pad, key_cols) else 1.36
+                    return pad_bucket(max(slots, 8)) * k * rate
+
+                use_dealt = (
+                    self.batched or force == "deal" or deal_k is not None
+                ) and dealt is not None
+                if (
+                    force == "auto" and deal_k is None and not self.batched
+                ) and dealt is not None:
+                    assign, k_d, pads_d, slots_d, rows_pad_d = dealt
+                    use_dealt = sort_cost(slots_d, k_d, rows_pad_d) < 0.9 * sort_cost(
+                        slots_c, len(chunks_c), rows_pad_c
+                    )
+
+                if use_dealt:
+                    assign, k, self.pads, slots, self.rows_pad = dealt
+                    self.chunks = None
+                    self.bounds = None
+                    # bins grouped by bin, ascending row within a bin, and each row's
+                    # bin-local id
+                    order2 = np.argsort(assign, kind="stable")
+                    binsz = np.bincount(assign, minlength=k)
+                    starts = np.concatenate([[0], np.cumsum(binsz)])
+                    self.row_sets = [
+                        order2[starts[i] : starts[i + 1]] for i in range(k)
                     ]
-        self.tables_flat = torch.from_numpy(tables_flat).to(self.device)
-        self.er_all = torch.from_numpy(er_all).to(self.device)
-        self.ep_all = torch.from_numpy(ep_all).to(self.device)
-        # staged side operands (masks, fused-OR D), cached on identity
-        self._mask_cache: dict = {}
+                    self._assign = assign  # each row's bin, for staged_nnz_pad
+                    local_id = np.empty(n, np.int32)
+                    local_id[order2] = (
+                        np.arange(n) - np.repeat(starts[:-1], binsz)
+                    ).astype(np.int32)
+                    max_chunk_flops = (
+                        int(np.bincount(assign, weights=rf, minlength=k).max())
+                        if a.nnz
+                        else 0
+                    )
+                else:
+                    self.bounds = np.asarray(bounds, np.int64)
+                    self.chunks = chunks_c
+                    self.row_sets = None
+                    self.rows_pad = rows_pad_c
+                    self.pads = pads_c
+                    slots = slots_c
+                    k = len(chunks_c)
+                    max_chunk_flops = max(
+                        (int(rf[r0:r1].sum()) for r0, r1 in chunks_c), default=0
+                    )
+                self.n_chunks = k
+                if slots > np.iinfo(np.int32).max:
+                    raise OverflowError(
+                        f"ELL chunk expansion {slots} slots exceeds int32; "
+                        "use the chunked ESC engine for this product"
+                    )
+                # + rows_pad separator slots per chunk; 32nd-octave bucket.  No
+                # power-of-two rounding: that rule serves only the TPU's bitonic
+                # window, and the plan here is the JAX package's off-TPU plan.
+                self.sort_pad = pad_bucket(max(slots + self.rows_pad, 8), div=32)
+                self.total_slots = self.sort_pad * k
+                if (
+                    self.batched
+                    and batched_slots_cap is not None
+                    and self.total_slots > batched_slots_cap
+                ):
+                    raise OverflowError(
+                        f"batched stream {self.total_slots} slots exceeds the "
+                        f"auto-route cap {batched_slots_cap}"
+                    )
+                # valid outputs per chunk never exceed its true flops + separators
+                self.out_pad = min(
+                    pad_bucket(max_chunk_flops + self.rows_pad), self.sort_pad
+                )
+                self.resident_slots = self.out_pad * k
+                # uniform dispatch groups; the last is padded with all-sentinel
+                # dummy chunks (assemble() walks only the real ones)
+                self.group_size = max(min(k, DISPATCH_SLOT_BUDGET // self.sort_pad), 1)
+                if (
+                    self.batched
+                    and self.total_slots <= SMALL_PLAN_SLOTS
+                    and self.group_size >= SMALL_PLAN_GROUPS
+                ):
+                    self.group_size = min(self.group_size, -(-k // SMALL_PLAN_GROUPS))
+                self.n_groups = -(-k // self.group_size)
+
+            with span("plan.stage", always=True):
+                # Flat staging: the tables concatenate into one flat array and the
+                # per-(class, chunk) entry arrays into one [k_tot, sum(pads)] array
+                # each.  Narrow classes (and classes with big tables) are INLINED:
+                # the staged entry "position" is B's row values themselves.
+                self.inline = tuple(
+                    w == 1
+                    or (
+                        w <= 2
+                        and len(pos_pc[ci]) * (w - 1) <= ell.tables[ci].shape[0] * w
+                    )
+                    or (
+                        w <= INLINE_TABLE_W_MAX
+                        and ell.tables[ci].shape[0] > INLINE_TABLE_ROWS
+                    )
+                    for ci, w in enumerate(self.widths)
+                )
+                self.table_shapes = tuple(
+                    None if inl else t.shape for inl, t in zip(self.inline, ell.tables)
+                )
+                live_tables = [t for inl, t in zip(self.inline, ell.tables) if not inl]
+                tables_flat = (
+                    np.concatenate([t.reshape(-1) for t in live_tables])
+                    if live_tables
+                    else np.zeros(0, np.int32)
+                )
+                k_tot = self.n_groups * self.group_size
+                ep_spans = np.array(
+                    [
+                        p * w if inl else p
+                        for p, w, inl in zip(self.pads, self.widths, self.inline)
+                    ],
+                    np.int64,
+                )
+                P = sum(self.pads)
+                P_ep = int(ep_spans.sum())
+                offs = np.concatenate([[0], np.cumsum(self.pads)]).astype(np.int64)
+                offs_ep = np.concatenate([[0], np.cumsum(ep_spans)]).astype(np.int64)
+                er_all = np.full((k_tot, P), self.rows_pad, np.int32)
+                ep_all = np.zeros((k_tot, P_ep), np.int32)  # 0: in range of every table
+                if self.row_sets is not None:
+                    # per-class partition of A's entries by dealt chunk; within a
+                    # chunk entries keep ascending global-row order (local_id)
+                    er_flat, ep_flat = er_all.reshape(-1), ep_all.reshape(-1)
+                    for ci, (rcls, pcls) in enumerate(zip(rows_pc, pos_pc)):
+                        ch = assign[rcls]
+                        ordc = np.argsort(ch, kind="stable")
+                        cnt = np.bincount(ch, minlength=k)
+                        cst = np.concatenate([[0], np.cumsum(cnt)])
+                        rs, ps = rcls[ordc], pcls[ordc]
+                        rank = np.arange(len(rs), dtype=np.int64) - np.repeat(
+                            cst[:-1], cnt
+                        )
+                        er_flat[ch[ordc].astype(np.int64) * P + offs[ci] + rank] = (
+                            local_id[rs]
+                        )
+                        base_ep = ch[ordc].astype(np.int64) * P_ep + offs_ep[ci]
+                        if self.inline[ci]:
+                            w = self.widths[ci]
+                            dst = (base_ep + rank * w)[:, None] + np.arange(w)
+                            ep_flat[dst.reshape(-1)] = ell.tables[ci][ps].reshape(-1)
+                        else:
+                            ep_flat[base_ep + rank] = ps
+                else:
+                    for ci, (rcls, pcls) in enumerate(zip(rows_pc, pos_pc)):
+                        cuts = cuts_pc[ci]
+                        o, o_ep = offs[ci], offs_ep[ci]
+                        w = self.widths[ci] if self.inline[ci] else 1
+                        ps_all = (
+                            ell.tables[ci][pcls].reshape(-1)
+                            if self.inline[ci]
+                            else pcls
+                        )
+                        for kk, (r0, r1) in enumerate(self.chunks):
+                            lo, hi = cuts[kk], cuts[kk + 1]
+                            # chunk-local row ids
+                            er_all[kk, o : o + hi - lo] = rcls[lo:hi] - r0
+                            ep_all[kk, o_ep : o_ep + (hi - lo) * w] = ps_all[
+                                lo * w : hi * w
+                            ]
+                self.tables_flat = torch.from_numpy(tables_flat).to(self.device)
+                self.er_all = torch.from_numpy(er_all).to(self.device)
+                self.ep_all = torch.from_numpy(ep_all).to(self.device)
+                # staged side operands (masks, fused-OR D), cached on identity
+                self._mask_cache: dict = {}
 
     def _flat_kw(self):
         return dict(
@@ -1387,7 +1401,8 @@ class EllSpGEMMExecutor:
         device tensors, row pointers embedded as ``n_cols`` separators.  One
         dispatch per chunk group.  Trailing dummy chunks (sentinel-only) may
         follow the real ones."""
-        return self._run_groups()
+        with span("call.run"):
+            return self._run_groups()
 
     def run_padded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The one-sort device step: stacked ``(keys [k_tot, sort_pad], nnz
@@ -1398,7 +1413,8 @@ class EllSpGEMMExecutor:
         valid prefixes.  Batched plans only."""
         if not self.batched:
             raise ValueError("run_padded requires a batched executor")
-        return self._run_groups(_flat_spgemm_padded2d)
+        with span("call.run_padded"):
+            return self._run_groups(_flat_spgemm_padded2d)
 
     def assemble_padded(self, outputs) -> BCSR:
         """Host assembly of :meth:`run_padded`'s outputs: drop the holes,
@@ -1443,24 +1459,25 @@ class EllSpGEMMExecutor:
         f_in = f
         if tuple(f.shape) != self.shape:
             raise ValueError(f"mask shape {f.shape} != product {self.shape}")
-        f = f.sum_duplicates()
-        f_pad = self.staged_nnz_pad(f)
-        if self.row_sets is not None:
-            ptr_all, idx_all = _pad_rowset_csr_all(
-                f, self.row_sets, self.rows_pad, f_pad, fill=self.n_cols)
-        else:
-            parts = [pad_chunk_csr(f, r0, r1, self.rows_pad, f_pad, fill=self.n_cols)
-                     for r0, r1 in self.chunks]
-            ptr_all = np.stack([p[0] for p in parts])
-            idx_all = np.stack([p[1] for p in parts])
-        pad_n = self.n_groups * self.group_size - self.n_chunks
-        if pad_n:  # trailing dummy group-fill chunks: empty
-            ptr_all = np.concatenate(
-                [ptr_all, np.zeros((pad_n, self.rows_pad + 1), np.int32)])
-            idx_all = np.concatenate(
-                [idx_all, np.full((pad_n, f_pad), self.n_cols, np.int32)])
-        staged = (torch.from_numpy(ptr_all).to(self.device),
-                  torch.from_numpy(idx_all).to(self.device))
+        with span("plan.stage", always=True):
+            f = f.sum_duplicates()
+            f_pad = self.staged_nnz_pad(f)
+            if self.row_sets is not None:
+                ptr_all, idx_all = _pad_rowset_csr_all(
+                    f, self.row_sets, self.rows_pad, f_pad, fill=self.n_cols)
+            else:
+                parts = [pad_chunk_csr(f, r0, r1, self.rows_pad, f_pad, fill=self.n_cols)
+                         for r0, r1 in self.chunks]
+                ptr_all = np.stack([p[0] for p in parts])
+                idx_all = np.stack([p[1] for p in parts])
+            pad_n = self.n_groups * self.group_size - self.n_chunks
+            if pad_n:  # trailing dummy group-fill chunks: empty
+                ptr_all = np.concatenate(
+                    [ptr_all, np.zeros((pad_n, self.rows_pad + 1), np.int32)])
+                idx_all = np.concatenate(
+                    [idx_all, np.full((pad_n, f_pad), self.n_cols, np.int32)])
+            staged = (torch.from_numpy(ptr_all).to(self.device),
+                      torch.from_numpy(idx_all).to(self.device))
         while len(self._mask_cache) >= 4:
             self._mask_cache.pop(next(iter(self._mask_cache)))
         self._mask_cache[id(f_in)] = (weakref.ref(f_in), staged)
@@ -1475,7 +1492,8 @@ class EllSpGEMMExecutor:
         as :meth:`run`.  ``f`` is a :class:`BCSR` (staged here, cached) or
         :meth:`stage_mask`'s result."""
         kernel = _flat_masked2d if self.batched else _flat_masked
-        return self._run_groups(kernel, *self._staged(f))
+        with span("call.run_masked"):
+            return self._run_groups(kernel, *self._staged(f))
 
     def run_or(self, d, mask=None):
         """C = D OR (A·B), or D OR (F .* (A·B)) with ``mask`` (≡ ``SpGEMM_dor``;
@@ -1484,19 +1502,20 @@ class EllSpGEMMExecutor:
         :meth:`stage_mask` results.  Separator-embedded ``(c_indices, nnz)``
         as :meth:`run`, except the unrolled masked form, which returns
         chunk-local ``(c_indptr, c_indices, nnz)``."""
-        d_ptr, d_idx = self._staged(d)
-        if mask is None:
-            # D's pairs lengthen every chunk's sort and bound its output
-            sort_pad = pad_bucket(self.sort_pad + d_idx.shape[-1], div=32)
-            out_pad = min(pad_bucket(self.out_pad + d_idx.shape[-1]), sort_pad)
-            kernel = _flat_spgemm_sep2d if self.batched else _flat_spgemm_sep
-            return self._run_groups(kernel, d_ptr, d_idx, sort_pad=sort_pad,
-                                    out_pad=out_pad)
-        if self.batched:  # the join keeps run()'s separator-embedded stream
-            return self._run_groups(_flat_or_masked2d, d_ptr, d_idx,
-                                    *self._staged(mask))
-        return self._run_groups(_flat_or_masked, d_ptr, d_idx, *self._staged(mask),
-                                sort_pad=self.sort_pad - self.rows_pad)
+        with span("call.run_or"):
+            d_ptr, d_idx = self._staged(d)
+            if mask is None:
+                # D's pairs lengthen every chunk's sort and bound its output
+                sort_pad = pad_bucket(self.sort_pad + d_idx.shape[-1], div=32)
+                out_pad = min(pad_bucket(self.out_pad + d_idx.shape[-1]), sort_pad)
+                kernel = _flat_spgemm_sep2d if self.batched else _flat_spgemm_sep
+                return self._run_groups(kernel, d_ptr, d_idx, sort_pad=sort_pad,
+                                        out_pad=out_pad)
+            if self.batched:  # the join keeps run()'s separator-embedded stream
+                return self._run_groups(_flat_or_masked2d, d_ptr, d_idx,
+                                        *self._staged(mask))
+            return self._run_groups(_flat_or_masked, d_ptr, d_idx, *self._staged(mask),
+                                    sort_pad=self.sort_pad - self.rows_pad)
 
     def run_counts(self):
         """C = A·B with each entry's multiplicity: on a batched plan stacked
@@ -1505,7 +1524,8 @@ class EllSpGEMMExecutor:
         :meth:`assemble_counts` builds the host result.  The operands must
         be canonical (duplicate entries would inflate the counts)."""
         kernel = _flat_counts2d if self.batched else _flat_counts
-        return self._run_groups(kernel, out_pad=self.out_pad)
+        with span("call.run_counts"):
+            return self._run_groups(kernel, out_pad=self.out_pad)
 
     def run_masked_counts(self, f):
         """C = F .* (A·B) with each entry's multiplicity (with ``f = a = b``
@@ -1514,7 +1534,8 @@ class EllSpGEMMExecutor:
         :meth:`stage_mask`'s result; a ``masked=True`` plan keeps the join
         key packed."""
         kernel = _flat_masked_counts2d if self.batched else _flat_masked_counts
-        return self._run_groups(kernel, *self._staged(f))
+        with span("call.run_masked_counts"):
+            return self._run_groups(kernel, *self._staged(f))
 
     def run_counts_sum(self, f) -> torch.Tensor:
         """The sum over the entries (i, j) of F of the multiplicity of
@@ -1522,7 +1543,8 @@ class EllSpGEMMExecutor:
         group-fill chunks give 0).  With ``f`` = A = B a symmetric hollow
         adjacency, the sum is 6 times the triangle count."""
         kernel = _flat_counts_sum2d if self.batched else _flat_counts_sum
-        return self._run_groups(kernel, *self._staged(f))
+        with span("call.run_counts_sum"):
+            return self._run_groups(kernel, *self._staged(f))
 
     def assemble_counts(self, outputs) -> tuple[BCSR, np.ndarray]:
         """Pull the outputs of :meth:`run_counts` or
@@ -1644,17 +1666,19 @@ class EllSpGEMMExecutor:
         device memory holds one group's outputs at a time instead of the
         whole product's."""
         host_parts = []
-        for row0 in self._row0s():
-            idx_dev, nnz_dev = self._run_group(row0)
-            nnz = nnz_dev.cpu().numpy()
-            group_idx = pull_chunk_prefixes(idx_dev, nnz.astype(np.int64))
-            for j in range(nnz.shape[0]):
-                host_parts.append(
-                    split_seps(
-                        group_idx[j], int(nnz[j]), self.rows_pad, self.n_cols
+        with span("call.run_assemble_streaming"):
+            for row0 in self._row0s():
+                idx_dev, nnz_dev = self._run_group(row0)
+                with span("sync.pull"):
+                    nnz = nnz_dev.cpu().numpy()
+                    group_idx = pull_chunk_prefixes(idx_dev, nnz.astype(np.int64))
+                for j in range(nnz.shape[0]):
+                    host_parts.append(
+                        split_seps(
+                            group_idx[j], int(nnz[j]), self.rows_pad, self.n_cols
+                        )
                     )
-                )
-        return self._assemble_parts(host_parts[: self.n_chunks])
+            return self._assemble_parts(host_parts[: self.n_chunks])
 
 
 def _stitch_sets(row_sets, n_rows: int, shape, parts):
@@ -1784,12 +1808,14 @@ def cached_executor(
             return ex
         del _EXEC_CACHE[key]
     ex = None
-    if allow_bsr and not masked:
-        from .bsr import maybe_bsr_executor
+    with span("plan", always=True):
+        if allow_bsr and not masked:
+            from .bsr import maybe_bsr_executor
 
-        ex = maybe_bsr_executor(a, b, device=device)
-    if ex is None:
-        ex = _auto_ell(a, b, masked=masked, device=device)
+            with span("plan.search", always=True):
+                ex = maybe_bsr_executor(a, b, device=device)
+        if ex is None:
+            ex = _auto_ell(a, b, masked=masked, device=device)
     if a.nnz + b.nnz <= _EXEC_CACHE_MAX_NNZ:
         while len(_EXEC_CACHE) >= _EXEC_CACHE_MAX:
             _EXEC_CACHE.pop(next(iter(_EXEC_CACHE)))
@@ -1929,17 +1955,19 @@ def auto_executor(
     from .bsr import maybe_bsr_executor
     from .spgemm import SpGEMMExecutor
 
-    bex = maybe_bsr_executor(a, b, device=device)
-    if bex is not None:
-        return bex
-    try:
-        ex = _auto_ell(a, b, device=device)
-        if ex.resident_slots <= AUTO_ELL_MAX_SLOTS:
-            return ex
-        del ex  # release its staging before ESC stages
-    except OverflowError:
-        pass
-    return SpGEMMExecutor(a, b, chunk_flops=chunk_flops, device=device)
+    with span("plan", always=True):
+        with span("plan.search", always=True):
+            bex = maybe_bsr_executor(a, b, device=device)
+        if bex is not None:
+            return bex
+        try:
+            ex = _auto_ell(a, b, device=device)
+            if ex.resident_slots <= AUTO_ELL_MAX_SLOTS:
+                return ex
+            del ex  # release its staging before ESC stages
+        except OverflowError:
+            pass
+        return SpGEMMExecutor(a, b, chunk_flops=chunk_flops, device=device)
 
 
 def _chunk_bounds(rf: np.ndarray, budget: int, max_rows: int) -> list[int]:

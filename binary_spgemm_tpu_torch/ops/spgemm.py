@@ -42,6 +42,7 @@ import torch
 
 from .. import native
 from ..formats.bcsr import BCSR
+from ..utils.trace import count, span
 from .bitonic import sort_rows as sort_rows_1key
 
 __all__ = [
@@ -354,15 +355,24 @@ def _prev(x: torch.Tensor, fill: int) -> torch.Tensor:
     return torch.cat([x.new_full((*x.shape[:-1], 1), fill), x[..., :-1]], dim=-1)
 
 
+def _sort(x: torch.Tensor, **kw):
+    """``torch.sort(x, **kw)``, its slots added to the ``sort.slots`` count
+    while tracing is on."""
+    count("sort.slots", x.numel())
+    return torch.sort(x, **kw)
+
+
 def _compact_sorted(key: torch.Tensor, limit: int, demote: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort ``key``, keep the first of each run of equal keys below
     ``limit``, demote the rest to ``demote`` and sort again, so the kept keys
     form the prefix.  Returns ``(compacted keys, kept count)``."""
-    key_s = torch.sort(key).values
-    keep = (key_s != _prev(key_s, -1)) & (key_s < limit)
-    nnz_c = keep.sum(dtype=INT)
-    return torch.sort(torch.where(keep, key_s, demote)).values, nnz_c
+    with span("sort"):
+        key_s = _sort(key).values
+    with span("compress"):
+        keep = (key_s != _prev(key_s, -1)) & (key_s < limit)
+        nnz_c = keep.sum(dtype=INT)
+        return _sort(torch.where(keep, key_s, demote)).values, nnz_c
 
 
 def _pair_key(row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
@@ -456,10 +466,12 @@ def _compress_2d_keys(key: torch.Tensor, n_rows: int, n_cols: int
     :func:`..bitonic.sort_rows`).  Returns the compacted keys and the per-row
     valid count ``nnz [k]`` (int32)."""
     shift = int(n_cols).bit_length()
-    key_s = sort_rows_1key(key)
-    keep = (key_s != _prev(key_s, -1)) & (key_s < (n_rows << shift))
-    nnz_c = keep.sum(dim=1, dtype=INT)
-    return sort_rows_1key(torch.where(keep, key_s, INT32_MAX)), nnz_c
+    with span("sort"):
+        key_s = sort_rows_1key(key)
+    with span("compress"):
+        keep = (key_s != _prev(key_s, -1)) & (key_s < (n_rows << shift))
+        nnz_c = keep.sum(dim=1, dtype=INT)
+        return sort_rows_1key(torch.where(keep, key_s, INT32_MAX)), nnz_c
 
 
 def sort_compress_seps_2d_keys(
@@ -500,13 +512,15 @@ def sort_compress_2d(
     if packable(n_rows, n_cols):
         shift = int(n_cols).bit_length()
         return sort_compress_2d_keys((row << shift) | col, n_rows, n_cols)
-    key_s = torch.sort(_pair_key(row, col), dim=1).values
-    keep = (key_s != _prev(key_s, -1)) & ((key_s >> 32) < n_rows)
-    nnz_c = keep.sum(dim=1, dtype=INT)
-    c_keys = torch.sort(torch.where(keep, key_s, (n_rows << 32) | n_cols),
-                        dim=1).values
-    indptr = _indptr_from_sorted_rows((c_keys >> 32).to(INT), n_rows)
-    return indptr, (c_keys & 0xFFFFFFFF).to(INT), nnz_c
+    with span("sort"):
+        key_s = _sort(_pair_key(row, col), dim=1).values
+    with span("compress"):
+        keep = (key_s != _prev(key_s, -1)) & ((key_s >> 32) < n_rows)
+        nnz_c = keep.sum(dim=1, dtype=INT)
+        c_keys = _sort(torch.where(keep, key_s, (n_rows << 32) | n_cols),
+                       dim=1).values
+        indptr = _indptr_from_sorted_rows((c_keys >> 32).to(INT), n_rows)
+        return indptr, (c_keys & 0xFFFFFFFF).to(INT), nnz_c
 
 
 def sort_compress_seps_2d(
@@ -520,12 +534,14 @@ def sort_compress_seps_2d(
     if packable(n_rows, n_cols):
         shift = int(n_cols).bit_length()
         return sort_compress_seps_2d_keys((row << shift) | col, n_rows, n_cols)
-    key_s = torch.sort(_pair_key(row, col), dim=1).values
-    keep = (key_s != _prev(key_s, -1)) & ((key_s >> 32) < n_rows)
-    nnz_c = keep.sum(dim=1, dtype=INT)
-    demoted = torch.where(keep, key_s, (n_rows << 32) | n_cols)
-    c_keys = torch.sort(demoted, dim=1).values
-    return (c_keys & 0xFFFFFFFF).to(INT), nnz_c
+    with span("sort"):
+        key_s = _sort(_pair_key(row, col), dim=1).values
+    with span("compress"):
+        keep = (key_s != _prev(key_s, -1)) & ((key_s >> 32) < n_rows)
+        nnz_c = keep.sum(dim=1, dtype=INT)
+        demoted = torch.where(keep, key_s, (n_rows << 32) | n_cols)
+        c_keys = _sort(demoted, dim=1).values
+        return (c_keys & 0xFFFFFFFF).to(INT), nnz_c
 
 
 # ---------------------------------------------------------------------------
@@ -547,7 +563,7 @@ def _sort_keys(x: torch.Tensor) -> torch.Tensor:
     ``torch.sort``, as ESC sorts."""
     if x.dim() == 2 and x.dtype == INT:
         return sort_rows_1key(x)
-    return torch.sort(x, dim=-1).values
+    return _sort(x, dim=-1).values
 
 
 def _sort_tagged(blocks, n_rows: int, n_cols: int, tag_bits: int, payload=None):
@@ -564,11 +580,11 @@ def _sort_tagged(blocks, n_rows: int, n_cols: int, tag_bits: int, payload=None):
     low = torch.cat([(c.to(torch.int64) << tag_bits) | t for _, c, t in blocks],
                     dim=-1)
     if int(n_rows).bit_length() + cb <= 63:
-        key, perm = torch.sort((rows << cb) | low, dim=-1)
+        key, perm = _sort((rows << cb) | low, dim=-1)
         rows, low = key >> cb, key & ((1 << cb) - 1)
     else:
-        low, perm = torch.sort(low, dim=-1, stable=True)
-        rows, perm2 = torch.sort(torch.gather(rows, -1, perm), dim=-1, stable=True)
+        low, perm = _sort(low, dim=-1, stable=True)
+        rows, perm2 = _sort(torch.gather(rows, -1, perm), dim=-1, stable=True)
         low, perm = torch.gather(low, -1, perm2), torch.gather(perm, -1, perm2)
     tag_mask = (1 << tag_bits) - 1
     out = rows.to(INT), (low >> tag_bits).to(INT), (low & tag_mask).to(INT)
@@ -580,8 +596,8 @@ def _compact_pairs(keep, row_s, col_s, n_rows: int, n_cols: int):
     (one int64 key), so the kept pairs form the prefix.  Returns ``(columns,
     row ids, nnz)`` of the compacted stream."""
     nnz_c = keep.sum(-1, dtype=INT)
-    c_keys = torch.sort(torch.where(keep, _pair_key(row_s, col_s),
-                                    (n_rows << 32) | n_cols), dim=-1).values
+    c_keys = _sort(torch.where(keep, _pair_key(row_s, col_s),
+                               (n_rows << 32) | n_cols), dim=-1).values
     return (c_keys & 0xFFFFFFFF).to(INT), c_keys >> 32, nnz_c
 
 
@@ -735,13 +751,14 @@ def esc_spgemm_seps(
     compacted stream (:func:`split_seps`).  Returns ``(c_indices padded
     [flops_pad + n_rows], nnz including the separators)``."""
     n_rows = a_indptr.shape[0] - 1
-    row, col = expand_pairs(
-        a_indptr, a_indices, a_nnz, b_indptr, b_indices,
-        n_cols=n_cols, flops_pad=flops_pad, check_total=check_total,
-    )
-    dev = row.device
-    row = torch.cat([row, torch.arange(n_rows, dtype=INT, device=dev)])
-    col = torch.cat([col, torch.full((n_rows,), n_cols, dtype=INT, device=dev)])
+    with span("expand"):
+        row, col = expand_pairs(
+            a_indptr, a_indices, a_nnz, b_indptr, b_indices,
+            n_cols=n_cols, flops_pad=flops_pad, check_total=check_total,
+        )
+        dev = row.device
+        row = torch.cat([row, torch.arange(n_rows, dtype=INT, device=dev)])
+        col = torch.cat([col, torch.full((n_rows,), n_cols, dtype=INT, device=dev)])
     return sort_compress_seps(row, col, n_rows, n_cols)
 
 
@@ -1119,39 +1136,45 @@ class SpGEMMExecutor:
         self.device = resolve_device(device)
         self.shape = (a.n_rows, b.n_cols)
         chunk_flops = chunk_flops or DEFAULT_CHUNK_FLOPS
-        rf = row_flops(a, b)
-        self.chunks, rows_pad, nnz_pad, self.flops_pad = uniform_chunk_plan(
-            a, rf, chunk_flops, b.n_cols
-        )
-        self.n_cols = b.n_cols
-        self._rows_pad = rows_pad
-        C = len(self.chunks)
-        ptrs = np.empty((C, rows_pad + 1), np.int32)
-        idxs = np.empty((C, nnz_pad), np.int32)
-        nnzs = np.empty(C, np.int32)
-        for i, (r0, r1) in enumerate(self.chunks):
-            ptrs[i], idxs[i], nnzs[i] = pad_chunk_csr(a, r0, r1, rows_pad, nnz_pad)
-        self.b_indptr = torch.from_numpy(b.indptr.astype(np.int32)).to(self.device)
-        self.b_indices = torch.from_numpy(b.indices.astype(np.int32)).to(self.device)
-        self.a_ptr = torch.from_numpy(ptrs).to(self.device)
-        self.a_idx = torch.from_numpy(idxs).to(self.device)
-        self.a_nnz = torch.from_numpy(nnzs).to(self.device)
+        with span("plan", always=True):
+            with span("plan.search", always=True):
+                rf = row_flops(a, b)
+                self.chunks, rows_pad, nnz_pad, self.flops_pad = uniform_chunk_plan(
+                    a, rf, chunk_flops, b.n_cols
+                )
+            self.n_cols = b.n_cols
+            self._rows_pad = rows_pad
+            C = len(self.chunks)
+            with span("plan.stage", always=True):
+                ptrs = np.empty((C, rows_pad + 1), np.int32)
+                idxs = np.empty((C, nnz_pad), np.int32)
+                nnzs = np.empty(C, np.int32)
+                for i, (r0, r1) in enumerate(self.chunks):
+                    ptrs[i], idxs[i], nnzs[i] = pad_chunk_csr(
+                        a, r0, r1, rows_pad, nnz_pad)
+                dev = self.device
+                self.b_indptr = torch.from_numpy(b.indptr.astype(np.int32)).to(dev)
+                self.b_indices = torch.from_numpy(b.indices.astype(np.int32)).to(dev)
+                self.a_ptr = torch.from_numpy(ptrs).to(dev)
+                self.a_idx = torch.from_numpy(idxs).to(dev)
+                self.a_nnz = torch.from_numpy(nnzs).to(dev)
 
     def run(self) -> tuple[torch.Tensor, torch.Tensor]:
         """One full multiply: the stacked ``(c_indices, nnz_c)`` device
         tensors, row pointers embedded as separators (:meth:`assemble`
         splits them off).  No host sync."""
         C = len(self.chunks)
-        idx = torch.empty((C, self.flops_pad + self._rows_pad), dtype=INT,
-                          device=self.device)
-        nnz = torch.empty(C, dtype=INT, device=self.device)
-        for i in range(C):
-            idx[i], nnz[i] = esc_spgemm_seps(
-                self.a_ptr[i], self.a_idx[i], self.a_nnz[i], self.b_indptr,
-                self.b_indices, n_cols=self.n_cols, flops_pad=self.flops_pad,
-                check_total=False,
-            )
-        return idx, nnz
+        with span("call.run"):
+            idx = torch.empty((C, self.flops_pad + self._rows_pad), dtype=INT,
+                              device=self.device)
+            nnz = torch.empty(C, dtype=INT, device=self.device)
+            for i in range(C):
+                idx[i], nnz[i] = esc_spgemm_seps(
+                    self.a_ptr[i], self.a_idx[i], self.a_nnz[i], self.b_indptr,
+                    self.b_indices, n_cols=self.n_cols, flops_pad=self.flops_pad,
+                    check_total=False,
+                )
+            return idx, nnz
 
     def assemble(self, outputs) -> BCSR:
         """Pull :meth:`run`'s outputs and build the host CSR."""

@@ -76,6 +76,7 @@ from ..ops.spgemm import (
     sort_compress_2d_keys,
     sort_compress_masked,
 )
+from ..utils.trace import span
 from . import comm
 from .mesh import RowMesh, make_row_mesh, partition_rows
 
@@ -374,77 +375,80 @@ def _shard_ell_operands(
     time), where it is re-planned unrolled."""
     from ..ops import ell as ell_mod
 
-    ell = ell_mod.EllB.build(b)
-    rows_pc, pos_pc = ell_mod._build_class_entries(a, ell)
-    widths = tuple(ell.widths)
-    shift = int(b.n_cols).bit_length() + extra_key_bits
-    cap = 1 << max(0, 30 - shift)
+    with span("plan.tables", always=True):
+        ell = ell_mod.EllB.build(b)
+        rows_pc, pos_pc = ell_mod._build_class_entries(a, ell)
+        widths = tuple(ell.widths)
+        shift = int(b.n_cols).bit_length() + extra_key_bits
+        cap = 1 << max(0, 30 - shift)
 
-    if b_tables == "sharded":
-        # class slots ascend with B row, so a position's source shard is a
-        # searchsorted against the class cut array
-        tbl_sh, tbl_pads, cls_cuts, _ = _shard_b_ell_tables(ell, n_shards)
-        remapped = []
-        for ci, pcls in enumerate(pos_pc):
-            p = pcls.astype(np.int64)
-            src = np.searchsorted(cls_cuts[ci], p, side="right") - 1
-            remapped.append(
-                (src * tbl_pads[ci] + (p - cls_cuts[ci][src])).astype(np.int32)
+        if b_tables == "sharded":
+            # class slots ascend with B row, so a position's source shard is a
+            # searchsorted against the class cut array
+            tbl_sh, tbl_pads, cls_cuts, _ = _shard_b_ell_tables(ell, n_shards)
+            remapped = []
+            for ci, pcls in enumerate(pos_pc):
+                p = pcls.astype(np.int64)
+                src = np.searchsorted(cls_cuts[ci], p, side="right") - 1
+                remapped.append(
+                    (src * tbl_pads[ci] + (p - cls_cuts[ci][src])).astype(np.int32)
+                )
+            pos_pc = remapped
+
+    with span("plan.search", always=True):
+        # plan before any staging, with the batched plan's skew guard
+        for attempt_batched in ((allow_batched, False) if allow_batched else (False,)):
+            per_shard_bounds = []
+            batched = False
+            for s in range(n_shards):
+                r0, r1 = int(bounds[s]), int(bounds[s + 1])
+                rf_s = rf[r0:r1]
+                budget = max(int(rf_s.sum()) // 8, 1 << 19)
+                shard_rows = max(r1 - r0, 1)
+                need_packed = -(-shard_rows // cap) if cap else shard_rows + 1
+                if cap >= 512 and need_packed <= 16:
+                    max_rows = cap  # few packed sub-chunks: unrolled plan
+                elif attempt_batched and cap >= 32 and 16 < need_packed <= 4096:
+                    max_rows = cap  # many packed sub-chunks: one [C, sort_pad] sort
+                    batched = True
+                else:
+                    max_rows = shard_rows  # unpacked 2-key sorts: keep C small
+                sb = _balanced_chunk_bounds(rf_s, budget, max_rows) if r1 > r0 else [0, 0]
+                per_shard_bounds.append([r0 + x for x in sb])
+            C = max(len(sb) - 1 for sb in per_shard_bounds)
+            sub_bounds = np.zeros((n_shards, C + 1), np.int64)
+            for s, sb in enumerate(per_shard_bounds):
+                sub_bounds[s, : len(sb)] = sb
+                sub_bounds[s, len(sb) :] = sb[-1]  # trailing empty chunks
+            rows_pad = pad_bucket(int(np.max(np.diff(sub_bounds, axis=1))) or 1, minimum=1)
+            cuts_pc = [
+                np.stack([np.searchsorted(rcls, sub_bounds[s]) for s in range(n_shards)])
+                for rcls in rows_pc
+            ]  # per class: [S, C+1]
+            pads = tuple(
+                pad_bucket(max(int(np.diff(c, axis=1).max()), 1), minimum=8)
+                for c in cuts_pc
             )
-        pos_pc = remapped
-
-    # plan before any staging, with the batched plan's skew guard
-    for attempt_batched in ((allow_batched, False) if allow_batched else (False,)):
-        per_shard_bounds = []
-        batched = False
-        for s in range(n_shards):
-            r0, r1 = int(bounds[s]), int(bounds[s + 1])
-            rf_s = rf[r0:r1]
-            budget = max(int(rf_s.sum()) // 8, 1 << 19)
-            shard_rows = max(r1 - r0, 1)
-            need_packed = -(-shard_rows // cap) if cap else shard_rows + 1
-            if cap >= 512 and need_packed <= 16:
-                max_rows = cap  # few packed sub-chunks: unrolled plan
-            elif attempt_batched and cap >= 32 and 16 < need_packed <= 4096:
-                max_rows = cap  # many packed sub-chunks: one [C, sort_pad] sort
-                batched = True
-            else:
-                max_rows = shard_rows  # unpacked 2-key sorts: keep C small
-            sb = _balanced_chunk_bounds(rf_s, budget, max_rows) if r1 > r0 else [0, 0]
-            per_shard_bounds.append([r0 + x for x in sb])
-        C = max(len(sb) - 1 for sb in per_shard_bounds)
-        sub_bounds = np.zeros((n_shards, C + 1), np.int64)
-        for s, sb in enumerate(per_shard_bounds):
-            sub_bounds[s, : len(sb)] = sb
-            sub_bounds[s, len(sb) :] = sb[-1]  # trailing empty chunks
-        rows_pad = pad_bucket(int(np.max(np.diff(sub_bounds, axis=1))) or 1, minimum=1)
-        cuts_pc = [
-            np.stack([np.searchsorted(rcls, sub_bounds[s]) for s in range(n_shards)])
-            for rcls in rows_pc
-        ]  # per class: [S, C+1]
-        pads = tuple(
-            pad_bucket(max(int(np.diff(c, axis=1).max()), 1), minimum=8)
-            for c in cuts_pc
-        )
-        slots = sum(p * w for p, w in zip(pads, widths))
-        sort_pad = pad_bucket(max(slots, 8))
-        if batched and C * sort_pad > ell_mod.BATCHED_MAX_SLOTS:
-            continue  # skew guard: re-plan unrolled
-        break
+            slots = sum(p * w for p, w in zip(pads, widths))
+            sort_pad = pad_bucket(max(slots, 8))
+            if batched and C * sort_pad > ell_mod.BATCHED_MAX_SLOTS:
+                continue  # skew guard: re-plan unrolled
+            break
     if slots > np.iinfo(np.int32).max:
         raise OverflowError(f"ELL shard expansion {slots} slots exceeds int32")
     tables = tbl_sh if b_tables == "sharded" else list(ell.tables)
-    er, ep = [], []
-    for ci, (rcls, pcls, pad) in enumerate(zip(rows_pc, pos_pc, pads)):
-        r = np.full((n_shards, C, pad), rows_pad, np.int32)
-        p = np.zeros((n_shards, C, pad), np.int32)
-        for s in range(n_shards):
-            for c in range(C):
-                lo, hi = cuts_pc[ci][s, c], cuts_pc[ci][s, c + 1]
-                r[s, c, : hi - lo] = rcls[lo:hi] - sub_bounds[s, c]
-                p[s, c, : hi - lo] = pcls[lo:hi]
-        er.append(r)
-        ep.append(p)
+    with span("plan.stage", always=True):
+        er, ep = [], []
+        for ci, (rcls, pcls, pad) in enumerate(zip(rows_pc, pos_pc, pads)):
+            r = np.full((n_shards, C, pad), rows_pad, np.int32)
+            p = np.zeros((n_shards, C, pad), np.int32)
+            for s in range(n_shards):
+                for c in range(C):
+                    lo, hi = cuts_pc[ci][s, c], cuts_pc[ci][s, c + 1]
+                    r[s, c, : hi - lo] = rcls[lo:hi] - sub_bounds[s, c]
+                    p[s, c, : hi - lo] = pcls[lo:hi]
+            er.append(r)
+            ep.append(p)
     return tables, er, ep, widths, pads, rows_pad, sort_pad, sub_bounds, batched
 
 
@@ -544,7 +548,8 @@ def _ptr_fix(ptr: torch.Tensor, idx: torch.Tensor, nnz: torch.Tensor,
     final/SpGEMM_mpi_omp.c:178-196, and its intra-rank stitch :134-141).
     ``ptr [C, rows+1]``, ``idx [C, P]``, ``nnz [C]``; ``cnt`` (``[C, P]``,
     the counting steps) rides along unfixed."""
-    counts = comm.all_gather_host(nnz.to(torch.int64), mesh).numpy()
+    with span("sync.ptr_fix"):
+        counts = comm.all_gather_host(nnz.to(torch.int64), mesh).numpy()
     local = np.cumsum(counts[mesh.rank]) - counts[mesh.rank]
     off = torch.from_numpy(local + int(counts[: mesh.rank].sum())).to(ptr.device)
     fixed = (ptr.to(torch.int64) + off[:, None]).to(INT)  # int32 wrap, as JAX's
@@ -756,17 +761,20 @@ def dist_spgemm_ell(tables, entry_rows, entry_pos, *, mesh: RowMesh, rows_pad: i
     slices, all-gathered in the step (B memory 1/S until the gather); else
     the replicated tables.  The JAX package's ``batched`` flag changes only
     the plan here: every plan sorts its sub-chunks as one stack."""
-    if gather_tables:
-        tables = _gather_tables(tables, mesh)
-    kw = dict(widths=widths, pads=pads, sort_pad=sort_pad, rows_pad=rows_pad,
-              n_cols=n_cols)
-    if packable(rows_pad, n_cols):
-        key = _ell_stream(tables, entry_rows, entry_pos, shift=n_cols.bit_length(), **kw)
-        out = sort_compress_2d_keys(key, rows_pad, n_cols)
-    else:
-        out = sort_compress_2d(*_ell_stream(tables, entry_rows, entry_pos, **kw),
-                               rows_pad, n_cols)
-    return _ptr_fix(*out, mesh)
+    with span("call.dist_spgemm_ell"):
+        if gather_tables:
+            tables = _gather_tables(tables, mesh)
+        kw = dict(widths=widths, pads=pads, sort_pad=sort_pad, rows_pad=rows_pad,
+                  n_cols=n_cols)
+        packed = packable(rows_pad, n_cols)
+        with span("expand"):
+            stream = _ell_stream(tables, entry_rows, entry_pos,
+                                 shift=n_cols.bit_length() if packed else None, **kw)
+        if packed:
+            out = sort_compress_2d_keys(stream, rows_pad, n_cols)
+        else:
+            out = sort_compress_2d(*stream, rows_pad, n_cols)
+        return _ptr_fix(*out, mesh)
 
 
 def dist_masked_spgemm_ell(tables, entry_rows, entry_pos, f_ptr, f_idx, *,
@@ -1004,21 +1012,24 @@ def _ell_plan(a, b, mesh, balance, engine, **kw):
     ``"ell"`` (a forced engine surfaces the guard)."""
     from ..ops.ell import AUTO_ELL_MAX_SLOTS
 
-    rf = row_flops(a, b)
-    bounds = partition_rows(rf, mesh.size, balance=balance)
-    try:
-        plan = _shard_ell_operands(a, b, mesh.size, bounds, rf, **kw)
-    except OverflowError:
-        if engine == "ell":
-            raise
-        return None
+    with span("plan", always=True):
+        with span("plan.search", always=True):
+            rf = row_flops(a, b)
+            bounds = partition_rows(rf, mesh.size, balance=balance)
+        try:
+            plan = _shard_ell_operands(a, b, mesh.size, bounds, rf, **kw)
+        except OverflowError:
+            if engine == "ell":
+                raise
+            return None
     return plan if plan[6] <= AUTO_ELL_MAX_SLOTS or engine == "ell" else None
 
 
 def _stage_ell(plan, mesh: RowMesh, sharded_tables: bool = False):
     tables, er, ep = plan[:3]
-    tables = [(_mine if sharded_tables else _whole)(t, mesh) for t in tables]
-    return tables, [_mine(e, mesh) for e in er], [_mine(e, mesh) for e in ep]
+    with span("plan", always=True), span("plan.stage", always=True):
+        tables = [(_mine if sharded_tables else _whole)(t, mesh) for t in tables]
+        return tables, [_mine(e, mesh) for e in er], [_mine(e, mesh) for e in ep]
 
 
 def _esc_a(ops: ShardedOperands, mesh: RowMesh) -> tuple:

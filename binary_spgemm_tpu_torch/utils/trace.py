@@ -1,8 +1,11 @@
 """Profiling & observability for the port (counterpart of
 ``binary_spgemm_tpu/utils/trace.py``).
 
-* :func:`phase_timer` — named region timing that synchronises the card at the
-  end of each region (tic/toc parity, correct under asynchronous launches);
+* the recorder: :func:`span` and :func:`count` at the program's layer
+  boundaries (the planner's ``plan.*`` spans always, every other span and
+  count while a ``torch.profiler`` runs or inside :func:`tracing`), read back
+  by :func:`spans` and cleared by :func:`reset`; while a profiler runs each
+  span is also a ``record_function`` range in its timeline;
 * :func:`trace` — a ``torch.profiler`` context writing a Chrome trace;
 * :func:`roofline` / :func:`bsr_roofline` — bytes-moved / speed-of-light
   estimates for a sort-based and a blocked SpGEMM call, priced with the
@@ -18,20 +21,27 @@ part.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
-import dataclasses
+import itertools
 import math
 import os
+import threading
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 __all__ = [
-    "phase_timer",
+    "Span",
+    "count",
+    "reset",
+    "span",
+    "spans",
     "trace",
+    "tracing",
     "roofline",
     "bsr_roofline",
-    "PhaseRecord",
     "device_kind",
     "measure_dispatch_floor",
     "sort_rate_ns",
@@ -57,47 +67,150 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-@dataclasses.dataclass
-class PhaseRecord:
-    name: str
-    seconds: float
+# ---------------------------------------------------------------------------
+# The recorder: the program's own spans and counts
+# ---------------------------------------------------------------------------
+
+#: One closed span: its id, the id of the span it opened inside (``None``
+#: for a root), the id of its root (every span of one call shares it), its
+#: name, its host-clock interval (``time.perf_counter_ns``) and the counts
+#: added while it was open (:func:`count`).
+Span = collections.namedtuple("Span", "id parent call name t0 t1 counts")
+
+#: Spans kept in memory; past it the oldest go, counted in :data:`dropped`.
+SPANS_MAX = 1 << 16
+_spans: collections.deque = collections.deque(maxlen=SPANS_MAX)
+#: Spans pushed out of the full deque since the last :func:`reset`.
+dropped = 0
+_ids = itertools.count(1)
+_tracing = 0  # open :func:`tracing` contexts
+_lock = threading.Lock()
+_local = threading.local()
 
 
-class phase_timer:
-    """Collects named phase timings, each ending in a synchronise of
-    ``device`` (none on the CPU).
+def _stack() -> list:
+    """This thread's open spans, outermost first."""
+    try:
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
 
-    >>> pt = phase_timer()
-    >>> with pt("expand"): out = f(x)
-    >>> pt.records  # [PhaseRecord("expand", ...)]
-    """
 
-    def __init__(self, device="cuda"):
-        self.device = torch.device(device)
-        self.records: list[PhaseRecord] = []
+class _Open:
+    """A recording span: pushed on this thread's stack while open, entered in
+    the profiler's timeline (``record_function``) while a profiler runs, and
+    kept as a :class:`Span` when it closes.  Never synchronises."""
 
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        t0 = time.perf_counter()
+    __slots__ = ("name", "id", "parent", "call", "counts", "t0", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = _stack()
+        outer = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = None if outer is None else outer.id
+        self.call = self.id if outer is None else outer.call
+        self.counts = {}
+        self._rf = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._rf = _autograd_profiler.record_function(self.name)
+            self._rf.__enter__()
+        stack.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        _stack().pop()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        global dropped
+        with _lock:
+            if len(_spans) == SPANS_MAX:
+                dropped += 1
+            _spans.append(Span(self.id, self.parent, self.call, self.name, self.t0,
+                               t1, self.counts))
+        return False
+
+
+class _Off:
+    """The span :func:`span` returns while tracing is off: records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str, always: bool = False):
+    """A span named ``name`` around a ``with`` block.
+
+    It records while tracing is on (a ``torch.profiler`` runs, or inside
+    :func:`tracing`), or always with ``always`` (the planner's ``plan.*``
+    spans: a plan is built once, and its few spans cost microseconds).
+    Otherwise it is one shared object that records nothing.  A span opened
+    inside an open span of the same name records nothing either, so that a
+    plan built inside another (``auto_executor``'s executor) is one plan."""
+    if always or _tracing or _autograd_profiler._is_profiler_enabled:
+        if any(s.name == name for s in _stack()):
+            return _OFF
+        return _Open(name)
+    return _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``name`` in the counts of the innermost open span and of
+    every span it is inside, while tracing is on (else nothing)."""
+    if not (_tracing or _autograd_profiler._is_profiler_enabled):
+        return
+    for s in _stack():
+        s.counts[name] = s.counts.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tracing():
+    """Tracing on for the ``with`` block, without a profiler: every span and
+    count records."""
+    global _tracing
+    with _lock:
+        _tracing += 1
+    try:
         yield
-        # wait for the card so the phase really finished
-        _sync(self.device)
-        self.records.append(PhaseRecord(name, time.perf_counter() - t0))
+    finally:
+        with _lock:
+            _tracing -= 1
 
-    def report(self) -> str:
-        total = sum(r.seconds for r in self.records) or 1.0
-        lines = [
-            f"{r.name:<24s} {r.seconds * 1e3:9.2f} ms  {r.seconds / total:6.1%}"
-            for r in self.records
-        ]
-        return "\n".join(lines)
+
+def spans() -> list:
+    """The recorded :class:`Span` tuples, oldest first (at most
+    :data:`SPANS_MAX`)."""
+    with _lock:
+        return list(_spans)
+
+
+def reset() -> None:
+    """Forget every recorded span and zero :data:`dropped`."""
+    global dropped
+    with _lock:
+        _spans.clear()
+        dropped = 0
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """``torch.profiler`` context (host activity, and the card's where there
     is one); writes ``trace.json`` into ``logdir`` for chrome://tracing or
-    Perfetto.  Yields the profiler."""
+    Perfetto, the program's spans in it as ranges over the ops and kernels
+    they launched.  Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

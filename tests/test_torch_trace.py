@@ -1,9 +1,12 @@
 """The port's trace, timer and debug utilities on the CPU, against the JAX
 package's: ``roofline`` / ``bsr_roofline`` give the JAX functions' dicts on
 the CPU, ``sort_rate_ns`` interpolates as the JAX function does on the same
-table, an H100's name prices with the H100's rates, and ``phase_timer``,
-``trace``, ``measure_dispatch_floor``, ``BenchStats`` / ``bench_fn`` and
-``format_csr`` run and agree with their JAX counterparts."""
+table, an H100's name prices with the H100's rates, and ``trace``,
+``measure_dispatch_floor``, ``BenchStats`` / ``bench_fn`` and ``format_csr``
+run and agree with their JAX counterparts; the recorder (``span``,
+``count``, ``tracing``) records the planner always and a call's spans and
+counts only under a profiler or ``tracing()``, nested as the program's
+layers."""
 import json
 
 import jax
@@ -16,7 +19,8 @@ from binary_spgemm_tpu.utils import debug as jx_debug
 from binary_spgemm_tpu.utils import timers as jx_timers
 from binary_spgemm_tpu.utils import trace as jx_trace
 
-from binary_spgemm_tpu_torch import BCSR
+from binary_spgemm_tpu_torch import BCSR, EllSpGEMMExecutor, SpGEMMExecutor, auto_executor
+from binary_spgemm_tpu_torch.ops import counts
 from binary_spgemm_tpu_torch.utils import debug, timers, trace
 
 H100 = "NVIDIA H100 80GB HBM3"
@@ -105,16 +109,155 @@ def test_device_kind(device, kind):
     assert trace.device_kind(device) == kind
 
 
-def test_phase_timer_on_the_cpu():
-    pt = trace.phase_timer("cpu")
-    with pt("a"):
-        x = torch.arange(1000) * 2
-    with pt("b"):
-        _ = x + 1
-    assert [r.name for r in pt.records] == ["a", "b"]
-    assert all(r.seconds >= 0 for r in pt.records)
-    rep = pt.report()
-    assert "a" in rep and "ms" in rep
+def _mat(n=3000, d=4.0, seed=1):
+    return BCSR.random(n, n, d, seed=seed)
+
+
+def _sym_graph(n, d, seed):
+    """A symmetric adjacency with an empty diagonal."""
+    s = BCSR.random(n, n, d, seed=seed).to_scipy()
+    s = ((s + s.T) > 0).astype(np.int64).tolil()
+    s.setdiag(0)
+    return BCSR.from_scipy(s.tocsr())
+
+
+def _batched(a):
+    return EllSpGEMMExecutor(a, a, batched=True, deal_k=64, device="cpu")
+
+
+def test_spans_off_outside_a_profiler():
+    ex = _batched(_mat())
+    trace.reset()
+    ex.run()
+    assert trace.spans() == [] and trace.dropped == 0
+    assert trace.span("call.run") is trace.span("sort")  # one shared no-op
+    with trace.span("call.run") as s:
+        trace.count("sort.slots", 5)
+    assert trace.spans() == []
+    assert s is trace.span("expand")
+
+
+@pytest.mark.parametrize("route", ["auto", "batched", "esc"])
+def test_plan_spans_record_with_tracing_off(route):
+    a = _mat()
+    trace.reset()
+    if route == "auto":
+        auto_executor(a, a, device="cpu")
+    elif route == "batched":
+        _batched(a)
+    else:
+        SpGEMMExecutor(a, a, chunk_flops=1 << 14, device="cpu")
+    spans = trace.spans()
+    roots = [s for s in spans if s.parent is None]
+    assert [r.name for r in roots] == ["plan"]  # the executor's own plan nests nothing
+    plan = roots[0]
+    inner = [s for s in spans if s is not plan]
+    assert all(s.parent == plan.id and s.call == plan.id for s in inner)
+    want = {"plan.search", "plan.stage"} | ({"plan.tables"} if route != "esc" else set())
+    assert {s.name for s in inner} == want
+    assert all(plan.t0 <= s.t0 <= s.t1 <= plan.t1 for s in inner)
+    assert all(s.counts == {} for s in spans)
+    # the three phases follow one another and never overlap
+    inner.sort(key=lambda s: s.t0)
+    assert all(x.t1 <= y.t0 for x, y in zip(inner, inner[1:]))
+
+
+def test_one_run_under_the_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    ex = _batched(_mat())
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ex.run()
+    spans = trace.spans()
+    roots = [s for s in spans if s.parent is None]
+    assert [r.name for r in roots] == ["call.run"]
+    root = roots[0]
+    inner = [s for s in spans if s is not root]
+    assert all(s.call == root.id and s.parent == root.id for s in inner)
+    for name in ("expand", "sort", "compress"):
+        assert sum(s.name == name for s in inner) == ex.n_groups
+    # each span is a range of the profiler's timeline around the ops it ran
+    events = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()]
+    ranges = {name: [(t0, t1) for t0, t1, n in events if n == name]
+              for name in ("call.run", "expand", "sort", "compress")}
+    assert {k: len(v) for k, v in ranges.items()} == {
+        "call.run": 1, "expand": ex.n_groups, "sort": ex.n_groups,
+        "compress": ex.n_groups}
+    sorts = [(t0, t1) for t0, t1, n in events if n == "aten::sort"]
+    assert len(sorts) == 2 * ex.n_groups
+    for t0, t1 in sorts:  # the first sort of a group in "sort", the second in "compress"
+        assert any(r0 <= t0 and t1 <= r1 for r0, r1 in ranges["sort"] + ranges["compress"])
+    for r0, r1 in ranges["sort"] + ranges["expand"]:
+        assert any(r0 <= t0 and t1 <= r1 for t0, t1, n in events if n.startswith("aten::"))
+    (c0, c1), = ranges["call.run"]
+    assert all(c0 <= t0 and t1 <= c1 for t0, t1, n in events if n.startswith("aten::"))
+
+
+@pytest.mark.parametrize("route", ["batched", "esc"])
+def test_sort_slots_of_one_run(route):
+    a = _mat()
+    if route == "batched":
+        ex = _batched(a)
+        want = 2 * ex.n_groups * ex.group_size * ex.sort_pad
+    else:
+        ex = SpGEMMExecutor(a, a, chunk_flops=1 << 14, device="cpu")
+        want = 2 * len(ex.chunks) * (ex.flops_pad + ex._rows_pad)
+    trace.reset()
+    with trace.tracing():
+        out = ex.run()
+    (root,) = [s for s in trace.spans() if s.parent is None]
+    assert root.name == "call.run" and root.counts == {"sort.slots": want}
+    ref = a.to_scipy() @ a.to_scipy()
+    ref.sort_indices()
+    assert np.array_equal(ex.assemble(out).indices, ref.indices)
+
+
+def test_triangle_count_reads_back_once_a_call():
+    g = _sym_graph(400, 5.0, 46)
+    s = g.to_scipy()
+    want = int(s.multiply(s @ s).sum()) // 6
+    assert counts.triangle_count_device(g, device="cpu") == want  # plans, untraced
+    trace.reset()
+    with trace.tracing():
+        got = [counts.triangle_count_device(g, device="cpu") for _ in range(2)]
+    assert got == [want, want]
+    spans = trace.spans()
+    roots = [r for r in spans if r.parent is None]
+    assert [r.name for r in roots] == ["call.triangle_count"] * 2
+    for r in roots:
+        inner = [x for x in spans if x.call == r.id and x is not r]
+        assert [x.name for x in inner if x.name.startswith("sync.")] == ["sync.sums"]
+        assert [x.name for x in inner if x.name == "call.check"] == ["call.check"]
+        assert "call.run_counts_sum" in {x.name for x in inner}
+        assert r.counts["sort.slots"] > 0
+
+
+def test_counts_nest_and_the_bound_counts_drops():
+    trace.reset()
+    with trace.tracing():
+        with trace.span("call.x") as outer:
+            trace.count("n", 2)
+            with trace.span("inner") as inner:
+                trace.count("n")
+                assert trace.span("inner") is trace.span("call.x")  # re-entered: none
+        with trace.tracing():  # nests
+            pass
+        assert trace.span("y") is not trace.span("y")
+    assert trace.span("y") is trace.span("z")
+    by_name = {s.name: s for s in trace.spans()}
+    assert by_name["call.x"].counts == {"n": 3} and by_name["inner"].counts == {"n": 1}
+    assert by_name["inner"].parent == outer.id == by_name["inner"].call
+    assert inner.id == by_name["inner"].id
+    trace.reset()
+    extra = 3
+    with trace.tracing():
+        for _ in range(trace.SPANS_MAX + extra):
+            with trace.span("s"):
+                pass
+    assert trace.dropped == extra and len(trace.spans()) == trace.SPANS_MAX
+    trace.reset()
+    assert trace.dropped == 0 and trace.spans() == []
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
