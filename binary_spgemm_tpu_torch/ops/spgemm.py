@@ -16,8 +16,9 @@ structure of C = A·B in three vectorised steps:
    1-D ``torch.sort`` calls; ESC launches no hand-written kernel.
 3. **Compress**: drop left-neighbour duplicates and sentinels, demote them
    and sort again, so the valid entries form a prefix; row pointers come from
-   a histogram or a searchsorted (:func:`_histogram_indptr_wins`), or ride
-   in the stream as embedded separators (:func:`sort_compress_seps`).
+   a histogram or a searchsorted (:func:`_indptr`: a 1-D stream by
+   :func:`_histogram_indptr_wins`, a stack by :func:`_search_indptr_wins`),
+   or ride in the stream as embedded separators (:func:`sort_compress_seps`).
 
 Around it: the device-resident container :class:`DeviceBCSR` (the
 operands and results of ``ops/device_api.py``), the flop-balanced chunk
@@ -392,10 +393,24 @@ def _histogram_indptr_wins(n_rows: int, n_slots: int) -> bool:
     return n_rows * log_len * 10 > n_slots * 7
 
 
+def _search_indptr_wins(n_rows: int, n_slots: int) -> bool:
+    """Pick the row-pointer formulation of a stack of sorted streams from its
+    shape alone: the searchsorted reads ``(n_rows + 1) * ceil(log2(n_slots))``
+    positions of a row, the histogram scatters all ``n_slots``; the search
+    wins where it reads no more.  The histogram's cost grows past that count
+    where many slots share an address (the demoted tail of a compacted row
+    is one bucket), which no shape tells, so the search is never the worse
+    choice where this holds."""
+    return (n_rows + 1) * (n_slots - 1).bit_length() <= n_slots
+
+
 def _indptr_from_sorted_rows(rows_sorted: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """Exclusive row pointers from (sorted) per-entry row ids along the last
-    axis: one scatter-add histogram and a cumsum.  Entries with ``row >=
-    n_rows`` (sort sentinels) land in a tail bucket that is cut off."""
+    """Exclusive row pointers from per-entry row ids along the last axis: one
+    scatter-add histogram and a cumsum.  Entries with ``row >= n_rows`` (sort
+    sentinels, demoted slots) land in a tail bucket that is cut off; every
+    such slot of a row adds to that one address.  :func:`_indptr` takes it
+    for a 1-D stream where :func:`_histogram_indptr_wins` holds and for a
+    stack where :func:`_search_indptr_wins` does not."""
     idx = torch.clamp(rows_sorted, max=n_rows).long() + 1
     counts = torch.zeros((*idx.shape[:-1], n_rows + 2), dtype=INT,
                          device=rows_sorted.device)
@@ -403,16 +418,33 @@ def _indptr_from_sorted_rows(rows_sorted: torch.Tensor, n_rows: int) -> torch.Te
     return torch.cumsum(counts, -1, dtype=INT)[..., : n_rows + 1]
 
 
+def _indptr_search(rows_sorted: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Exclusive row pointers of row ids sorted along the last axis, by one
+    batched searchsorted: ``indptr[..., b]`` is the number of slots whose row
+    is below ``b``.  Ids at or past ``n_rows`` sort last and count in no
+    bound, so the pointers equal :func:`_indptr_from_sorted_rows`'."""
+    bounds = torch.arange(n_rows + 1, dtype=rows_sorted.dtype,
+                          device=rows_sorted.device)
+    bounds = bounds.expand(*rows_sorted.shape[:-1], n_rows + 1).contiguous()
+    return torch.searchsorted(rows_sorted, bounds, out_int32=True)
+
+
 def _indptr(rows_sorted: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """Exclusive row pointers of sorted row ids: a 1-D stream takes the
-    formulation :func:`_histogram_indptr_wins` picks, a stack of streams the
-    histogram (the JAX package's batched choice).  Both give the same
-    pointers."""
-    if rows_sorted.dim() == 1 and not _histogram_indptr_wins(
-            n_rows, rows_sorted.shape[0]):
-        bounds = torch.arange(n_rows + 1, dtype=rows_sorted.dtype,
-                              device=rows_sorted.device)
-        return torch.searchsorted(rows_sorted, bounds, out_int32=True)
+    """Exclusive row pointers of row ids sorted along the last axis
+    (``[..., L]`` int32 or int64 -> ``[..., n_rows + 1]`` int32): a 1-D
+    stream takes the formulation :func:`_histogram_indptr_wins` picks, a
+    stack the searchsorted where :func:`_search_indptr_wins` holds for its
+    row length, else the histogram.  Both give the same pointers; the
+    ``indptr.search`` / ``indptr.histogram`` count says which ran."""
+    n_slots = rows_sorted.shape[-1]
+    if rows_sorted.dim() == 1:
+        search = not _histogram_indptr_wins(n_rows, n_slots)
+    else:
+        search = _search_indptr_wins(n_rows, n_slots)
+    if search:
+        count("indptr.search")
+        return _indptr_search(rows_sorted, n_rows)
+    count("indptr.histogram")
     return _indptr_from_sorted_rows(rows_sorted, n_rows)
 
 
@@ -490,13 +522,13 @@ def sort_compress_2d_keys(
     """Batched :func:`sort_compress` on the pre-packed ``[C, L]`` key stream
     ``(row << bl) | col``: each row of the stack sorts, deduplicates and
     compacts on its own (:func:`_compress_2d_keys`), and each row's exclusive
-    row pointers come from a histogram of its compacted row field.  Returns
+    row pointers come from its compacted row field (:func:`_indptr`).  Returns
     ``(c_indptr [C, n_rows+1], c_indices [C, L], nnz [C])``; the distributed
     ELL step serves all of a rank's sub-chunks with it."""
     shift = int(n_cols).bit_length()
     c_keys, nnz_c = _compress_2d_keys(key, n_rows, n_cols)
-    # INT32_MAX (the demoted slots) shifts to past n_rows: the tail bucket
-    indptr = _indptr_from_sorted_rows(c_keys >> shift, n_rows)
+    # INT32_MAX (the demoted slots) shifts to past n_rows: counted in no row
+    indptr = _indptr(c_keys >> shift, n_rows)
     return indptr, c_keys & ((1 << shift) - 1), nnz_c
 
 
@@ -519,7 +551,7 @@ def sort_compress_2d(
         nnz_c = keep.sum(dim=1, dtype=INT)
         c_keys = _sort(torch.where(keep, key_s, (n_rows << 32) | n_cols),
                        dim=1).values
-        indptr = _indptr_from_sorted_rows((c_keys >> 32).to(INT), n_rows)
+        indptr = _indptr((c_keys >> 32).to(INT), n_rows)
         return indptr, (c_keys & 0xFFFFFFFF).to(INT), nnz_c
 
 

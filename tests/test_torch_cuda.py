@@ -959,6 +959,31 @@ def test_sort_compress_2d_on_the_card_equals_the_cpu(cuda_device, L, packable):
     assert bitonic.bitonic_sort_rows.launches - k1 == (2 if packable and L <= 32768 else 0)
 
 
+
+def test_stacked_indptr_search_equals_the_histogram_on_the_card(cuda_device):
+    """The four-card step's compacted row stack at its tail share: [9, 2^22]
+    int32 row ids sorted along each row, about 77 % of the slots past
+    ``n_rows`` = 8,192 (the row field of the demoted ``INT32_MAX`` keys at
+    the cell's 32,768 columns).  ``_indptr`` takes the searchsorted there,
+    and its pointers equal the scatter-add histogram's and the CPU's."""
+    from binary_spgemm_tpu_torch.ops import spgemm as sp
+
+    C, L, n_rows = 9, 1 << 22, 8192
+    assert sp._search_indptr_wins(n_rows, L)
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    real = torch.randint(0, n_rows, (C, L), generator=g, device=cuda_device,
+                         dtype=torch.int32)
+    tail = torch.rand((C, L), generator=g, device=cuda_device) < 0.77
+    rows = torch.where(tail, I32_MAX >> 16, real).sort(dim=-1).values
+    got = sp._indptr(rows, n_rows)
+    want = sp._indptr_from_sorted_rows(rows, n_rows)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (C, n_rows + 1)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), sp._indptr_from_sorted_rows(rows.cpu(), n_rows))
+    share = 1 - want[:, -1].sum().item() / (C * L)
+    assert 0.76 < share < 0.78
+
 def dist_cases(device):
     from binary_spgemm_tpu_torch.parallel import dist_spgemm as dist
 

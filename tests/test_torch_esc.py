@@ -21,6 +21,7 @@ from binary_spgemm_tpu_torch.formats import bcsr as tp_bcsr
 from binary_spgemm_tpu_torch.ops import bitonic
 from binary_spgemm_tpu_torch.ops import ell as tp_ell
 from binary_spgemm_tpu_torch.ops import spgemm as tp_sp
+from binary_spgemm_tpu_torch.utils import trace
 from binary_spgemm_tpu_torch.utils.oracle import masked_spgemm_oracle, spgemm_oracle
 
 
@@ -188,6 +189,96 @@ def test_histogram_rule_matches_jax():
         for n_slots in (0, 1, 400, 1 << 20, 2_600_000):
             assert tp_sp._histogram_indptr_wins(n_rows, n_slots) == (
                 jx_sp._histogram_indptr_wins(n_rows, n_slots))
+
+
+# a stack's rows of 512 slots: ceil(log2 512) = 9 reads a bound, so the
+# searchsorted reads no more than the histogram's 512 scatters up to
+# n_rows = 55 (40 takes it, 60 keeps the histogram)
+STACK_L = 512
+# the row field of a demoted INT32_MAX key: packed at 6 column bits, or the
+# int64 pair key's high word
+DEMOTED_ROW = {torch.int32: ((1 << 31) - 1) >> 6, torch.int64: (1 << 31) - 1}
+
+
+def sorted_row_stack(lead, n_rows, fill, dtype, seed):
+    """Row ids ``lead + (STACK_L,)``, each row sorted: ``tail`` every slot
+    past the real rows, ``real`` none, ``gaps`` empty leading, middle and
+    trailing rows and a tail of any length (none and all included).  Tail
+    ids are ``n_rows`` (a demoted pair key's row) and the row field of a
+    demoted ``INT32_MAX`` packed key."""
+    rng = np.random.default_rng(seed)
+    if fill == "gaps":
+        real = np.setdiff1d(np.arange(n_rows), np.r_[0:3, n_rows // 2 - 2:n_rows // 2 + 2,
+                                                     n_rows - 4:n_rows])
+        x = rng.choice(real, (*lead, STACK_L))
+        n_tail = rng.integers(0, STACK_L + 1, lead)
+        n_tail.reshape(-1)[:2] = (0, STACK_L)
+        tail_slot = np.arange(STACK_L) >= STACK_L - n_tail[..., None]
+    else:
+        x = rng.integers(0, n_rows, (*lead, STACK_L))
+        tail_slot = np.full(x.shape, fill == "tail")
+    x = np.where(tail_slot, rng.choice([n_rows, DEMOTED_ROW[dtype]], x.shape), x)
+    return torch.from_numpy(np.sort(x, axis=-1)).to(dtype)
+
+
+@pytest.mark.parametrize("lead", [(3,), (2, 3)])
+@pytest.mark.parametrize("n_rows", [40, 60])
+@pytest.mark.parametrize("fill", ["tail", "real", "gaps"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_stacked_indptr_forms_agree(dtype, fill, n_rows, lead):
+    """A stack's searchsorted pointers equal its histogram's and each row's
+    JAX pointers, on either side of the shape rule; ``_indptr`` takes the
+    form the rule picks and counts it."""
+    x = sorted_row_stack(lead, n_rows, fill, dtype, n_rows + len(lead))
+    want = tp_sp._indptr_from_sorted_rows(x, n_rows)
+    assert want.shape == (*lead, n_rows + 1)
+    for row, ptr in zip(x.reshape(-1, STACK_L), want.reshape(-1, n_rows + 1)):
+        j = jx_sp._indptr_from_sorted_rows(jnp.asarray(row.numpy()), n_rows)
+        assert np.array_equal(ptr.numpy(), np.asarray(j))
+    search = tp_sp._indptr_search(x, n_rows)
+    assert search.dtype == torch.int32 and torch.equal(search, want)
+    takes_search = n_rows == 40
+    assert tp_sp._search_indptr_wins(n_rows, STACK_L) == takes_search
+    trace.reset()
+    with trace.tracing(), trace.span("call.indptr"):
+        got = tp_sp._indptr(x, n_rows)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    (root,) = trace.spans()
+    assert root.counts == {"indptr.search" if takes_search else "indptr.histogram": 1}
+
+
+def test_indptr_counts_the_form_each_compress_takes():
+    """``sort_compress_2d_keys`` on a stack (the distributed step's
+    compress) forms its pointers by the searchsorted, once; a 1-D
+    ``sort_compress`` keeps the form ``_histogram_indptr_wins`` picks, the
+    histogram at the ESC cell's chunk shape (2^25 flops over 1,441,792
+    padded rows) and at this 1-D stream's, which as a stack would search."""
+    n_rows, n_cols, C = 40, 53, 4
+    assert tp_sp._search_indptr_wins(n_rows, STACK_L)
+    rows = [stream(n_rows, n_cols, STACK_L, 70 * c, c) for c in range(C)]
+    row = torch.from_numpy(np.stack([r for r, _ in rows]))
+    col = torch.from_numpy(np.stack([c for _, c in rows]))
+    key = (row << int(n_cols).bit_length()) | col
+    trace.reset()
+    with trace.tracing(), trace.span("call.stack"):
+        ptr, idx, nnz = tp_sp.sort_compress_2d_keys(key, n_rows, n_cols)
+    (root,) = [s for s in trace.spans() if s.parent is None]
+    assert root.counts == {"sort.slots": 2 * C * STACK_L, "indptr.search": 1}
+    for c in range(C):  # each row is its own 1-D compress
+        w_ptr, w_idx, w_nnz = tp_sp.sort_compress(row[c], col[c], n_rows, n_cols)
+        assert torch.equal(ptr[c], w_ptr) and int(nnz[c]) == int(w_nnz)
+        assert torch.equal(idx[c, : int(w_nnz)], w_idx[: int(w_nnz)])
+
+    assert tp_sp._histogram_indptr_wins(1_441_792, (1 << 25) + 1_441_792)
+    row, col = stream(37, 53, 400, 50, 7)
+    assert tp_sp._histogram_indptr_wins(37, 400) and tp_sp._search_indptr_wins(37, 400)
+    trace.reset()
+    with trace.tracing(), trace.span("call.esc"):
+        ptr, _, _ = tp_sp.sort_compress(torch.from_numpy(row), torch.from_numpy(col), 37, 53)
+    (root,) = [s for s in trace.spans() if s.parent is None]
+    assert root.counts["indptr.histogram"] == 1 and "indptr.search" not in root.counts
+    j_ptr, _, _ = jx_sp.sort_compress(jnp.asarray(row), jnp.asarray(col), 37, 53)
+    assert np.array_equal(ptr.numpy(), np.asarray(j_ptr))
 
 
 @pytest.mark.parametrize("n_rows,n_cols", COMPRESS_CASES[::2])
