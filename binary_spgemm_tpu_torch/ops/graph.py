@@ -8,7 +8,10 @@ coefficients and the k-truss, each a chain of the port's products.
 otherwise.  The JAX package's boolean ``device=`` flag of ``k_hop`` /
 ``transitive_closure`` (keep the running matrices in HBM) is ``resident=``
 here, and ``triangle_count``'s (the counting kernel rather than the scipy
-oracle) is ``resident=`` too; the defaults are JAX's.
+oracle) is ``resident=`` too; the defaults are JAX's.  ``k_truss`` has no
+such flag in the JAX package: its ``resident=True`` (the default) is the
+device-resident peel of :mod:`.truss`, ``resident=False`` the JAX
+package's host loop.
 
 ``k_hop`` and ``transitive_closure`` run on three routes:
 
@@ -43,6 +46,7 @@ from .onesort import (
     spgemm_or_onesort_device,
 )
 from .spgemm import INT, DeviceBCSR, pad_bucket, require_int32_operands, spgemm
+from .truss import k_truss_device
 
 __all__ = [
     "DEVICE_CLOSURE_MAX_FLOPS",
@@ -256,14 +260,23 @@ def clustering_coefficients(
 
 
 def k_truss(
-    a: BCSR, k: int, *, chunk_flops: int | None = None,
+    a: BCSR, k: int, *, chunk_flops: int | None = None, resident: bool = True,
     device: str | torch.device = "cuda",
 ) -> BCSR:
     """The k-truss of the undirected simple graph with (symmetric, hollow)
     adjacency A: the largest subgraph whose every edge lies in at least k-2
-    of its triangles.  Peeling: each round's per-edge common-neighbour
-    counts (:func:`..counts.masked_spgemm_counts`, F = G = G) drop the
-    edges below k-2, until nothing drops."""
+    of its triangles, by the synchronous peel (every round drops all the
+    edges below k-2 at once, until nothing drops).
+
+    ``resident=True`` (the default) peels on ``device``
+    (:func:`..truss.k_truss_device`: the graph a live mask over A's entries
+    on A's cached masked plan, or ESC where that does not fit or
+    ``chunk_flops`` is given; one device read a round, the result pulled
+    once).  ``resident=False`` is the host loop, each round's per-edge
+    common-neighbour counts (:func:`..counts.masked_spgemm_counts`, F = G =
+    G) and a new host graph.  Both give the same canonical CSR."""
+    if resident:
+        return k_truss_device(a, k, chunk_flops=chunk_flops, device=device)
     if k < 3:
         raise ValueError("k-truss needs k >= 3")
     if a.n_rows != a.n_cols:

@@ -1143,3 +1143,23 @@ def test_all_reduce_sum_on_the_card(cuda_device, n_ranks, backend, staged):
         assert f["backend"] == backend and f["device"].startswith("cuda")
         assert list(f["sum"]) == [S * (S - 1) // 2, S * (1 << 40) + S * (S - 1) // 2]
         assert f["counters"] == {"calls": 1, "bytes": 16, "staged_bytes": staged}
+
+
+@pytest.mark.parametrize("chunk_flops", [None, 1 << 18])
+@pytest.mark.parametrize("k", [8, 16])
+def test_k_truss_peel_on_the_card_equals_the_cpu(cuda_device, k, chunk_flops):
+    """``k_truss(resident=True)`` on the card (the masked ELL plan with its
+    compaction rounds, or ESC) equals the same peel on the CPU, the host
+    loop and the plain reference, on a scale-10 Kronecker graph."""
+    from binary_spgemm_tpu_torch.ops import graph
+    from spgemm_bench import gen, ktruss_reference
+
+    cfg = {"generator": "kronecker", "structure_seed": 1, "scale": 10, "edge_factor": 16,
+           "a": 0.57, "b": 0.19, "c": 0.19, "symmetric": True, "self_loops": False}
+    indptr, indices, n = gen.generate(cfg, 7)
+    g = tp.BCSR(indptr.copy(), indices.copy(), (n, n))
+    got = graph.k_truss(g, k, chunk_flops=chunk_flops)
+    assert got.equals(graph.k_truss(g, k, chunk_flops=chunk_flops, device="cpu"))
+    assert got.equals(graph.k_truss(g, k, resident=False, device="cpu"))
+    ref = ktruss_reference.peel(indptr, indices, n, k, cuda_device)
+    assert ref.rounds >= 5 and np.array_equal(ref.indices, got.indices)

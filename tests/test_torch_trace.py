@@ -306,3 +306,37 @@ def test_print_csr(capsys):
     debug.print_csr(BCSR.from_dense(np.eye(2, dtype=np.int8)))
     assert capsys.readouterr().out.startswith("1 .\n. 1")
 
+
+
+def test_k_truss_spans_and_counts():
+    """The resident peel under ``tracing()``: one ``call.k_truss`` root a
+    call with its input check, a ``ktruss.round`` a support round (as many
+    as the plain reference's peel), each holding ``ktruss.support``,
+    ``ktruss.filter`` and its one read ``sync.peel``; the result read once;
+    ``ktruss.rounds`` and ``ktruss.dropped`` counted on the root."""
+    from binary_spgemm_tpu_torch.ops import graph
+    from spgemm_bench import ktruss_reference
+
+    g = _sym_graph(300, 12.0, 47)
+    ref = ktruss_reference.peel(g.indptr, g.indices, g.n_rows, 4, "cpu")
+    assert ref.rounds >= 3
+    for chunk_flops in (None, 4096):
+        graph.k_truss(g, 4, chunk_flops=chunk_flops, device="cpu")  # plans, untraced
+        trace.reset()
+        with trace.tracing():
+            got = graph.k_truss(g, 4, chunk_flops=chunk_flops, device="cpu")
+        assert got.nnz == len(ref.indices)
+        spans = trace.spans()
+        (root,) = [s for s in spans if s.parent is None]
+        assert root.name == "call.k_truss"
+        assert root.counts["ktruss.rounds"] == ref.rounds
+        assert root.counts["ktruss.dropped"] == g.nnz - got.nnz
+        assert root.counts["sort.slots"] > 0
+        inner = [s for s in spans if s.call == root.id and s is not root]
+        rounds = [s for s in inner if s.name == "ktruss.round"]
+        assert len(rounds) == ref.rounds
+        for r in rounds:
+            kids = [s.name for s in inner if s.parent == r.id]
+            assert kids == ["ktruss.support", "ktruss.filter", "sync.peel"]
+        assert [s.name for s in inner if s.parent == root.id
+                and s.name != "ktruss.round"] == ["call.check", "sync.result"]
